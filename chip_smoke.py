@@ -10,20 +10,30 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. device  — a CUDA card must be present; prints its name and power limit
    as ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``.
 2. build   — compiles ``gelly_streaming_tpu_torch/csrc/*.cu`` with nvcc for
-   sm_90a (one nvcc per source, started together).
+   sm_90a (one nvcc per source, started together), prints ptxas's register
+   and spill report, and counts the ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA
+   load) instructions of the tensor-core kernel in ``cuobjdump -sass``;
+   either count at 0 fails ("not checked" where there is no cuobjdump).
 3. kernels — ``fused_sage_matmul`` against ``fused_sage_matmul_plain`` on the
-   card at V=100/F=48/O=72 and at the two layer shapes of BASELINE config
-   #5, f32 and bf16, relu and none; then kernel, plain, library (cuBLAS
-   ``addmm`` on pre-concatenated operands, timed here only) and bound
-   times at the config #5 shapes.
+   card, each call asserting which kernel it launched: the two layer shapes
+   of BASELINE config #5 (bf16 takes "tc", f32 "simt"); the ragged "tc"
+   shapes V in {1, 100, 257, 65537} x (F, O) in {(48, 72), (136, 264)};
+   the "simt" shapes of the first slice, f32 and bf16 views whose address
+   is 2 bytes off 16-byte alignment; relu and none. Then, at the config #5
+   shapes in bf16, the times of the kernel, its plain version, the library
+   (cuBLAS ``addmm`` on pre-concatenated operands, timed here only) and the
+   "simt" kernel, each launch timed alone with a cold L2 (see ``cold_ms``),
+   beside the bound; and the warm loop of the first slice on a labelled
+   line of its own.
 4. slice   — config #5 streaming GraphSAGE through the port's entry points:
    ``SimpleEdgeStream`` with ``CountWindow(1 << 18)`` over
    ``IdentityDict(1 << 16)`` into ``StreamingGraphSAGE`` with a
    ``TableFeatureSource``, dims [128, 256, 128] in bf16, 4 windows (the
-   edge accumulator crosses 2^18 -> 2^19 -> 2^20). The kernel's launch
-   count must rise by exactly 2 per window; the last window's embeddings
-   are held against a reference composed on the card from the plain
-   functions; then edges/s, ms per window and where the time goes.
+   edge accumulator crosses 2^18 -> 2^19 -> 2^20). The counts are set to 0
+   just before: the run must launch "tc" exactly twice per window and
+   "simt" never; the last window's embeddings are held against a reference
+   composed on the card from the plain functions; then edges/s, ms per
+   window and where the time goes.
 5. a ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
 
 TF32 is off for float32 matmuls (``torch.backends.cuda.matmul.allow_tf32 =
@@ -31,6 +41,8 @@ False``), so the plain version's f32 products are full f32.
 """
 
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import time
@@ -56,6 +68,10 @@ KERNEL_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # from run to run, in bf16, and both layers round to bf16
 SLICE_TOL = 2e-2
 
+# written before every timed launch: more than twice the H100's 50 MB L2
+FLUSH_BYTES = 256 << 20
+TIMED_LAUNCHES = 25
+
 
 def make_stream(n_vertices, n_edges, seed=7):
     """Power-law-ish random edge stream (Zipf endpoints, like social graphs);
@@ -73,8 +89,31 @@ def say(*parts):
     print(*parts, flush=True)
 
 
+def cold_ms(torch, fn, flush, iters=TIMED_LAUNCHES, warmup=3):
+    """Median device time of one call of ``fn`` with a cold L2: before each
+    call the ``flush`` buffer (``FLUSH_BYTES``) is written, which evicts the
+    operands from L2, and each call runs between its own pair of CUDA
+    events. The write of the buffer takes longer on the card than the host
+    takes to enqueue the call, so the events time the call, not the host."""
+    for _ in range(warmup):
+        fn()
+    pairs = []
+    for _ in range(iters):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
 def cuda_ms(torch, fn, iters=20, warmup=3):
-    """Mean device time of ``fn`` over ``iters`` calls, by CUDA events."""
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls on the
+    same operands, by one pair of CUDA events (the first slice's timing;
+    operands that fit in L2 stay warm there)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -116,6 +155,38 @@ def phase_build():
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line:
                 say("   ", line.strip())
+    sass_counts(paths["fused_sage_matmul"], cuda_build.find_nvcc())
+
+
+def sass_counts(library, nvcc):
+    """Counts of HGMMA (wgmma) and UTMALDG (TMA tile load) in each instance
+    of the tensor-core kernel, from ``cuobjdump -sass`` of the built library;
+    fails if an instance has none of either."""
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    if not os.path.isfile(cuobjdump):
+        cuobjdump = shutil.which("cuobjdump")
+    if not cuobjdump:
+        say("sass: HGMMA and UTMALDG not checked (no cuobjdump)")
+        return
+    sass = subprocess.run([cuobjdump, "-sass", library], capture_output=True, text=True,
+                          check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            if "fused_sage_matmul_tc_kernel" not in fn:
+                fn = None
+            else:
+                counts[fn] = {"HGMMA": 0, "UTMALDG": 0}
+        elif fn is not None:
+            for op in ("HGMMA", "UTMALDG"):
+                counts[fn][op] += op in line
+    if not counts:
+        raise AssertionError("cuobjdump shows no fused_sage_matmul_tc_kernel")
+    for fn, c in sorted(counts.items()):
+        say(f"sass: {fn}: HGMMA {c['HGMMA']}, UTMALDG {c['UTMALDG']}")
+        if c["HGMMA"] == 0 or c["UTMALDG"] == 0:
+            raise AssertionError(f"the tensor-core kernel {fn} has no wgmma or no TMA load")
 
 
 def _operands(torch, gen, v, f, o, dtype):
@@ -134,53 +205,113 @@ def bound_ms(v, f, o, dtype_name):
     return max(nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[dtype_name]) * 1e3, nbytes, ops
 
 
+def _check_kernel(torch, sk, ops, act, variant, label):
+    """One wrapper call on the card, which must launch ``variant``, against
+    the plain version at ``KERNEL_TOL``; returns the max abs error."""
+    dtype_name = str(ops[0].dtype).replace("torch.", "")
+    before = dict(sk.LAUNCHES_BY_VARIANT)
+    got = sk.fused_sage_matmul(*ops, act)
+    torch.cuda.synchronize()
+    launched = {k: sk.LAUNCHES_BY_VARIANT[k] - before[k] for k in before}
+    want = sk.fused_sage_matmul_plain(*ops, act)
+    err = (got.float() - want.float()).abs().max().item()
+    ref = want.float().abs().max().item()
+    tol = KERNEL_TOL[dtype_name] * max(ref, 1.0)
+    ok = (err <= tol and bool(torch.isfinite(got).all())
+          and launched == {k: int(k == variant) for k in launched})
+    say(f"kernel vs plain {label} {dtype_name} {act} [{variant}]: max_abs_err {err:.3e} "
+        f"(max|ref| {ref:.3e}, tol {tol:.3e}) launched {launched} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"fused_sage_matmul ({variant}) failed at {label} {dtype_name} {act}")
+    return err
+
+
+def _misaligned(torch, t):
+    """A contiguous copy of ``t`` whose address is 2 bytes past a multiple
+    of 16 (an element into a fresh allocation)."""
+    flat = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    view = flat[1:1 + t.numel()].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 == 2
+    return view
+
+
 def phase_kernels(torch):
     from gelly_streaming_tpu_torch.ops import sage_kernels as sk
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    shapes = [(100, 48, 72), (N_VERTICES, DIMS[0], DIMS[1]), (N_VERTICES, DIMS[1], DIMS[2])]
+    main = [(N_VERTICES, DIMS[0], DIMS[1]), (N_VERTICES, DIMS[1], DIMS[2])]
     main_err = 0.0
-    for v, f, o in shapes:
-        for dtype_name in ("float32", "bfloat16"):
-            dtype = getattr(torch, dtype_name)
-            ops = _operands(torch, gen, v, f, o, dtype)
+    # config #5 shapes: bf16 on the tensor cores, f32 on the CUDA cores
+    for v, f, o in main:
+        for dtype_name, variant in (("bfloat16", "tc"), ("float32", "simt")):
+            ops = _operands(torch, gen, v, f, o, getattr(torch, dtype_name))
             for act in ("relu", "none"):
-                got = sk.fused_sage_matmul(*ops, act)
-                torch.cuda.synchronize()
-                want = sk.fused_sage_matmul_plain(*ops, act)
-                err = (got.float() - want.float()).abs().max().item()
-                ref = want.float().abs().max().item()
-                tol = KERNEL_TOL[dtype_name] * max(ref, 1.0)
-                ok = err <= tol and bool(torch.isfinite(got).all())
-                say(f"kernel vs plain [{v},{f}]x[{f},{o}] {dtype_name} {act}: "
-                    f"max_abs_err {err:.3e} (max|ref| {ref:.3e}, tol {tol:.3e}) "
-                    f"{'ok' if ok else 'FAIL'}")
-                if not ok:
-                    raise AssertionError(f"fused_sage_matmul disagrees with its plain version "
-                                         f"at [{v},{f}]x[{f},{o}] {dtype_name} {act}")
-                if v == N_VERTICES and dtype_name == "bfloat16":
+                err = _check_kernel(torch, sk, ops, act, variant, f"[{v},{f}]x[{f},{o}]")
+                if variant == "tc":
                     main_err = max(main_err, err)
+    # ragged tensor-core shapes: V and F tails, O > 256 (two column tiles)
+    for f, o in ((48, 72), (136, 264)):
+        for v in (1, 100, 257, 65537):
+            ops = _operands(torch, gen, v, f, o, torch.bfloat16)
+            for act in ("relu", "none"):
+                _check_kernel(torch, sk, ops, act, "tc", f"[{v},{f}]x[{f},{o}]")
+    # the CUDA-core kernel: f32, F and O off multiples of 8, misaligned bf16
+    for v, f, o in ((100, 48, 72), (257, 130, 65), (1, 1, 1)):
+        for dtype_name in ("float32", "bfloat16"):
+            ops = _operands(torch, gen, v, f, o, getattr(torch, dtype_name))
+            if dtype_name == "bfloat16" and f % 8 == 0 and o % 8 == 0:
+                ops = tuple(_misaligned(torch, t) for t in ops)
+            for act in ("relu", "none"):
+                _check_kernel(torch, sk, ops, act, "simt", f"[{v},{f}]x[{f},{o}]")
 
     # times at the main path's shapes: layer 1 relu, layer 2 none, bf16
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     rows = []
-    for (v, f, o), act in zip(shapes[1:], ("relu", "none")):
+    for (v, f, o), act in zip(main, ("relu", "none")):
         h, agg, ws, wn, b = _operands(torch, gen, v, f, o, torch.bfloat16)
         cat_x = torch.cat([h, agg], dim=1)
         cat_w = torch.cat([ws, wn], dim=0)
+        out = torch.empty((v, o), dtype=torch.bfloat16, device="cuda")
+
+        def kernel():
+            return sk.fused_sage_matmul(h, agg, ws, wn, b, act)
+
+        def simt():
+            sk._launch("simt", h, agg, ws, wn, b, out, act)
+
+        def plain():
+            return sk.fused_sage_matmul_plain(h, agg, ws, wn, b, act)
 
         def library():
-            out = torch.addmm(b, cat_x, cat_w)
-            return torch.relu_(out) if act == "relu" else out
+            y = torch.addmm(b, cat_x, cat_w)
+            return torch.relu_(y) if act == "relu" else y
 
         row = {
             "shape": f"[{v},{f}]x[{f},{o}] {act}",
-            "kernel_ms": cuda_ms(torch, lambda: sk.fused_sage_matmul(h, agg, ws, wn, b, act)),
-            "plain_ms": cuda_ms(torch, lambda: sk.fused_sage_matmul_plain(h, agg, ws, wn, b, act)),
-            "library_ms": cuda_ms(torch, library),
+            "kernel_ms": cold_ms(torch, kernel, flush),
+            "plain_ms": cold_ms(torch, plain, flush),
+            "library_ms": cold_ms(torch, library, flush),
+            "simt_ms": cold_ms(torch, simt, flush),
         }
         row["bound_ms"], row["bytes"], row["ops"] = bound_ms(v, f, o, "bfloat16")
-        say("time " + json.dumps(row))
+        row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+        t0 = time.perf_counter()
+        for _ in range(100):
+            kernel()
+        row["host_us_per_call"] = (time.perf_counter() - t0) * 1e4
+        torch.cuda.synchronize()
+        say("time (cold L2, median of each launch alone) " + json.dumps(row))
+        if row["bound_share"] > 1.0:
+            raise AssertionError("the kernel ran faster than its bound: the timing is wrong")
+        warm = {"shape": row["shape"], "kernel_ms": cuda_ms(torch, kernel),
+                "plain_ms": cuda_ms(torch, plain), "library_ms": cuda_ms(torch, library),
+                "simt_ms": cuda_ms(torch, simt)}
+        say("time (warm loop as in the first slice: mean of 20 back-to-back launches) "
+            + json.dumps(warm))
+        row["warm"] = warm
         rows.append(row)
+    del flush
     return main_err, rows
 
 
@@ -210,15 +341,19 @@ def phase_slice(torch, kernel_rows):
         .to(torch.bfloat16), device="cuda",
     )
 
-    # the main path, counted: every window's layers go through the kernel
+    # the main path, counted: every window's layers go through the
+    # tensor-core kernel
     sk.LAUNCHES = 0
+    sk.LAUNCHES_BY_VARIANT.update(tc=0, simt=0)
     outs = _run_slice(torch, src, dst, params, table)
     torch.cuda.synchronize()
     launches = sk.LAUNCHES
-    say(f"slice: {len(outs)} windows, fused_sage_matmul launches {launches} "
-        f"(expected {2 * N_WINDOWS})")
-    if len(outs) != N_WINDOWS or launches != 2 * N_WINDOWS:
-        raise AssertionError("the main path did not launch the kernel twice per window")
+    by_variant = dict(sk.LAUNCHES_BY_VARIANT)
+    say(f"slice: {len(outs)} windows, fused_sage_matmul launches {launches} {by_variant} "
+        f"(expected tc {2 * N_WINDOWS}, simt 0)")
+    if len(outs) != N_WINDOWS or by_variant != {"tc": 2 * N_WINDOWS, "simt": 0}:
+        raise AssertionError("the main path did not launch the tensor-core kernel twice "
+                             "per window, and only it")
     for out in outs:
         if tuple(out.shape) != (N_VERTICES, DIMS[-1]) or not bool(torch.isfinite(out).all()):
             raise AssertionError(f"bad embeddings: shape {tuple(out.shape)}")
@@ -301,9 +436,10 @@ def main():
     slice_result = phase_slice(torch, rows)
     kernel = {
         "name": "fused_sage_matmul",
+        "variant": "tc",
         "route": "cuda",
         "source": "gelly_streaming_tpu_torch/csrc/fused_sage_matmul.cu",
-        "replaces": "gelly_streaming_tpu/ops/pallas_kernels.py:52",
+        "replaces": "gelly_streaming_tpu/ops/pallas_kernels.py:51",
         "launches": slice_result["launches"],
         "max_abs_err": main_err,
         "ms": sum(r["kernel_ms"] for r in rows),
@@ -311,7 +447,9 @@ def main():
         "bound_ms": sum(r["bound_ms"] for r in rows),
         "bound_by": "bytes",
         "library_ms": sum(r["library_ms"] for r in rows),
-        "per": f"window: {rows[0]['shape']} + {rows[1]['shape']}, bf16",
+        "bound_share": sum(r["bound_ms"] for r in rows) / sum(r["kernel_ms"] for r in rows),
+        "warm_ms": sum(r["warm"]["kernel_ms"] for r in rows),
+        "per": f"window: {rows[0]['shape']} + {rows[1]['shape']}, bf16, cold L2",
         "status": "ported",
     }
     say(json.dumps({"kernels": [kernel]}))

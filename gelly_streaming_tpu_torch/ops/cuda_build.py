@@ -1,10 +1,11 @@
 """Build the package's CUDA sources with ``nvcc`` and load them with ctypes.
 
 Each kernel lives in ``csrc/<name>.cu`` behind a plain ``extern "C"``
-launcher. :func:`load_library` compiles it at first use into a shared
-library under ``_build/`` beside the package (listed in ``.gitignore``),
-named by a hash of the source and the flags, so an edited source builds
-anew and an unchanged one is loaded as it is. No PyTorch header is
+launcher; headers it includes are ``csrc/*.cuh``. :func:`load_library`
+compiles it at first use into a shared library under ``_build/`` beside
+the package (listed in ``.gitignore``), named by a hash of the source,
+every header and the flags, so an edited source or header builds anew and
+an unchanged one is loaded as it is. No PyTorch header is
 included: the build takes seconds, not minutes.
 
 ``nvcc`` is looked up under ``$CUDA_HOME``/``$CUDA_PATH``, then on
@@ -62,11 +63,17 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    """Where the library for ``csrc/<name>.cu`` is built (hash-keyed)."""
+    """Where the library for ``csrc/<name>.cu`` is built: keyed by a hash
+    of the source, of every ``csrc/*.cuh`` header (name and content) and
+    of the flags."""
+    h = hashlib.sha256()
     with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        src = f.read()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"{name}-{digest[:16]}.so")
+        h.update(f.read())
+    for header in sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh")):
+        with open(os.path.join(CSRC_DIR, header), "rb") as f:
+            h.update(b"\0" + header.encode() + b"\0" + f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 
 def build(name: str) -> str:

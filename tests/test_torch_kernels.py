@@ -126,11 +126,13 @@ def test_cpu_tensors_take_the_plain_version_and_never_the_kernel(monkeypatch):
 
     monkeypatch.setattr(sage_kernels, "load_library", no_build)
     before = sage_kernels.LAUNCHES
+    before_by_variant = dict(sage_kernels.LAUNCHES_BY_VARIANT)
     ops = [torch.from_numpy(a) for a in _operands(9)]
     torch.testing.assert_close(
         fused_sage_matmul(*ops), fused_sage_matmul_plain(*ops)
     )
     assert sage_kernels.LAUNCHES == before
+    assert sage_kernels.LAUNCHES_BY_VARIANT == before_by_variant
 
 
 def test_build_without_nvcc_raises(monkeypatch):
@@ -152,3 +154,60 @@ def test_library_path_is_keyed_by_source_and_flags(monkeypatch):
         cuda_build, "NVCC_FLAGS", cuda_build.NVCC_FLAGS + ("-lineinfo",)
     )
     assert cuda_build.library_path("fused_sage_matmul") != path
+
+
+def _variant_operands(case):
+    """Operands for the kernel-choice rule; empty tensors, since the rule
+    reads only dtypes, shapes and addresses."""
+    shapes = {
+        "config5_layer1": (65536, 128, 256),
+        "config5_layer2": (65536, 256, 128),
+        "ragged_v_f_o": (100, 48, 72),
+        "float32": (65536, 128, 256),
+        "f_not_multiple_of_8": (100, 130, 64),
+        "o_not_multiple_of_8": (100, 128, 65),
+        "misaligned_view": (100, 48, 72),
+    }
+    v, f, o = shapes[case]
+    dtype = torch.float32 if case == "float32" else torch.bfloat16
+    ops = [torch.empty(s, dtype=dtype) for s in ((v, f), (v, f), (f, o), (f, o), (o,))]
+    if case == "misaligned_view":
+        flat = torch.empty(v * f + 8, dtype=dtype)
+        ops[1] = flat[1:1 + v * f].view(v, f)  # 2 bytes past an aligned address
+        assert ops[1].is_contiguous() and ops[1].data_ptr() % 16 == 2
+    return ops
+
+
+@pytest.mark.parametrize(
+    "case, variant",
+    [
+        ("config5_layer1", "tc"),
+        ("config5_layer2", "tc"),
+        ("ragged_v_f_o", "tc"),
+        ("float32", "simt"),
+        ("f_not_multiple_of_8", "simt"),
+        ("o_not_multiple_of_8", "simt"),
+        ("misaligned_view", "simt"),
+    ],
+)
+def test_kernel_choice_rule(case, variant):
+    """bf16 with F and O multiples of 8 and 16-byte-aligned operands takes
+    the tensor-core kernel ("tc"), every other call the CUDA-core kernel
+    ("simt"); BASELINE config #5's two layers take "tc"."""
+    assert sage_kernels._variant(*_variant_operands(case)) == variant
+
+
+def test_library_path_changes_when_a_header_changes(monkeypatch, tmp_path):
+    """An edited ``csrc/*.cuh`` gives a new library path, so a stale build
+    is never loaded; an unrelated file does not."""
+    (tmp_path / "k.cu").write_text('#include "ptx.cuh"\n')
+    (tmp_path / "ptx.cuh").write_text("// v1\n")
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", str(tmp_path))
+    first = cuda_build.library_path("k")
+    (tmp_path / "notes.txt").write_text("not a header\n")
+    assert cuda_build.library_path("k") == first
+    (tmp_path / "ptx.cuh").write_text("// v2\n")
+    second = cuda_build.library_path("k")
+    assert second != first
+    (tmp_path / "more.cuh").write_text("// new header\n")
+    assert cuda_build.library_path("k") not in (first, second)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (gelly_streaming_tpu_torch) on one
 NVIDIA card: build every kernel, hold each against its plain PyTorch
-version, drive streaming GraphSAGE end to end, and print the results.
+version, drive streaming GraphSAGE and streaming Connected Components end
+to end, and print the results.
 
     python3 chip_smoke.py
 
@@ -34,7 +35,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    "simt" never; the last window's embeddings are held against a reference
    composed on the card from the plain functions; then edges/s, ms per
    window and where the time goes.
-5. a ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
+5. cc      — streaming Connected Components, the headline cell of
+   ``bench.py:bench_cc_e2e``: the ``livejournal`` surrogate (R-MAT scale 21,
+   2^24 edges, made here by the port's ``ensure_corpus`` and cached under the
+   temporary directory) through ``datasets.stream_file`` with
+   ``CountWindow(1 << 20)``, ``IdentityDict(1 << 21)`` and
+   ``prefetch_depth=2`` into ``ConnectedComponents()`` (carry "auto", which
+   must pick "forest"), ``sync()`` inside the timed region. The native
+   library must have loaded. One warm pass, then the median of 3 steady
+   passes: edges/s, p50/p95 window latency, host reads per window. The last
+   window's labels are held exactly against ``scipy``'s connected
+   components of the same edges regenerated here from the R-MAT seeds (no
+   parsing); the first 4 windows' labels of the host and dense carries and
+   of the forest carry with ``superbatch=4`` must equal the forest carry's.
+   Then one profiled pass: the top operations by device time, the busy
+   share, the peak device memory, and the device time and launches of each
+   CC step (``cc.*`` spans as ``record_function`` ranges).
+6. a ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
 
 TF32 is off for float32 matmuls (``torch.backends.cuda.matmul.allow_tf32 =
 False``), so the plain version's f32 products are full f32.
@@ -55,6 +72,16 @@ WINDOW = 1 << 18
 N_WINDOWS = 4
 DIMS = [128, 256, 128]
 STREAM_SEED = 13
+
+# streaming CC, the headline cell (bench.py: CORPUS, WINDOW, ID_BOUND)
+CC_CORPUS = "livejournal"
+CC_WINDOW = 1 << 20
+CC_ID_BOUND = 1 << 21
+CC_PREFIX_WINDOWS = 4
+CC_STEADY_PASSES = 3
+CC_STEPS = ("cc.window_prep", "cc.window_upload", "cc.chase_and_group", "cc.propagate",
+            "cc.commit_roots", "cc.commit", "cc.forest_superbatch", "cc.resolve_flat",
+            "cc.mirror_update", "engine.sync")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate and dense bf16 tensor rate;
 # float32 work counts against the CUDA cores' f32 rate
@@ -403,20 +430,25 @@ def phase_slice(torch, kernel_rows):
     return result
 
 
-def profile_pass(torch, one_pass, wall):
+def profile_pass(torch, one_pass, wall, prof=None):
     """Device time by kernel over one pass (torch.profiler): the busy share
-    and the eight kernels that take the most device time."""
+    and the eight kernels that take the most device time (of ``prof`` when
+    the pass was already profiled)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        one_pass()
-        torch.cuda.synchronize()
+    if prof is None:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            one_pass()
+            torch.cuda.synchronize()
     events = prof.key_averages()
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
-    kernels = [e for e in events if e.device_type.name == "CUDA" and dev_us(e) > 0]
+    # the device-side copies of the obs spans' record_function ranges are
+    # ranges, not kernels
+    kernels = [e for e in events if e.device_type.name == "CUDA" and dev_us(e) > 0
+               and not e.key.startswith(("cc.", "window.", "engine."))]
     total_us = sum(dev_us(e) for e in kernels)
     if total_us == 0:
         say("profile: no device time in the trace (not measured)")
@@ -427,6 +459,284 @@ def profile_pass(torch, one_pass, wall):
         say(f"  {dev_us(e) / total_us:6.3f}  {dev_us(e) / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
 
 
+def rmat_oracle_edges(n_edges, scale, chunk=1 << 22, a=0.57, b=0.19, c=0.19):
+    """The surrogate's edge columns regenerated from the seeds the corpus
+    writer uses (chunk ``start`` takes seed ``start``), by an R-MAT written
+    out here: the oracle needs neither the port nor the file."""
+    srcs, dsts = [], []
+    for start in range(0, n_edges, chunk):
+        n = min(chunk, n_edges - start)
+        rng = np.random.default_rng(start)
+        src = np.zeros(n, np.int64)
+        dst = np.zeros(n, np.int64)
+        for _ in range(scale):
+            r = rng.random(n)
+            src = (src << 1) | (r >= a + b)
+            dst = (dst << 1) | ((r >= a) & (r < a + b) | (r >= a + b + c))
+        srcs.append(src)
+        dsts.append(dst)
+    return np.concatenate(srcs), np.concatenate(dsts)
+
+
+def oracle_labels(src, dst, n):
+    """Each vertex's least vertex id in its component, by scipy."""
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    graph = coo_matrix((np.ones(len(src), np.int8), (src, dst)), shape=(n, n))
+    ncomp, comp = connected_components(graph, directed=True, connection="weak")
+    least = np.full(ncomp, n, np.int64)
+    np.minimum.at(least, comp, np.arange(n))
+    return least[comp]
+
+
+def _cc_pass(torch, path, carry="auto", superbatch=1, windows=None):
+    """One pass of the headline cell as ``bench_cc_e2e`` runs it: returns
+    the result dict and the emissions (only the last, unless ``windows``
+    asks for the first few, which stops the stream there)."""
+    from gelly_streaming_tpu_torch import CountWindow, datasets
+    from gelly_streaming_tpu_torch.library import ConnectedComponents
+    from gelly_streaming_tpu_torch.summaries import labels
+
+    stream = datasets.stream_file(
+        path, window=CountWindow(CC_WINDOW), vertex_dict=datasets.IdentityDict(CC_ID_BOUND),
+        prefetch_depth=2, device="cuda",
+    )
+    agg = ConnectedComponents(carry=carry, superbatch=superbatch)
+    labels.HOST_READS = labels.FIXPOINT_TURNS = 0
+    kept, lat = [], []
+    t0 = last_t = time.perf_counter()
+    it = stream.aggregate(agg)
+    for comps in it:
+        now = time.perf_counter()
+        lat.append(now - last_t)
+        last_t = now
+        kept = kept + [comps] if windows else [comps]
+        if windows and len(kept) == windows:
+            it.close()
+            break
+    agg.sync()
+    dt = time.perf_counter() - t0
+    lat_ms = np.asarray(lat) * 1e3
+    n_win = len(lat)
+    return {
+        "windows": n_win,
+        "seconds": dt,
+        "p50_ms": float(np.percentile(lat_ms, 50)),
+        "p95_ms": float(np.percentile(lat_ms, 95)),
+        "carry": agg._cc_mode,
+        "host_reads_per_window": labels.HOST_READS / n_win,
+        "fixpoint_turns_per_window": labels.FIXPOINT_TURNS / n_win,
+    }, kept, agg
+
+
+class _SpanTotals:
+    """An obs span sink: calls and host seconds by span name, over every
+    thread (the prefetch producer's spans included)."""
+
+    def __init__(self):
+        import threading
+
+        self.lock = threading.Lock()
+        self.totals = {}
+
+    def emit(self, event):
+        with self.lock:
+            row = self.totals.setdefault(event["name"], [0, 0.0])
+            row[0] += 1
+            row[1] += event["dur_s"]
+
+
+def cc_step_bytes(t, t_group, n, v, k):
+    """Bytes each CC device step must move for a window of ``n`` edges
+    touching ``t`` vertices over a ``v``-vertex forest (``t_group`` touched
+    by a group of ``k`` windows): each input read once, each output written
+    once, int32 lanes, bool masks; the gathers read only the entries they
+    need, and the commit copies the forest (read and write) since every
+    emission keeps its own."""
+    return {
+        # tid, tmask, the chased forest entries; r, v2, key_ written
+        "cc.chase_and_group": 21 * t,
+        # lu, lv; the seed and the group targets; the local labels written
+        "cc.propagate": 8 * n + 16 * t,
+        # the forest read and its new copy written; local, key_, r, tid, tmask
+        "cc.commit_roots": 8 * v + 17 * t,
+        # per window of the group: lu, lv, the label table in and out, key_,
+        # nr_k written; a k-th of the group's chase and commit
+        "cc.forest_superbatch": 8 * n + 20 * t_group + (38 * t_group + 8 * v) / k,
+        # the forest read once, the flat labels written
+        "cc.resolve_flat": 8 * v,
+        # the forest read and its new copy written; at least t (index, value)
+        "cc.mirror_update": 8 * v + 12 * t,
+    }
+
+
+def _step_table(prof, names, per):
+    """Device time and kernel launches under each named range (the CPU-side
+    ``record_function`` events of the trace), divided by ``per``."""
+    out = {}
+
+    def kernels(e):
+        return (len(e.kernels), sum(k.duration for k in e.kernels)), e.cpu_children
+
+    for e in prof.events():
+        if e.name not in names or e.device_type.name != "CPU":
+            continue
+        n = dur = 0
+        stack = [e]
+        while stack:
+            (kn, kd), children = kernels(stack.pop())
+            n += kn
+            dur += kd
+            stack.extend(children)
+        row = out.setdefault(e.name, {"calls": 0, "launches": 0, "device_ms": 0.0})
+        row["calls"] += 1
+        row["launches"] += n
+        row["device_ms"] += dur / 1e3
+    return {k: {f: v / per for f, v in row.items()} for k, row in out.items()}
+
+
+def phase_cc(torch):
+    from gelly_streaming_tpu_torch import datasets, native
+    from gelly_streaming_tpu_torch.obs import trace
+    from gelly_streaming_tpu_torch.ops import sage_kernels as sk
+    from gelly_streaming_tpu_torch.summaries import forest
+
+    t0 = time.perf_counter()
+    path, is_real = datasets.ensure_corpus(CC_CORPUS)
+    spec = datasets.CORPORA[CC_CORPUS]
+    say(f"cc corpus: {path} ({'real' if is_real else 'surrogate'}), "
+        f"{os.path.getsize(path)} bytes, ready in {time.perf_counter() - t0:.2f} s")
+    if is_real:
+        raise AssertionError("the headline cell is the surrogate; a real corpus was found")
+    n_edges = spec.surrogate_edges
+    if not native.native_available():
+        raise AssertionError(f"the native library did not load: {native.BUILD_ERROR}")
+    say(f"cc native library: {native.library_path()}")
+
+    # the timed cell: one warm pass, then the median of the steady passes;
+    # the counts of every kernel are 0 just before and read just after
+    sk.LAUNCHES = 0
+    warm, _, _ = _cc_pass(torch, path)
+    passes = [_cc_pass(torch, path) for _ in range(CC_STEADY_PASSES)]
+    say(f"cc fused_sage_matmul launches in the CC passes: {sk.LAUNCHES} (the path has no "
+        "hand-written kernel; its device steps are PyTorch operations)")
+    results = [p[0] for p in passes]
+    for r in results:
+        r["edges_per_s"] = n_edges / r["seconds"]
+    order = sorted(range(len(results)), key=lambda i: results[i]["edges_per_s"])
+    mid = order[len(order) // 2]
+    cell = dict(results[mid])
+    cell["edges_per_s_all"] = [r["edges_per_s"] for r in results]
+    cell["warm_seconds"] = warm["seconds"]
+    cell["corpus_edges"] = n_edges
+    say("cc cell " + json.dumps(cell))
+    if cell["carry"] != "forest" or cell["windows"] != n_edges // CC_WINDOW:
+        raise AssertionError(f"the cell ran carry {cell['carry']} over {cell['windows']} windows")
+
+    # correctness: the last window against scipy on the regenerated edges
+    last = passes[mid][1][-1]
+    t1 = time.perf_counter()
+    src, dst = rmat_oracle_edges(n_edges, int(spec.surrogate_vscale).bit_length() - 1)
+    want = oracle_labels(src, dst, CC_ID_BOUND)
+    seen = np.zeros(CC_ID_BOUND, bool)
+    seen[src] = True
+    seen[dst] = True
+    ids, got = last.labels()
+    want_ids = np.nonzero(seen)[0]
+    n_comp = len(np.unique(got))
+    ok = (np.array_equal(ids, want_ids) and np.array_equal(got, want[want_ids])
+          and n_comp == len(np.unique(want[want_ids])))
+    say(f"cc vs scipy (last window, {len(ids)} vertices seen): components {n_comp}, "
+        f"mismatches {int(np.sum(got != want[want_ids])) if len(ids) == len(want_ids) else 'n/a'}, "
+        f"{'exact' if ok else 'FAIL'} ({time.perf_counter() - t1:.1f} s)")
+    if not ok:
+        raise AssertionError("the forest carry disagrees with scipy's components")
+    cell["components"] = n_comp
+    cell["vertices_seen"] = int(len(ids))
+    # touched vertices per window and per group of the prefix: the sizes
+    # the device steps' bounds are counted from
+    touched = [np.unique(np.concatenate([src[a:a + CC_WINDOW], dst[a:a + CC_WINDOW]])).size
+               for a in range(0, n_edges, CC_WINDOW)]
+    prefix = CC_WINDOW * CC_PREFIX_WINDOWS
+    t_group = np.unique(np.concatenate([src[:prefix], dst[:prefix]])).size
+    cell["touched_per_window"] = float(np.mean(touched))
+    cell["touched_prefix_group"] = int(t_group)
+    say(f"cc touched vertices per window: mean {np.mean(touched):.0f}, min {min(touched)}, "
+        f"max {max(touched)}; the first {CC_PREFIX_WINDOWS} windows together {t_group}")
+    del src, dst, want, seen, passes
+
+    # the other carries and the superbatch on the first windows
+    base = [c.labels() for c in _cc_pass(torch, path, windows=CC_PREFIX_WINDOWS)[1]]
+    for carry, k in (("host", 1), ("dense", 1), ("forest", CC_PREFIX_WINDOWS)):
+        r, ems, _ = _cc_pass(torch, path, carry=carry, superbatch=k, windows=CC_PREFIX_WINDOWS)
+        same = len(ems) == len(base) and all(
+            np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+            for a, b in zip(base, (c.labels() for c in ems))
+        )
+        say(f"cc prefix {CC_PREFIX_WINDOWS} windows, carry {r['carry']} superbatch {k}: "
+            f"{r['seconds'] * 1e3 / r['windows']:.1f} ms a window, "
+            f"{'equal to the forest carry' if same else 'FAIL'}")
+        if not same or r["carry"] != carry:
+            raise AssertionError(f"carry {carry} (superbatch {k}) disagrees with the forest carry")
+
+    # host time by span over one pass (no profiler): every thread's spans
+    sink = _SpanTotals()
+    trace.add_sink(sink)
+    trace.enable()
+    try:
+        r, _, _ = _cc_pass(torch, path)
+    finally:
+        trace.disable()
+        trace.remove_sink(sink)
+    host = {name: {"calls": c / r["windows"], "host_ms": sec * 1e3 / r["windows"]}
+            for name, (c, sec) in sorted(sink.totals.items())}
+    say(f"cc host time per window by span (a pass of {r['seconds'] * 1e3:.1f} ms, "
+        f"{r['seconds'] * 1e3 / r['windows']:.2f} ms a window; ingest.parse and window.pack "
+        "run on the prefetch thread) " + json.dumps(host))
+    cell["host_spans"] = host
+
+    # where the time goes: one profiled pass, then the other steps
+    from torch.profiler import ProfilerActivity, profile
+
+    trace.enable(torch_annotations=True)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t2 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            r, ems, agg = _cc_pass(torch, path)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t2
+        cell["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        profile_pass(torch, lambda: None, wall, prof=prof)
+        steps = _step_table(prof, CC_STEPS, r["windows"])
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof2:
+            forest.resolve_flat(agg._canon)
+            _cc_pass(torch, path, carry="host", windows=CC_PREFIX_WINDOWS)
+            _cc_pass(torch, path, superbatch=CC_PREFIX_WINDOWS, windows=CC_PREFIX_WINDOWS)
+            torch.cuda.synchronize()
+        others = _step_table(prof2, ("cc.resolve_flat", "cc.mirror_update",
+                                     "cc.forest_superbatch"), CC_PREFIX_WINDOWS)
+        others["cc.resolve_flat"] = {f: v * CC_PREFIX_WINDOWS
+                                     for f, v in others.get("cc.resolve_flat", {}).items()}
+    finally:
+        trace.disable()
+    say(f"cc peak device memory over a pass: {cell['peak_mem_gb']:.3f} GB")
+    table = {**steps, **others}
+    nbytes = cc_step_bytes(cell["touched_per_window"], t_group, CC_WINDOW, CC_ID_BOUND,
+                           CC_PREFIX_WINDOWS)
+    for name, row in table.items():
+        if name in nbytes:
+            row["bytes"] = nbytes[name]
+            row["bound_ms"] = nbytes[name] / HBM_BYTES_PER_S * 1e3
+            row["bound_share"] = row["bound_ms"] / row["device_ms"] if row["device_ms"] else None
+    say("cc steps (device ms and launches per window of the forest pass; resolve_flat per "
+        "call; mirror_update and forest_superbatch per window of the 4-window prefix; "
+        "bound by bytes) " + json.dumps(table))
+    cell["steps"] = table
+    return cell
+
+
 def main():
     import torch
 
@@ -434,6 +744,7 @@ def main():
     phase_build()
     main_err, rows = phase_kernels(torch)
     slice_result = phase_slice(torch, rows)
+    phase_cc(torch)
     kernel = {
         "name": "fused_sage_matmul",
         "variant": "tc",

@@ -3,7 +3,21 @@
 A second package beside the JAX one, which stays the reference it is held
 against. It runs on an NVIDIA card by default (``device="cuda"``, raising
 when there is none) and on the CPU only when asked (``device="cpu"``).
-This slice carries streaming GraphSAGE inference end to end::
+Two slices run end to end so far. Streaming Connected Components, the
+headline path (file -> native parse -> count windows -> forest carry)::
+
+    from gelly_streaming_tpu_torch import CountWindow, datasets
+    from gelly_streaming_tpu_torch.library import ConnectedComponents
+
+    stream = datasets.stream_file(path, window=CountWindow(1 << 20),
+                                  vertex_dict=datasets.IdentityDict(1 << 21),
+                                  prefetch_depth=2)
+    agg = ConnectedComponents()          # carry "auto": "forest" on a card
+    for comps in stream.aggregate(agg):  # one lazy Components per window
+        ...
+    agg.sync()
+
+Streaming GraphSAGE inference::
 
     from gelly_streaming_tpu_torch import SimpleEdgeStream, CountWindow
     from gelly_streaming_tpu_torch.datasets import IdentityDict
@@ -19,7 +33,7 @@ This slice carries streaming GraphSAGE inference end to end::
         ...
 """
 
-from .core.edgeblock import EdgeBlock, bucket_capacity
+from .core.edgeblock import EdgeBlock, bucket_capacity, concat_blocks
 from .core.stream import SimpleEdgeStream, StreamContext
 from .core.vertexdict import VertexDict
 from .core.window import CountWindow
@@ -33,4 +47,5 @@ __all__ = [
     "StreamContext",
     "VertexDict",
     "bucket_capacity",
+    "concat_blocks",
 ]

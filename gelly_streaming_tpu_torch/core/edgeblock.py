@@ -25,7 +25,7 @@ window's upload does not wait for the previous window's work.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -121,14 +121,17 @@ class EdgeBlock:
         *,
         n_vertices: int,
         device,
+        capacity: Optional[int] = None,
     ) -> "EdgeBlock":
-        """Build a block of capacity ``bucket_capacity(n)`` on ``device``
-        from host arrays of compact int32 ids. The mask and (for valueless
-        streams) the val column come from shared cached device buffers —
-        see the module-level caveat."""
+        """Build a block of capacity ``bucket_capacity(n)`` (or
+        ``capacity``) on ``device`` from host arrays of compact int32 ids.
+        The mask and (for valueless streams) the val column come from
+        shared cached device buffers — see the module-level caveat."""
         device = torch.device(device)
         n = int(np.asarray(src).shape[0])
-        cap = bucket_capacity(n)
+        cap = bucket_capacity(n) if capacity is None else int(capacity)
+        if n > cap:
+            raise ValueError(f"{n} edges exceed capacity {cap}")
         src_p = np.zeros(cap, dtype=np.int32)
         dst_p = np.zeros(cap, dtype=np.int32)
         src_p[:n] = src
@@ -174,6 +177,127 @@ class EdgeBlock:
 
     def with_vertices(self, n_vertices: int) -> "EdgeBlock":
         return dataclasses.replace(self, n_vertices=int(n_vertices))
+
+
+@dataclasses.dataclass(frozen=True)
+class StackedEdgeBlock:
+    """K consecutive windows stacked into one ``[K, cap]`` device batch:
+    the superbatch unit. All rows share one capacity (the bucketed max of
+    the member windows); each window keeps its own mask row, so
+    per-window emission semantics are kept exactly."""
+
+    src: torch.Tensor  # int32[k, capacity]
+    dst: torch.Tensor  # int32[k, capacity]
+    val: torch.Tensor  # float32[k, capacity]
+    mask: torch.Tensor  # bool[k, capacity]
+    n_vertices: int = 0
+
+    @property
+    def k(self) -> int:
+        return int(self.src.shape[0])
+
+    @property
+    def capacity(self) -> int:
+        return int(self.src.shape[-1])
+
+    def window(self, i: int) -> EdgeBlock:
+        """Row ``i`` as an :class:`EdgeBlock` (views of the stacked
+        tensors)."""
+        return EdgeBlock(
+            src=self.src[i], dst=self.dst[i], val=self.val[i],
+            mask=self.mask[i], n_vertices=self.n_vertices,
+        )
+
+
+def stack_host_cols(
+    cols: Sequence, n_vertices: int, *, device,
+    capacity: Optional[int] = None,
+) -> StackedEdgeBlock:
+    """THE host ``[K, cap]`` packer: per-window column triples ``(src,
+    dst, val|None)`` of compact int32 ids become one
+    :class:`StackedEdgeBlock` on ``device``, one upload per plane."""
+    device = torch.device(device)
+    counts = [len(c[0]) for c in cols]
+    cap = capacity if capacity is not None else bucket_capacity(max(counts))
+    k = len(cols)
+    src = np.zeros((k, cap), np.int32)
+    dst = np.zeros((k, cap), np.int32)
+    mask = np.zeros((k, cap), bool)
+    val = np.zeros((k, cap), VAL_DTYPE)
+    for i, (s, d, v) in enumerate(cols):
+        n = counts[i]
+        src[i, :n] = s
+        dst[i, :n] = d
+        mask[i, :n] = True
+        if v is not None:
+            val[i, :n] = v
+    return StackedEdgeBlock(
+        src=to_device(src, device), dst=to_device(dst, device),
+        val=to_device(val, device), mask=to_device(mask, device),
+        n_vertices=int(n_vertices),
+    )
+
+
+def stack_blocks(
+    blocks: Sequence[EdgeBlock], capacity: Optional[int] = None
+) -> StackedEdgeBlock:
+    """Pack K EdgeBlocks of one device into one :class:`StackedEdgeBlock`.
+
+    When every block carries its pre-padding host cache (the Windower's
+    blocks), the ``[K, cap]`` planes are assembled in numpy and uploaded
+    once; other blocks are padded and stacked on the device."""
+    if not blocks:
+        raise ValueError("stack_blocks needs at least one block")
+    n_vertices = max(b.n_vertices for b in blocks)
+    device = blocks[0].src.device
+    if all(getattr(b, "_host_cache", None) is not None for b in blocks):
+        return stack_host_cols(
+            [b._host_cache for b in blocks], n_vertices, device=device,
+            capacity=capacity,
+        )
+    cap = capacity if capacity is not None else bucket_capacity(
+        max(b.capacity for b in blocks)
+    )
+
+    def pad(a, fill=0):
+        short = cap - a.shape[-1]
+        if short == 0:
+            return a
+        return torch.cat([a, torch.full((short,), fill, dtype=a.dtype,
+                                        device=a.device)])
+
+    return StackedEdgeBlock(
+        src=torch.stack([pad(b.src) for b in blocks]),
+        dst=torch.stack([pad(b.dst) for b in blocks]),
+        val=torch.stack([pad(b.val) for b in blocks]),
+        mask=torch.stack([pad(b.mask, False) for b in blocks]),
+        n_vertices=n_vertices,
+    )
+
+
+def concat_blocks(
+    blocks: Sequence[EdgeBlock], capacity: Optional[int] = None, *,
+    device=None,
+) -> EdgeBlock:
+    """Concatenate blocks into one, on the host (window re-bucketing).
+    ``device`` is needed only when ``blocks`` is empty."""
+    srcs, dsts, vals = [], [], []
+    n_vertices = 0
+    for b in blocks:
+        s, d, v = b.to_host()
+        srcs.append(s)
+        dsts.append(d)
+        vals.append(v)
+        n_vertices = max(n_vertices, b.n_vertices)
+        device = b.src.device
+    if device is None:
+        raise ValueError("concat_blocks of no blocks needs a device")
+    src = np.concatenate(srcs or [np.zeros(0, np.int32)]).astype(np.int32)
+    dst = np.concatenate(dsts or [np.zeros(0, np.int32)]).astype(np.int32)
+    val = np.concatenate(vals or [np.zeros(0, VAL_DTYPE)]).astype(VAL_DTYPE)
+    return EdgeBlock.from_arrays(
+        src, dst, val, n_vertices=n_vertices, device=device, capacity=capacity,
+    ).with_host_cache(src, dst, val)
 
 
 class EdgeAccumulator:

@@ -1,8 +1,9 @@
 """SimpleEdgeStream: the user-facing streaming-graph API (PyTorch port).
 
 The counterpart of ``gelly_streaming_tpu/core/stream.py``, as far as the
-streaming GraphSAGE slice needs it: the constructor, :meth:`get_context`,
-:attr:`vertex_dict` and :meth:`blocks`. The host discretizes the edge
+ported slices need it: the constructor, :meth:`get_context`,
+:attr:`vertex_dict`, :meth:`blocks`, :meth:`prefetched`,
+:meth:`superbatches` and :meth:`aggregate`. The host discretizes the edge
 stream into padded :class:`EdgeBlock` windows on the context's device
 (``core/window.py``). Every other method of the reference's surface
 raises ``NotImplementedError`` naming the ROADMAP slice that ports it.
@@ -10,7 +11,7 @@ raises ``NotImplementedError`` naming the ROADMAP slice that ports it.
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, Iterator, Optional, Tuple
+from typing import Any, Callable, Iterable, Iterator, Optional, Tuple
 
 from .device import DEFAULT_DEVICE, resolve_device
 from .edgeblock import EdgeBlock
@@ -53,19 +54,23 @@ class SimpleEdgeStream:
         The raw -> compact id mapping (``VertexDict`` or ``IdentityDict``).
     device:
         Shorthand for ``context=StreamContext(device)``; default ``"cuda"``.
+
+    ``_blocks``/``_vdict`` build a stream from a block-source thunk and its
+    vertex dict instead of from edges (``datasets.stream_file``,
+    :meth:`prefetched`).
     """
 
     def __init__(
         self,
-        edges: Iterable[Tuple],
+        edges: Optional[Iterable[Tuple]] = None,
         window: Optional[WindowPolicy] = None,
         context: Optional[StreamContext] = None,
         vertex_dict: Optional[VertexDict] = None,
         *,
         device=None,
+        _blocks: Optional[Callable[[], Iterator[EdgeBlock]]] = None,
+        _vdict: Optional[VertexDict] = None,
     ):
-        if edges is None:
-            raise ValueError("edges must be given")
         if context is None:
             context = StreamContext(
                 DEFAULT_DEVICE if device is None else device
@@ -75,18 +80,29 @@ class SimpleEdgeStream:
                 f"device {device!r} contradicts the context's {context.device}"
             )
         self.context = context
+        self._windower = None  # the superbatch ingest fast path
+        self._edges = None
+        if _blocks is not None:
+            if _vdict is None:
+                raise ValueError("a block source needs its vertex dict")
+            self._vdict = _vdict
+            self._block_source = _blocks
+            return
+        if edges is None:
+            raise ValueError("edges must be given")
         policy = window or context.default_window
         windower = Windower(policy, vertex_dict, device=context.device)
         self._vdict = windower.vertex_dict
-        if is_column_input(edges):
-            # numpy fast path: hand the columns straight to the Windower
-            # (iter() would hide them and fall back to per-record parsing)
+        if is_column_input(edges) or callable(getattr(edges, "iter_chunks", None)):
+            # numpy columns and chunk-capable sources go to the Windower
+            # as they are (iter() would flatten them to per-record tuples)
             self._block_source: Callable[[], Iterator[EdgeBlock]] = (
                 lambda: windower.blocks(edges)
             )
         else:
             self._block_source = lambda: windower.blocks(iter(edges))
         self._windower = windower
+        self._edges = edges
 
     def get_context(self) -> StreamContext:
         return self.context
@@ -103,10 +119,44 @@ class SimpleEdgeStream:
         """The stream's window-block iterator (single use, like a DataStream)."""
         return self._block_source()
 
+    def prefetched(self, depth: int = 2) -> "SimpleEdgeStream":
+        """The same stream with host windowing overlapped against device
+        compute: a background thread on the stream's device keeps
+        ``depth`` blocks ready. The shared vertex dict may run up to
+        ``depth`` windows ahead of the consumer; blocks carry their own
+        ``n_vertices``, so only code reading ``len(vertex_dict)`` mid-stream
+        sees the lead."""
+        from .pipeline import prefetch
+
+        source = self._block_source
+        device = self.device
+        return SimpleEdgeStream(
+            context=self.context,
+            _blocks=lambda: prefetch(source(), depth, device=device),
+            _vdict=self._vdict,
+        )
+
+    def superbatches(self, k: int):
+        """K consecutive windows per
+        :class:`~gelly_streaming_tpu_torch.core.window.SuperbatchGroup`:
+        streams built from edges go to the Windower's packer (no
+        per-window device work on count windows); block-backed streams pack
+        their block iterator. Single use, like :meth:`blocks`."""
+        from .window import superbatches_from_blocks
+
+        if self._windower is not None:
+            return self._windower.superbatches(self._edges, k)
+        return superbatches_from_blocks(self.blocks(), k)
+
+    def aggregate(self, summary_aggregation) -> Iterator[Any]:
+        """Run a summary aggregation over this stream
+        (``SimpleEdgeStream.java:100-102`` -> ``SummaryAggregation.run``)."""
+        return summary_aggregation.run(self)
+
 
 _LATER = {
-    "ROADMAP Queue 1, slice 2 (streaming Connected Components)": (
-        "aggregate", "prefetched", "superbatches", "superbatches_dynamic",
+    "ROADMAP Queue 1, slice 7 (durability, control and ingest)": (
+        "superbatches_dynamic",
     ),
     "ROADMAP Queue 1, slice 4 (the window and neighborhood layer)": (
         "get_edges", "get_vertices", "map_edges", "filter_edges",

@@ -10,10 +10,11 @@ this host-side dictionary owns the mapping:
 - ``capacity`` is power-of-two bucketed so device-side vertex tables
   reallocate only O(log V) times as the stream grows.
 
-This is the vectorized numpy encoder. The native C++ encoder of the
-reference package comes with the streaming Connected Components slice
-(ROADMAP Queue 1, slice 2) as the port's own copy of the source; until
-then this is the only path, and nothing falls back to it silently.
+The encode runs in the port's native C++ encoder
+(``native.NativeEncoder``) when the native library builds, and in the
+vectorized numpy encoder otherwise (a host without a compiler); both
+assign the same ids. :meth:`VertexDict.iter_encode_file` is the fused
+native parse + encode of file ingest.
 """
 
 from __future__ import annotations
@@ -38,6 +39,12 @@ class VertexDict:
         self._min_capacity = min_capacity
         self._rev_cache = None
         self._raw_table_cache: dict = {}
+        from .. import native
+
+        try:
+            self._native = native.NativeEncoder()
+        except RuntimeError:  # no native library: the numpy encoder
+            self._native = None
 
     def __len__(self) -> int:
         return len(self._idx_to_raw)
@@ -58,6 +65,11 @@ class VertexDict:
         n = raw.shape[0]
         if n == 0:
             return np.empty(0, dtype=np.int32)
+        if self._native is not None:
+            out, novel = self._native.encode(raw)
+            if novel.size:
+                self._idx_to_raw.extend(novel.tolist())
+            return out
         out = np.empty(n, dtype=np.int32)
         sorted_raw, sorted_idx = self._index
         if sorted_raw.size:
@@ -87,14 +99,38 @@ class VertexDict:
         """Encode edge endpoint columns in arrival order (src before dst per
         edge — the order the reference's per-record processing would see).
         Returns (src_idx, dst_idx) int32 arrays."""
+        if self._native is not None:
+            ia, ib, novel = self._native.encode_pair(
+                np.asarray(src, np.int64).ravel(),
+                np.asarray(dst, np.int64).ravel(),
+            )
+            if novel.size:
+                self._idx_to_raw.extend(novel.tolist())
+            return ia, ib
         both = np.stack(
             [np.asarray(src, np.int64), np.asarray(dst, np.int64)], axis=1
         ).ravel()
         enc = self.encode(both)
         return enc[0::2], enc[1::2]
 
+    def iter_encode_file(self, path: str, chunk_edges: int = 1 << 20):
+        """Fused file ingest (native only): yield already-encoded
+        ``(src_idx, dst_idx, val|None)`` int32 column chunks, keeping this
+        dict's reverse table in sync. Raises RuntimeError without the
+        native encoder (callers then parse and :meth:`encode_pair`)."""
+        if self._native is None:
+            raise RuntimeError("native encoder unavailable")
+        for src, dst, val, novel in self._native.parse_encode_chunks(
+            path, chunk_edges
+        ):
+            if novel.size:
+                self._idx_to_raw.extend(novel.tolist())
+            yield src, dst, val
+
     def lookup(self, raw: int) -> int | None:
         """Query without inserting; None if unseen."""
+        if self._native is not None:
+            return self._native.lookup(raw)
         sorted_raw, sorted_idx = self._index
         pos = int(np.searchsorted(sorted_raw, raw))
         if pos < sorted_raw.size and sorted_raw[pos] == raw:
@@ -105,6 +141,8 @@ class VertexDict:
         """Vectorized :meth:`lookup`: compact ids aligned with ``raw``, -1
         marking unseen ids. Never inserts."""
         raw = np.asarray(raw, np.int64).ravel()
+        if self._native is not None:
+            return self._native.lookup_batch(raw)
         out = np.full(raw.size, -1, np.int32)
         sorted_raw, sorted_idx = self._index  # consistent snapshot
         if raw.size and sorted_raw.size:

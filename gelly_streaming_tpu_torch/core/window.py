@@ -7,11 +7,18 @@ analog), and emits padded, capacity-bucketed
 :class:`~gelly_streaming_tpu_torch.core.edgeblock.EdgeBlock` batches on the
 stream's device — one per tumbling window.
 
-``CountWindow(n)`` — every ``n`` edges is a window — is the policy of this
-slice, on the record path and on the numpy column path. Time windows
-(``ProcessingTimeWindow``, ``EventTimeWindow``) are declared so that
-callers can name them, and the Windower raises ``NotImplementedError`` for
-them; so do superbatches and chunked ingest.
+``CountWindow(n)`` — every ``n`` edges is a window — is the policy of the
+port so far, on the record path, the numpy column path and the chunked
+column path of file ingest (:meth:`Windower.blocks_from_chunks`). Time
+windows (``ProcessingTimeWindow``, ``EventTimeWindow``) are declared so
+that callers can name them, and the Windower raises
+``NotImplementedError`` for them (ROADMAP Queue 1, slice 4).
+
+Superbatches pack K consecutive windows into one
+:class:`SuperbatchGroup`: one group encode and per-window host column
+views, with the ``[K, cap]`` device stack built only for consumers that
+fold on it. The adaptive-K packers (``*_dynamic``) come with
+``superbatch="auto"`` in ROADMAP Queue 1, slice 7.
 
 Blocks carry *compact* int32 ids; raw ids stay host-side in the dict.
 """
@@ -24,11 +31,18 @@ from typing import Callable, Iterable, Iterator, Optional, Sequence, Tuple
 import numpy as np
 
 from ..obs import trace as _trace
-from .edgeblock import VAL_DTYPE, EdgeBlock
+from .edgeblock import (
+    VAL_DTYPE,
+    EdgeBlock,
+    StackedEdgeBlock,
+    stack_blocks,
+    stack_host_cols,
+)
 from .vertexdict import VertexDict
 
 _TIME_WINDOWS = "ROADMAP Queue 1, slice 4 (the window and neighborhood layer)"
-_CC_SLICE = "ROADMAP Queue 1, slice 2 (streaming Connected Components)"
+_AUTO_K = ("ROADMAP Queue 1, slice 7 (durability, control and ingest: "
+           'superbatch="auto")')
 
 
 def is_column_input(edges) -> bool:
@@ -147,6 +161,30 @@ class Windower:
             )
             return block.with_host_cache(src, dst, host_val)
 
+    def _block_from_encoded(
+        self, src: np.ndarray, dst: np.ndarray, val: Optional[np.ndarray]
+    ) -> EdgeBlock:
+        """Build a block from already-compact int32 columns (the fused
+        native parse + encode path: the vertex dict was updated
+        upstream)."""
+        n = src.shape[0]
+        with _trace.span(
+            "window.pack",
+            {"edges": int(n), "encoded": True} if _trace.on() else None,
+        ):
+            src = np.ascontiguousarray(src, np.int32)
+            dst = np.ascontiguousarray(dst, np.int32)
+            block = EdgeBlock.from_arrays(
+                src, dst, val, n_vertices=self.vertex_dict.capacity,
+                device=self.device,
+            )
+            host_val = (
+                np.zeros(n, dtype=VAL_DTYPE)
+                if val is None
+                else np.asarray(val, VAL_DTYPE)
+            )
+            return block.with_host_cache(src, dst, host_val)
+
     def blocks(self, edges: Iterable[Tuple]) -> Iterator[EdgeBlock]:
         """Yield one EdgeBlock per tumbling window."""
         for _, block in self.blocks_with_info(edges):
@@ -167,9 +205,9 @@ class Windower:
             yield from self._array_windows(edges)
             return
         if callable(getattr(edges, "iter_chunks", None)):
-            raise NotImplementedError(
-                f"chunk-capable sources are ported in {_CC_SLICE}"
-            )
+            # chunk-capable source: consume its column chunks directly
+            yield from self.blocks_from_chunks(edges.iter_chunks())
+            return
         index = 0
         buf: list[Tuple] = []
         for e in edges:
@@ -204,8 +242,351 @@ class Windower:
                 None if val is None else val[start:end],
             )
 
-    def superbatches(self, edges, k: int):
-        raise NotImplementedError(f"superbatches are ported in {_CC_SLICE}")
+    # ------------------------------------------------------------------ #
+    # Superbatch packing: K windows -> one ingest group
+    # ------------------------------------------------------------------ #
+    def superbatches(
+        self, edges: Iterable[Tuple], k: int
+    ) -> Iterator["SuperbatchGroup"]:
+        """Pack K consecutive windows into one :class:`SuperbatchGroup`
+        (the final group may be shorter). On count windows over column or
+        record input the whole group is encoded once and no per-window
+        block is built; window boundaries are unchanged."""
+        if k < 1:
+            raise ValueError(f"superbatch k must be >= 1, got {k}")
+        if not isinstance(self.policy, CountWindow):
+            # blocks_with_info raises for the policies not ported yet
+            yield from superbatches_from_blocks(
+                self.blocks_with_info(edges), k, with_info=True
+            )
+            return
+        if is_column_input(edges):
+            yield from self._array_superbatches(edges, k)
+            return
+        if not callable(getattr(edges, "iter_chunks", None)):
+            yield from self._record_superbatches(iter(edges), k)
+            return
+        yield from superbatches_from_blocks(
+            self.blocks_with_info(edges), k, with_info=True
+        )
 
-    def blocks_from_chunks(self, chunks, encoded: bool = False):
-        raise NotImplementedError(f"chunked ingest is ported in {_CC_SLICE}")
+    def _array_superbatches(self, edges, k: int) -> Iterator["SuperbatchGroup"]:
+        """Count-window column fast path: slice the raw columns into
+        per-window triples and pack each group through
+        :meth:`pack_window_cols`."""
+        if isinstance(edges, np.ndarray):
+            if edges.ndim != 2 or not 2 <= edges.shape[1] <= 3:
+                raise ValueError("edge array must be [N, 2] or [N, 3]")
+            cols = [edges[:, i] for i in range(edges.shape[1])]
+        else:
+            cols = [np.asarray(c) for c in edges]
+        src = cols[0].astype(np.int64)
+        dst = cols[1].astype(np.int64)
+        val = cols[2].astype(VAL_DTYPE) if len(cols) > 2 else None
+        n = src.shape[0]
+        size = self.policy.size
+        index = 0
+        for g0 in range(0, n, size * k):
+            g1 = min(g0 + size * k, n)
+            win_cols = [
+                (src[w0:min(w0 + size, g1)], dst[w0:min(w0 + size, g1)],
+                 None if val is None else val[w0:min(w0 + size, g1)])
+                for w0 in range(g0, g1, size)
+            ]
+            yield self.pack_window_cols(win_cols, first_index=index)
+            index += len(win_cols)
+
+    def _record_superbatches(
+        self, edges: Iterator[Tuple], k: int
+    ) -> Iterator["SuperbatchGroup"]:
+        """Count-window record path: buffer K windows of raw records,
+        convert each window to raw columns once, pack the group. Live-source
+        ``None`` ticks are ignored, as in :meth:`blocks`."""
+        size = self.policy.size
+        index = 0
+        win_rows: list = []
+        rows: list = []
+
+        def flush():
+            nonlocal win_rows, index
+            cols = [self._rows_to_cols(rws) for rws in win_rows]
+            group = self.pack_window_cols(cols, first_index=index)
+            index += len(cols)
+            win_rows = []
+            return group
+
+        for e in edges:
+            if e is None:
+                continue
+            rows.append(e)
+            if len(rows) >= size:
+                win_rows.append(rows)
+                rows = []
+                if len(win_rows) >= k:
+                    yield flush()
+        if rows:
+            win_rows.append(rows)
+        if win_rows:
+            yield flush()
+
+    def superbatches_dynamic(self, edges, k_fn, skip: int = 0):
+        raise NotImplementedError(f"adaptive superbatches are ported in {_AUTO_K}")
+
+    def pack_window_cols(
+        self, win_cols: Sequence[Tuple], first_index: int = 0
+    ) -> "SuperbatchGroup":
+        """Pack already-closed windows (raw-id column triples ``(src, dst,
+        val|None)``) into one :class:`SuperbatchGroup` with a single group
+        encode and no per-window device work."""
+        k = len(win_cols)
+        lens = [len(c[0]) for c in win_cols]
+        with _trace.span(
+            "window.superbatch_pack",
+            {"k": k, "edges": int(sum(lens)), "window_index": first_index}
+            if _trace.on() else None,
+        ):
+            # seen-vertex watermark before the group encode (see
+            # SuperbatchGroup.n_seen_per_window)
+            n_seen_before = len(self.vertex_dict)
+            src = np.concatenate([np.asarray(c[0], np.int64) for c in win_cols])
+            dst = np.concatenate([np.asarray(c[1], np.int64) for c in win_cols])
+            s_g, d_g = self.vertex_dict.encode_pair(src, dst)
+            s_g = np.asarray(s_g, np.int32)
+            d_g = np.asarray(d_g, np.int32)
+            cols = []
+            infos = []
+            a = 0
+            for j, c in enumerate(win_cols):
+                b = a + lens[j]
+                v = c[2]
+                cols.append((
+                    s_g[a:b], d_g[a:b],
+                    None if v is None else np.asarray(v, VAL_DTYPE),
+                ))
+                infos.append(WindowInfo(first_index + j, None, None))
+                a = b
+            return SuperbatchGroup(
+                infos, cols, self.vertex_dict.capacity, device=self.device,
+                n_seen_before=n_seen_before,
+            )
+
+    # ------------------------------------------------------------------ #
+    # Chunked-column ingest: file-scale streams (datasets.stream_file)
+    # ------------------------------------------------------------------ #
+    def blocks_from_chunks(
+        self, chunks: Iterable[Tuple], encoded: bool = False
+    ) -> Iterator[Tuple[WindowInfo, EdgeBlock]]:
+        """Discretize an iterator of column chunks ``(src, dst[, val])``
+        into windows, re-slicing across chunk boundaries: the
+        bounded-memory ingest path of file-backed streams (the native
+        parser yields chunks of about a fixed size; the window policy
+        decides the block boundaries).
+
+        ``encoded=True`` marks chunks whose endpoint columns are already
+        compact int32 ids of this windower's vertex dict (the fused native
+        ingest, ``VertexDict.iter_encode_file``)."""
+        policy = self.policy
+        if isinstance(policy, CountWindow):
+            yield from self._chunk_count_windows(chunks, policy.size, encoded)
+        elif isinstance(policy, (ProcessingTimeWindow, EventTimeWindow)):
+            raise NotImplementedError(
+                f"{type(policy).__name__} is ported in {_TIME_WINDOWS}"
+            )
+        else:
+            raise TypeError(f"unknown window policy {policy!r}")
+
+    def _chunk_count_windows(self, chunks, size: int, encoded: bool = False):
+        pending: list[Tuple] = []  # (src, dst, val|None) column triples
+        have = 0
+        index = 0
+        build = self._block_from_encoded if encoded else self._block_from_arrays
+        for cols in chunks:
+            src, dst = np.asarray(cols[0]), np.asarray(cols[1])
+            val = cols[2] if len(cols) > 2 else None
+            if len(src) == 0:
+                continue
+            pending.append((src, dst, val))
+            have += len(src)
+            while have >= size:
+                have -= size
+                yield WindowInfo(index, None, None), build(
+                    *take_cols(pending, size)
+                )
+                index += 1
+        if have:
+            yield WindowInfo(index, None, None), build(*take_cols(pending, have))
+
+
+def take_cols(pend: list, take: int, val_dtype=VAL_DTYPE):
+    """Slice ``take`` edges off a pending list of ``(src, dst, val|None)``
+    column chunks, mutating ``pend`` in place. A take from one chunk hands
+    out slice views; a take across chunks concatenates once, filling
+    ``None`` value chunks with zeros when any chunk carries values. (The
+    event-time ``ts`` column of the reference's wire frames comes with
+    ROADMAP Queue 1, slice 8.)"""
+    s_parts, d_parts, v_parts = [], [], []
+    got = 0
+    while got < take:
+        s, d, v = pend[0][:3]
+        need = take - got
+        if len(s) <= need:
+            s_parts.append(s)
+            d_parts.append(d)
+            v_parts.append(v)
+            pend.pop(0)
+            got += len(s)
+        else:
+            s_parts.append(s[:need])
+            d_parts.append(d[:need])
+            v_parts.append(None if v is None else v[:need])
+            pend[0] = (s[need:], d[need:], None if v is None else v[need:])
+            got = take
+    if len(s_parts) == 1:
+        return s_parts[0], d_parts[0], v_parts[0]
+    src = np.concatenate(s_parts)
+    dst = np.concatenate(d_parts)
+    if any(v is not None for v in v_parts):
+        val = np.concatenate([
+            np.zeros(len(s), val_dtype) if v is None else np.asarray(v, val_dtype)
+            for s, v in zip(s_parts, v_parts)
+        ])
+    else:
+        val = None
+    return src, dst, val
+
+
+class SuperbatchGroup:
+    """K consecutive windows as ONE ingest unit (the superbatch).
+
+    ``cols`` holds per-window host column triples ``(src, dst,
+    val|None)`` of compact int32 ids (the view the windowed CC carries
+    fold), or None when the member windows have no host columns.
+    :meth:`stacked` builds (and keeps) the ``[K, cap]``
+    :class:`~gelly_streaming_tpu_torch.core.edgeblock.StackedEdgeBlock` on
+    ``device`` for consumers that fold on the device stack.
+
+    ``n_seen_before`` is ``len(vertex_dict)`` when the packer started the
+    group encode (None when the group was packed from pre-built blocks).
+    """
+
+    __slots__ = ("infos", "cols", "n_vertices", "device", "_blocks",
+                 "_stacked", "n_seen_before")
+
+    def __init__(self, infos, cols, n_vertices: int, *, device,
+                 blocks=None, n_seen_before: Optional[int] = None):
+        self.infos = infos
+        self.cols = cols
+        self.n_vertices = n_vertices
+        self.device = device
+        self._blocks = blocks
+        self._stacked = None
+        self.n_seen_before = n_seen_before
+
+    def __len__(self) -> int:
+        return len(self.infos)
+
+    def n_seen_per_window(self) -> Optional[list]:
+        """The ``len(vertex_dict)`` a per-window consumer would have read
+        after each member window's encode, rebuilt from the encoded
+        columns (ids are assigned in first-seen order); None without the
+        pre-encode watermark."""
+        if self.cols is None or self.n_seen_before is None:
+            return None
+        out = []
+        n = int(self.n_seen_before)
+        for s, d, _ in self.cols:
+            if len(s):
+                n = max(n, 1 + int(max(s.max(), d.max())))
+            out.append(n)
+        return out
+
+    def blocks(self) -> Iterator[EdgeBlock]:
+        """The member windows as per-window :class:`EdgeBlock`\\ s (the
+        per-window fallback view)."""
+        if self._blocks is not None:
+            yield from self._blocks
+            return
+        for s, d, v in self.cols:
+            s = np.ascontiguousarray(s, np.int32)
+            d = np.ascontiguousarray(d, np.int32)
+            block = EdgeBlock.from_arrays(
+                s, d, v, n_vertices=self.n_vertices, device=self.device,
+            )
+            host_val = (
+                np.zeros(len(s), dtype=VAL_DTYPE) if v is None
+                else np.asarray(v, VAL_DTYPE)
+            )
+            yield block.with_host_cache(s, d, host_val)
+
+    def stacked(self) -> StackedEdgeBlock:
+        if self._stacked is None:
+            with _trace.span(
+                "window.stack",
+                {"k": len(self), "from_cols": self.cols is not None}
+                if _trace.on() else None,
+            ):
+                if self.cols is not None:
+                    self._stacked = stack_host_cols(
+                        self.cols, self.n_vertices, device=self.device
+                    )
+                else:
+                    self._stacked = stack_blocks(self._blocks)
+        return self._stacked
+
+
+def _group_from_blocks(group: list, infos: list) -> SuperbatchGroup:
+    """One group of pre-built blocks as a :class:`SuperbatchGroup`; host
+    column views when every member carries its host cache."""
+    cols = None
+    if all(getattr(b, "_host_cache", None) is not None for b in group):
+        cols = [b._host_cache for b in group]
+    return SuperbatchGroup(
+        infos, cols, max(b.n_vertices for b in group),
+        device=group[0].src.device, blocks=group,
+    )
+
+
+def superbatches_from_blocks(
+    blocks: Iterable, k: int, with_info: bool = False,
+) -> Iterator[SuperbatchGroup]:
+    """Pack an EdgeBlock iterator into :class:`SuperbatchGroup`\\ s of K
+    (the generic path: the per-window blocks already exist, so this
+    recovers the fused fold, not the fused ingest)."""
+    group: list = []
+    infos: list = []
+    for item in blocks:
+        info, block = item if with_info else (None, item)
+        group.append(block)
+        infos.append(info)
+        if len(group) >= k:
+            yield _group_from_blocks(group, infos)
+            group, infos = [], []
+    if group:
+        yield _group_from_blocks(group, infos)
+
+
+def superbatches_from_blocks_dynamic(blocks, k_fn, with_info: bool = False):
+    raise NotImplementedError(f"adaptive superbatches are ported in {_AUTO_K}")
+
+
+def iter_superbatches(stream, k: int) -> Iterator[SuperbatchGroup]:
+    """Superbatch groups for any stream: the stream's own packer when it
+    offers one (``SimpleEdgeStream.superbatches``), else generic packing
+    of its block iterator, prefetched
+    :func:`~gelly_streaming_tpu_torch.core.pipeline.superbatch_prefetch_depth`
+    windows deep on the stream's device."""
+    fast = getattr(stream, "superbatches", None)
+    if callable(fast):
+        yield from fast(k)
+        return
+    from .pipeline import prefetch, superbatch_prefetch_depth
+
+    yield from superbatches_from_blocks(
+        prefetch(stream.blocks(), superbatch_prefetch_depth(k),
+                 device=getattr(stream, "device", None)),
+        k,
+    )
+
+
+def iter_superbatches_dynamic(stream, k_fn):
+    raise NotImplementedError(f"adaptive superbatches are ported in {_AUTO_K}")

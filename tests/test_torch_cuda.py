@@ -1,7 +1,9 @@
 """The port on the card: both CUDA kernels of ``fused_sage_matmul`` (the
 tensor-core "tc" and the CUDA-core "simt") against their plain version,
-and the streaming GraphSAGE slice on the card against the same slice on
-the CPU.
+the streaming GraphSAGE slice on the card against the same slice on the
+CPU, and streaming Connected Components on the card (every carry, per
+window and in superbatches, and from a file) against the CPU, with the
+forest carry's host reads bounded by its fixpoint turns.
 
 Every test here is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is false. The file imports only torch, numpy
@@ -175,3 +177,88 @@ def test_device_table_loop_makes_no_host_sync(card):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert len(outs) == 4 and bool(torch.isfinite(outs[-1]).all())
+
+
+# --------------------------------------------------------------------- #
+# Streaming Connected Components on the card
+# --------------------------------------------------------------------- #
+def _cc_run(device, carry, superbatch=1, window=256):
+    from gelly_streaming_tpu_torch.library import ConnectedComponents
+
+    rng = np.random.default_rng(21)
+    src = rng.integers(0, 3000, 4000)
+    dst = rng.integers(0, 3000, 4000)
+    stream = gt.SimpleEdgeStream((src, dst), window=gt.CountWindow(window),
+                                 vertex_dict=IdentityDict(1 << 12), device=device)
+    agg = ConnectedComponents(carry=carry, superbatch=superbatch)
+    out = [c.labels() for c in stream.aggregate(agg)]
+    agg.sync()
+    return out, agg
+
+
+@pytest.mark.parametrize("superbatch", [1, 4])
+@pytest.mark.parametrize("carry", ["forest", "host", "dense"])
+def test_cc_on_card_matches_cpu(card, carry, superbatch):
+    """Every carry on the card gives the CPU's per-window labels and
+    checkpoint state exactly (integer results; the order of a scatter's
+    writes never decides a value)."""
+    want, cpu_agg = _cc_run("cpu", carry, superbatch)
+    got, agg = _cc_run(card, carry, superbatch)
+    assert agg._cc_mode == carry and len(got) == len(want) == 16
+    for (wi, wl), (gi, gl) in zip(want, got):
+        np.testing.assert_array_equal(gi, wi)
+        np.testing.assert_array_equal(gl, wl)
+    a, b = cpu_agg.snapshot_state(), agg.snapshot_state()
+    np.testing.assert_array_equal(a["labels"], b["labels"])
+    np.testing.assert_array_equal(a["touched"], b["touched"])
+
+
+def test_cc_auto_carry_is_the_forest_on_card(card):
+    from gelly_streaming_tpu_torch.library import ConnectedComponents
+
+    stream = gt.SimpleEdgeStream([(1, 2), (2, 3), (6, 7)], window=gt.CountWindow(2),
+                                 device=card)
+    agg = ConnectedComponents()
+    last = list(stream.aggregate(agg))[-1]
+    assert agg._cc_mode == "forest" and agg._canon.device.type == "cuda"
+    assert str(last) == "{1=[1, 2, 3], 6=[6, 7]}"
+
+
+def test_cc_host_reads_per_window_are_the_fixpoint_turns(card):
+    """The forest carry on the card reads to the host once per fixpoint
+    turn and nowhere else while it folds: reads <= turns + 2 a window."""
+    from gelly_streaming_tpu_torch.summaries import labels
+
+    _cc_run(card, "forest")  # warm
+    labels.HOST_READS = labels.FIXPOINT_TURNS = 0
+    out, _agg = _cc_run(card, "forest")
+    reads, turns = labels.HOST_READS, labels.FIXPOINT_TURNS
+    # the 16 windows' labels() downloads count too: one forest each
+    assert reads <= turns + 2 * len(out)
+    assert 0 < turns <= 64 * len(out)
+
+
+def test_stream_file_cc_on_card_matches_cpu(card, tmp_path):
+    """File -> native parse -> windows (prefetched on the card's device) ->
+    CC, on the card and on the CPU."""
+    from gelly_streaming_tpu_torch import datasets, native
+    from gelly_streaming_tpu_torch.library import ConnectedComponents
+
+    rng = np.random.default_rng(4)
+    path = str(tmp_path / "g.txt")
+    native.write_edge_file(path, rng.integers(0, 5000, 20000), rng.integers(0, 5000, 20000))
+
+    def run(device):
+        stream = datasets.stream_file(path, window=gt.CountWindow(4096),
+                                      vertex_dict=datasets.IdentityDict(1 << 13),
+                                      prefetch_depth=2, device=device)
+        agg = ConnectedComponents()
+        out = [c.labels() for c in stream.aggregate(agg)]
+        return out, agg._cc_mode
+
+    want, cpu_mode = run("cpu")
+    got, mode = run(card)
+    assert (cpu_mode, mode) == ("host", "forest") and len(got) == 5
+    for (wi, wl), (gi, gl) in zip(want, got):
+        np.testing.assert_array_equal(gi, wi)
+        np.testing.assert_array_equal(gl, wl)

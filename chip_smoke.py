@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (gelly_streaming_tpu_torch) on one
 NVIDIA card: build every kernel, hold each against its plain PyTorch
-version, drive streaming GraphSAGE and streaming Connected Components end
-to end, and print the results.
+version, drive streaming GraphSAGE, streaming Connected Components, the
+degree stream, window triangles and the neighborhood aggregations end to
+end, and print the results.
 
     python3 chip_smoke.py
 
@@ -51,18 +52,51 @@ Phases, in order; any failure raises and the script exits non-zero:
    Then one profiled pass: the top operations by device time, the busy
    share, the peak device memory, and the device time and launches of each
    CC step (``cc.*`` spans as ``record_function`` ranges).
-6. a ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
+6. degrees — BASELINE config #1, ``bench.py:bench_degrees_e2e``: phase 5's
+   corpus through its binary cache (``datasets.binary_cache``, as
+   ``bench.py`` builds it) into ``datasets.stream_file`` with
+   ``CountWindow(1 << 20)``, ``IdentityDict(1 << 21)``,
+   ``prefetch_depth=2``, then ``get_degrees().batches()`` drained. One warm
+   pass, then the median of 3 steady passes: edges/s and ms per window.
+   One more pass under ``torch.cuda.set_sync_debug_mode("warn")`` counts
+   the host syncs inside the window loop (expected 0) and after it (the
+   stream's one wait). The degrees after the 16 windows must equal
+   ``np.bincount`` of the regenerated R-MAT edges, and the last window's
+   emitted ids and degrees the numpy oracle, exactly. Then a
+   ``DegreeDistribution`` run of 2^20 seeded +/- events on the card must
+   equal the same run on the CPU, window by window.
+7. triangles — BASELINE config #3, ``bench.py:bench_window_triangles_e2e``:
+   ``make_stream(1 << 17, 2 << 20, seed=9)`` through ``SimpleEdgeStream``
+   (``CountWindow(1 << 20)``, ``IdentityDict(1 << 17)``) into
+   ``WindowTriangles(CountWindow(1 << 20)).run_stream``, the counts left on
+   the card until the pass ends. The same timing and sync count as phase 6;
+   each window's count must equal scipy's ``(A @ A).multiply(A).sum()`` on
+   the degree-oriented, deduplicated adjacency, and window 0's per-vertex
+   counts the port's on the CPU.
+8. neighborhood — window 0 of the config #3 stream with seeded float edge
+   values, ``slice(direction=ALL)``: ``reduce_on_edges("sum")``, an
+   associative callable, ``fold_neighbors`` (lockstep turns printed),
+   ``apply_on_neighbors`` and ``flat_apply_on_neighbors``, each timed on
+   the card (emission included) and held against the port on the CPU
+   (floats within ``NBR_TOL``).
+9. a profile of one pass of phase 6 and one of phase 7, the device steps
+   opened as ``record_function`` ranges: the top operations by device
+   time, the busy share, device-to-host copies, peak memory, and each
+   step's device ms, launches and byte bound per window.
+10. a ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
 
 TF32 is off for float32 matmuls (``torch.backends.cuda.matmul.allow_tf32 =
 False``), so the plain version's f32 products are full f32.
 """
 
+import functools
 import json
 import os
 import shutil
 import statistics
 import subprocess
 import time
+import warnings
 
 import numpy as np
 
@@ -82,6 +116,34 @@ CC_STEADY_PASSES = 3
 CC_STEPS = ("cc.window_prep", "cc.window_upload", "cc.chase_and_group", "cc.propagate",
             "cc.commit_roots", "cc.commit", "cc.forest_superbatch", "cc.resolve_flat",
             "cc.mirror_update", "engine.sync")
+
+# BASELINE config #1 (bench.py: bench_degrees_e2e) on phase 5's corpus
+DEG_STEPS = ("degree.update", "segment.count")
+# a DegreeDistribution run held between the card and the CPU
+DD_EVENTS = 1 << 20
+DD_VERTICES = 1 << 14
+DD_WINDOW = 1 << 16
+DD_SEED = 5
+
+# BASELINE config #3 (bench.py: bench_window_triangles_e2e)
+TRI_VERTICES = 1 << 17
+TRI_WINDOW = 1 << 20
+TRI_WINDOWS = 2
+TRI_SEED = 9
+TRI_STEPS = ("tri.oriented_rows", "tri.membership", "csr.build", "segment.sort",
+             "segment.count", "tri.plan", "window.rewindow", "window.pack")
+STEADY_PASSES = 3
+
+# phase 8: the seeded edge values of window 0, and the tolerance of its
+# float results between the card and the CPU (relative to max(|x|, 1)):
+# scatter-adds sum in another order on the card
+NBR_SEED = 17
+NBR_TOL = 1e-5
+
+# the obs spans that open record_function ranges: device-side copies of
+# them are ranges, not kernels
+SPAN_PREFIXES = ("cc.", "window.", "engine.", "ingest.", "degree.", "tri.", "segment.",
+                 "csr.")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate and dense bf16 tensor rate;
 # float32 work counts against the CUDA cores' f32 rate
@@ -448,21 +510,24 @@ def profile_pass(torch, one_pass, wall, prof=None):
     # the device-side copies of the obs spans' record_function ranges are
     # ranges, not kernels
     kernels = [e for e in events if e.device_type.name == "CUDA" and dev_us(e) > 0
-               and not e.key.startswith(("cc.", "window.", "engine."))]
+               and not e.key.startswith(SPAN_PREFIXES)]
     total_us = sum(dev_us(e) for e in kernels)
     if total_us == 0:
         say("profile: no device time in the trace (not measured)")
-        return
+        return None
     say(f"profile: device busy {total_us / 1e3:.3f} ms over a {wall * 1e3:.3f} ms pass "
         f"(busy share {total_us / 1e6 / wall:.3f}, not corrected for profiler overhead)")
     for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
         say(f"  {dev_us(e) / total_us:6.3f}  {dev_us(e) / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
+    return total_us / 1e6 / wall
 
 
+@functools.lru_cache(maxsize=1)
 def rmat_oracle_edges(n_edges, scale, chunk=1 << 22, a=0.57, b=0.19, c=0.19):
     """The surrogate's edge columns regenerated from the seeds the corpus
     writer uses (chunk ``start`` takes seed ``start``), by an R-MAT written
-    out here: the oracle needs neither the port nor the file."""
+    out here: the oracle needs neither the port nor the file. Kept for
+    phase 6, which checks the same edges; callers only read them."""
     srcs, dsts = [], []
     for start in range(0, n_edges, chunk):
         n = min(chunk, n_edges - start)
@@ -737,6 +802,361 @@ def phase_cc(torch):
     return cell
 
 
+# --------------------------------------------------------------------- #
+# The window and neighborhood layer (phases 6-9)
+# --------------------------------------------------------------------- #
+def _n_syncs(log):
+    # the text of c10's warn_or_error_on_sync (set_sync_debug_mode's own
+    # "prototype feature" notice is not a sync)
+    return sum("called a synchronizing CUDA operation" in str(w.message) for w in log)
+
+
+def count_syncs(torch, items):
+    """Drain ``items`` (one per window) under
+    ``torch.cuda.set_sync_debug_mode("warn")``: PyTorch then warns at every
+    implicit host sync (a device-to-host read, a stream wait). Returns
+    (windows, syncs up to the last window's item, syncs after it)."""
+    with warnings.catch_warnings(record=True) as log:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            n = in_loop = 0
+            for _ in items:
+                n += 1
+                in_loop = _n_syncs(log)
+            after = _n_syncs(log) - in_loop
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return n, in_loop, after
+
+
+def timed_passes(torch, one_pass, n_edges):
+    """One warm pass, then ``STEADY_PASSES``: the host clock around each
+    pass, which ends in a synchronize. Returns the cell's dict (the
+    median pass) and its windows."""
+    one_pass()
+    times, windows = [], 0
+    for _ in range(STEADY_PASSES):
+        t0 = time.perf_counter()
+        windows = one_pass()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    med = statistics.median(times)
+    return {"windows": windows, "edges_per_s": n_edges / med, "ms_per_window": med / windows * 1e3,
+            "edges_per_s_all": [n_edges / t for t in times], "pass_s": times}
+
+
+def window_step_bytes(n, v, d=0):
+    """Bytes each step of phases 6 and 7 must move for a window of ``n``
+    edges over ``v`` vertices (rows ``d`` wide): each input read once, each
+    output written once; int32 ids, bool masks."""
+    return {
+        # src, dst, mask, the degree vector in; the new vector and the
+        # packed [2, 2n] ids and degrees out
+        "degree.update": 9 * n + 8 * v + 16 * n,
+        # ids and mask in, the counts out (per call)
+        "segment.count": 5 * n + 4 * v,
+        # ids, mask and the int32 payloads in and out (one payload: 13 n)
+        "segment.sort": 2 * 13 * n,
+        # key, nbr, val, mask in; the sorted four, row_ptr and degree out
+        "csr.build": 26 * n + 8 * v,
+        # src, dst, mask in; a, b, m and the sorted [v, d] rows out
+        "tri.oriented_rows": 9 * n + 9 * n + 4 * v * d,
+        # the rows, a, b, m in; the per-vertex counts and the total out
+        "tri.membership": 4 * v * d + 9 * n + 4 * v,
+    }
+
+
+def step_rows(prof, names, per, nbytes):
+    table = _step_table(prof, names, per)
+    for name, row in table.items():
+        if name in nbytes:
+            row["bound_ms"] = nbytes[name] / HBM_BYTES_PER_S * 1e3
+            row["bound_share"] = row["bound_ms"] / row["device_ms"] if row["device_ms"] else None
+    return table
+
+
+def profile_cell(torch, label, one_pass, names, nbytes):
+    """One profiled pass with the device steps as record_function ranges:
+    busy share, top operations, device-to-host copies, peak memory and
+    the per-window step table."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gelly_streaming_tpu_torch.obs import trace
+
+    # host time by span over one pass (every thread's spans)
+    sink = _SpanTotals()
+    trace.add_sink(sink)
+    trace.enable()
+    try:
+        windows = one_pass()
+    finally:
+        trace.disable()
+        trace.remove_sink(sink)
+    host = {name: {"calls": c / windows, "host_ms": sec * 1e3 / windows}
+            for name, (c, sec) in sorted(sink.totals.items())}
+    say(f"{label} host time per window by span " + json.dumps(host))
+    trace.enable(torch_annotations=True)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            # the clock starts inside: the profiler's own start-up is not
+            # part of the pass
+            t0 = time.perf_counter()
+            windows = one_pass()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        trace.disable()
+    say(f"{label} profile ({windows} windows):")
+    busy = profile_pass(torch, lambda: None, wall, prof=prof)
+    d2h = sum(1 for e in prof.events() if e.device_type.name == "CUDA" and "DtoH" in e.name)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    table = step_rows(prof, names, windows, nbytes)
+    say(f"{label} device-to-host copies in the profiled pass: {d2h}; peak device memory "
+        f"{peak:.3f} GB")
+    say(f"{label} steps (device ms, launches and bytes' bound per window) " + json.dumps(table))
+    return {"busy_share": busy, "d2h_copies": d2h, "peak_mem_gb": peak, "steps": table,
+            "host_spans": host}
+
+
+def _deg_batches(bin_path):
+    from gelly_streaming_tpu_torch import CountWindow, datasets
+
+    stream = datasets.stream_file(
+        bin_path, window=CountWindow(CC_WINDOW), vertex_dict=datasets.IdentityDict(CC_ID_BOUND),
+        prefetch_depth=2, device="cuda",
+    )
+    return stream.get_degrees().batches()
+
+
+def _dd_events():
+    rng = np.random.default_rng(DD_SEED)
+    s = rng.integers(0, DD_VERTICES, DD_EVENTS).tolist()
+    d = rng.integers(0, DD_VERTICES, DD_EVENTS).tolist()
+    kinds = (rng.random(DD_EVENTS) < 0.7).tolist()
+    return [(a, b, "+" if k else "-") for a, b, k in zip(s, d, kinds)]
+
+
+def phase_degrees(torch):
+    from gelly_streaming_tpu_torch import CountWindow, datasets
+    from gelly_streaming_tpu_torch.library import DegreeDistribution
+
+    path, _ = datasets.ensure_corpus(CC_CORPUS)
+    spec = datasets.CORPORA[CC_CORPUS]
+    n_edges = spec.surrogate_edges
+    t0 = time.perf_counter()
+    bin_path = datasets.binary_cache(path)
+    say(f"degrees: binary cache {bin_path} ({os.path.getsize(bin_path)} bytes) in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    def one_pass():
+        return sum(1 for _ in _deg_batches(bin_path))
+
+    cell = timed_passes(torch, one_pass, n_edges)
+    n, in_loop, after = count_syncs(torch, _deg_batches(bin_path))
+    cell.update(host_syncs_in_loop=in_loop, host_syncs_per_window=in_loop / n,
+                host_syncs_after_loop=after)
+    say("degrees cell " + json.dumps(cell))
+    if cell["windows"] != n_edges // CC_WINDOW or in_loop != 0:
+        raise AssertionError(f"the degree loop ran {cell['windows']} windows with {in_loop} "
+                             "host syncs")
+
+    # correctness: every window's emission read, against numpy
+    cols = [b.columns for b in _deg_batches(bin_path)]
+    src, dst = rmat_oracle_edges(n_edges, int(spec.surrogate_vscale).bit_length() - 1)
+    want = np.bincount(src, minlength=CC_ID_BOUND) + np.bincount(dst, minlength=CC_ID_BOUND)
+    final = np.zeros(CC_ID_BOUND, np.int64)
+    for ids, degs in cols:
+        final[ids] = degs
+    last_ids = np.unique(np.concatenate([src[-CC_WINDOW:], dst[-CC_WINDOW:]]))
+    ok = (np.array_equal(final, want) and np.array_equal(cols[-1][0], last_ids)
+          and np.array_equal(cols[-1][1], want[last_ids]) and cols[-1][1].dtype == np.int32)
+    say(f"degrees vs numpy: {int((final > 0).sum())} vertices, max degree {int(want.max())}, "
+        f"last window {len(last_ids)} changed vertices: {'exact' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the degree stream disagrees with np.bincount")
+
+    # the fully dynamic workload: the card against the CPU
+    events = _dd_events()
+    out = {}
+    for device in ("cpu", "cuda"):
+        dd = DegreeDistribution(CountWindow(DD_WINDOW), device=device)
+        t1 = time.perf_counter()
+        emitted = [list(b) for b in dd.run(events)]
+        out[device] = (emitted, dd.histogram(), dd.degrees(), time.perf_counter() - t1)
+    (ce, ch, cd, cs), (ge, gh, gd, gs) = out["cpu"], out["cuda"]
+    ok = ge == ce and gh == ch and np.array_equal(gd, cd)
+    say(f"degree distribution, {DD_EVENTS} events in {len(ge)} windows: card {gs:.2f} s, cpu "
+        f"{cs:.2f} s, {len(gh)} histogram bins, {'equal' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("DegreeDistribution on the card disagrees with the CPU")
+    nbytes = window_step_bytes(CC_WINDOW, CC_ID_BOUND)
+    nbytes["segment.count"] *= 2  # the src and the dst counts
+    cell["profile"] = profile_cell(torch, "degrees", one_pass, DEG_STEPS, nbytes)
+    return cell
+
+
+def oracle_triangles(src, dst, n):
+    """The triangle count of one window by scipy: the degree-oriented,
+    deduplicated adjacency A (a -> b when (deg, id) of a is smaller), and
+    the sum of (A @ A) * A."""
+    from scipy.sparse import csr_matrix
+
+    u = np.minimum(src, dst).astype(np.int64)
+    v = np.maximum(src, dst).astype(np.int64)
+    ok = u != v
+    key = np.unique(u[ok] * n + v[ok])
+    u, v = key // n, key % n
+    deg = np.bincount(u, minlength=n) + np.bincount(v, minlength=n)
+    swap = (deg[v] < deg[u]) | ((deg[v] == deg[u]) & (v < u))
+    a = np.where(swap, v, u)
+    b = np.where(swap, u, v)
+    adj = csr_matrix((np.ones(len(a), np.int64), (a, b)), shape=(n, n))
+    return int((adj @ adj).multiply(adj).sum())
+
+
+def _tri_stream(src, dst, device="cuda", val=None):
+    from gelly_streaming_tpu_torch import CountWindow, SimpleEdgeStream
+    from gelly_streaming_tpu_torch.datasets import IdentityDict
+
+    cols = (src, dst) if val is None else (src, dst, val)
+    return SimpleEdgeStream(cols, window=CountWindow(TRI_WINDOW),
+                            vertex_dict=IdentityDict(TRI_VERTICES), device=device)
+
+
+def _tri_counts(src, dst):
+    from gelly_streaming_tpu_torch import CountWindow
+    from gelly_streaming_tpu_torch.library import WindowTriangles
+
+    return WindowTriangles(CountWindow(TRI_WINDOW)).run_stream(_tri_stream(src, dst))
+
+
+def phase_triangles(torch):
+    from gelly_streaming_tpu_torch import CountWindow
+    from gelly_streaming_tpu_torch.library.triangles import _oriented_degree_bucket
+    from gelly_streaming_tpu_torch.ops.triangles import window_triangle_count
+
+    src, dst = make_stream(TRI_VERTICES, TRI_WINDOW * TRI_WINDOWS, seed=TRI_SEED)
+    kept = []
+
+    def one_pass():
+        kept[:] = [c for c, _ in _tri_counts(src, dst)]
+        return len(kept)
+
+    cell = timed_passes(torch, one_pass, TRI_WINDOW * TRI_WINDOWS)
+    n, in_loop, after = count_syncs(torch, _tri_counts(src, dst))
+    cell.update(host_syncs_in_loop=in_loop, host_syncs_per_window=in_loop / n,
+                host_syncs_after_loop=after)
+    got = [int(c) for c in kept]
+    want = [oracle_triangles(src[a:a + TRI_WINDOW], dst[a:a + TRI_WINDOW], TRI_VERTICES)
+            for a in range(0, len(src), TRI_WINDOW)]
+    cell["counts"] = got
+    say("triangles cell " + json.dumps(cell))
+    say(f"triangles vs scipy: port {got}, scipy {want}: {'exact' if got == want else 'FAIL'}")
+    if got != want or in_loop != 0 or cell["windows"] != TRI_WINDOWS:
+        raise AssertionError("window triangles disagree with scipy or read the device per window")
+
+    # window 0's per-vertex counts: the card against the CPU
+    per = {}
+    for device in ("cuda", "cpu"):
+        block = next(_tri_stream(src, dst, device).slice(CountWindow(TRI_WINDOW))._block_iter_fn())
+        s_h, d_h, _ = block.to_host()
+        width = _oriented_degree_bucket(s_h, d_h, block.n_vertices)
+        total, pv = window_triangle_count(block.src, block.dst, block.mask, block.n_vertices,
+                                          width)
+        per[device] = (int(total), pv.cpu().numpy(), width)
+    ok = per["cuda"][0] == per["cpu"][0] == want[0] and np.array_equal(per["cuda"][1],
+                                                                      per["cpu"][1])
+    say(f"triangles window 0 per vertex: width {per['cuda'][2]}, {int((per['cuda'][1] > 0).sum())} "
+        f"vertices in a triangle, sum {int(per['cuda'][1].sum())} (= 3 x {per['cuda'][0]}): "
+        f"{'equal to the CPU' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("per-vertex triangle counts on the card disagree with the CPU")
+    cell["width"] = per["cuda"][2]
+    cell["profile"] = profile_cell(
+        torch, "triangles", one_pass, TRI_STEPS,
+        window_step_bytes(TRI_WINDOW, TRI_VERTICES, per["cuda"][2]))
+    return cell
+
+
+def _neighborhood_ops(torch):
+    """The five neighborhood operations of phase 8, as (name, callable on
+    a SnapshotStream, exact) with the UDFs written in torch."""
+    def fold(acc, vid, nid, val):
+        return acc[0] + 1, (acc[1] * 31 + nid) % 1000003, acc[2] * 0.5 + val
+
+    def apply(vid, nbrs, vals, valid):
+        return valid.sum(), torch.where(valid, vals, 0.0).amax()
+
+    def flat(vid, nbrs, vals, valid):
+        emit = valid & (nbrs > vid) & (vals > 0.99)
+        return (torch.broadcast_to(vid, nbrs.shape), nbrs), emit
+
+    return [
+        ("reduce_on_edges(sum)", lambda s: s.reduce_on_edges("sum")),
+        ("reduce_on_edges(callable)", lambda s: s.reduce_on_edges(lambda a, b: torch.add(a, b))),
+        ("fold_neighbors", lambda s: s.fold_neighbors((0, 0, 0.0), fold)),
+        ("apply_on_neighbors", lambda s: s.apply_on_neighbors(apply)),
+        ("flat_apply_on_neighbors", lambda s: s.flat_apply_on_neighbors(flat, lambda d: d)),
+    ]
+
+
+def _split_numbers(records):
+    """The integers and the floats of a list of (nested tuple) records."""
+    ints, floats = [], []
+
+    def walk(x):
+        if isinstance(x, tuple):
+            for y in x:
+                walk(y)
+        else:
+            (floats if isinstance(x, float) else ints).append(x)
+
+    for rec in records:
+        walk(rec)
+    return ints, np.asarray(floats, np.float64)
+
+
+def phase_neighborhood(torch):
+    from gelly_streaming_tpu_torch import EdgeDirection
+    from gelly_streaming_tpu_torch.ops import segment
+
+    src, dst = make_stream(TRI_VERTICES, TRI_WINDOW * TRI_WINDOWS, seed=TRI_SEED)
+    src, dst = src[:TRI_WINDOW], dst[:TRI_WINDOW]
+    val = np.random.default_rng(NBR_SEED).random(TRI_WINDOW).astype(np.float32)
+    rows = {}
+    for name, op in _neighborhood_ops(torch):
+        res = {}
+        for device in ("cuda", "cpu"):
+            snap = _tri_stream(src, dst, device, val).slice(direction=EdgeDirection.ALL)
+            turns = segment.FOLD_TURNS
+            t0 = time.perf_counter()
+            out = list(op(snap))
+            if device == "cuda":
+                torch.cuda.synchronize()
+            res[device] = (out, (time.perf_counter() - t0) * 1e3, segment.FOLD_TURNS - turns)
+        (g, g_ms, g_turns), (c, c_ms, c_turns) = res["cuda"], res["cpu"]
+        gi, gf = _split_numbers(g)
+        ci, cf = _split_numbers(c)
+        err = float(np.max(np.abs(gf - cf) / np.maximum(np.abs(cf), 1.0))) if len(cf) else 0.0
+        ok = len(g) == len(c) and gi == ci and gf.shape == cf.shape and err <= NBR_TOL
+        rows[name] = {"records": len(g), "ms": g_ms, "cpu_ms": c_ms, "turns": g_turns,
+                      "max_rel_err": err}
+        say(f"neighborhood {name}: {len(g)} records, card {g_ms:.1f} ms, cpu {c_ms:.1f} ms"
+            + (f", lockstep turns {g_turns} (cpu {c_turns})" if g_turns else "")
+            + f", float max rel err {err:.2e} (tol {NBR_TOL:g}): "
+            + ("equal to the CPU" if ok else "FAIL"))
+        if not ok or g_turns != c_turns:
+            raise AssertionError(f"{name} on the card disagrees with the CPU")
+    deg = np.bincount(src, minlength=TRI_VERTICES) + np.bincount(dst, minlength=TRI_VERTICES)
+    if rows["fold_neighbors"]["turns"] != deg.max():
+        raise AssertionError("the fold did not run one lockstep turn per edge of the longest "
+                             "neighborhood")
+    return rows
+
+
+
 def main():
     import torch
 
@@ -745,6 +1165,9 @@ def main():
     main_err, rows = phase_kernels(torch)
     slice_result = phase_slice(torch, rows)
     phase_cc(torch)
+    phase_degrees(torch)
+    phase_triangles(torch)
+    phase_neighborhood(torch)
     kernel = {
         "name": "fused_sage_matmul",
         "variant": "tc",

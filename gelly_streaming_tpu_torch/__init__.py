@@ -3,7 +3,7 @@
 A second package beside the JAX one, which stays the reference it is held
 against. It runs on an NVIDIA card by default (``device="cuda"``, raising
 when there is none) and on the CPU only when asked (``device="cpu"``).
-Two slices run end to end so far. Streaming Connected Components, the
+Three slices run end to end so far. Streaming Connected Components, the
 headline path (file -> native parse -> count windows -> forest carry)::
 
     from gelly_streaming_tpu_torch import CountWindow, datasets
@@ -31,21 +31,50 @@ Streaming GraphSAGE inference::
     for emb in StreamingGraphSAGE(params, 128).run(
             stream, TableFeatureSource(table)):
         ...
+
+The window and neighborhood layer: the degree streams, ``slice()`` and
+the neighborhood aggregations, window triangles (user functions are
+written with torch operations)::
+
+    stream = SimpleEdgeStream(edges, window=CountWindow(1 << 20))
+    for vertex, degree in stream.get_degrees():
+        ...  # continuously improving, per-window change-only
+    snap = stream.slice(direction=EdgeDirection.ALL)
+    for vertex, total in snap.reduce_on_edges("sum"):
+        ...  # per-window neighborhood aggregate
+    for count, window in WindowTriangles(CountWindow(1 << 20)).run_stream(stream):
+        ...  # count is a device scalar
 """
 
 from .core.edgeblock import EdgeBlock, bucket_capacity, concat_blocks
-from .core.stream import SimpleEdgeStream, StreamContext
+from .core.snapshot import SnapshotStream
+from .core.stream import GraphStream, SimpleEdgeStream, StreamContext
+from .core.types import Edge, EdgeDirection, EventType, Vertex
 from .core.vertexdict import VertexDict
-from .core.window import CountWindow
+from .core.window import (
+    CountWindow,
+    EventTimeWindow,
+    ProcessingTimeWindow,
+    Windower,
+)
 
 __version__ = "0.1.0"
 
 __all__ = [
     "CountWindow",
+    "Edge",
     "EdgeBlock",
+    "EdgeDirection",
+    "EventTimeWindow",
+    "EventType",
+    "GraphStream",
+    "ProcessingTimeWindow",
     "SimpleEdgeStream",
+    "SnapshotStream",
     "StreamContext",
+    "Vertex",
     "VertexDict",
+    "Windower",
     "bucket_capacity",
     "concat_blocks",
 ]

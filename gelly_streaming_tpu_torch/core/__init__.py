@@ -6,7 +6,14 @@ from .edgeblock import EdgeAccumulator, EdgeBlock, bucket_capacity
 from .stream import SimpleEdgeStream, StreamContext
 from .types import Edge, EdgeDirection, EventType, Vertex
 from .vertexdict import VertexDict
-from .window import CountWindow, WindowInfo, WindowPolicy, Windower
+from .window import (
+    CountWindow,
+    EventTimeWindow,
+    ProcessingTimeWindow,
+    WindowInfo,
+    WindowPolicy,
+    Windower,
+)
 
 __all__ = [
     "CountWindow",
@@ -14,7 +21,9 @@ __all__ = [
     "EdgeAccumulator",
     "EdgeBlock",
     "EdgeDirection",
+    "EventTimeWindow",
     "EventType",
+    "ProcessingTimeWindow",
     "SimpleEdgeStream",
     "StreamContext",
     "Vertex",

@@ -25,10 +25,11 @@ window's upload does not wait for the previous window's work.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from .device import resolve_device
 
@@ -81,11 +82,11 @@ def _cached_mask(cap: int, n: int, device: torch.device) -> torch.Tensor:
     return m
 
 
-def _cached_zeros(cap: int, device: torch.device) -> torch.Tensor:
-    key = (cap, device)
+def _cached_zeros(cap: int, device: torch.device, dtype=VAL_DTYPE) -> torch.Tensor:
+    key = (cap, device, np.dtype(dtype))
     z = _ZEROS_CACHE.get(key)
     if z is None:
-        z = to_device(np.zeros(cap, VAL_DTYPE), device)
+        z = to_device(np.zeros(cap, dtype), device)
         _ZEROS_CACHE[key] = z
     return z
 
@@ -101,7 +102,7 @@ class EdgeBlock:
 
     src: torch.Tensor  # int32[capacity]
     dst: torch.Tensor  # int32[capacity]
-    val: torch.Tensor  # float32[capacity]
+    val: Any  # float32[capacity], or a pytree of [capacity, ...] tensors
     mask: torch.Tensor  # bool[capacity]
     n_vertices: int = 0
 
@@ -122,11 +123,13 @@ class EdgeBlock:
         n_vertices: int,
         device,
         capacity: Optional[int] = None,
+        val_dtype=VAL_DTYPE,
     ) -> "EdgeBlock":
         """Build a block of capacity ``bucket_capacity(n)`` (or
-        ``capacity``) on ``device`` from host arrays of compact int32 ids.
-        The mask and (for valueless streams) the val column come from
-        shared cached device buffers — see the module-level caveat."""
+        ``capacity``) on ``device`` from host arrays of compact int32 ids,
+        the val column in ``val_dtype``. The mask and (for valueless
+        streams) the val column come from shared cached device buffers —
+        see the module-level caveat."""
         device = torch.device(device)
         n = int(np.asarray(src).shape[0])
         cap = bucket_capacity(n) if capacity is None else int(capacity)
@@ -137,9 +140,9 @@ class EdgeBlock:
         src_p[:n] = src
         dst_p[:n] = dst
         if val is None:
-            val_d = _cached_zeros(cap, device)
+            val_d = _cached_zeros(cap, device, val_dtype)
         else:
-            val_p = np.zeros(cap, dtype=VAL_DTYPE)
+            val_p = np.zeros(cap, dtype=val_dtype)
             val_p[:n] = val
             val_d = to_device(val_p, device)
         return EdgeBlock(
@@ -151,7 +154,9 @@ class EdgeBlock:
         )
 
     def to_host(self):
-        """Return (src, dst, val) numpy arrays with padding stripped.
+        """Return (src, dst, val) numpy arrays with padding stripped
+        (``val`` may be a pytree of arrays after a tuple-valued
+        ``map_edges``; masking is leaf-wise).
 
         Blocks built by the Windower carry their pre-padding host columns
         (``_host_cache``), so this is free on the ingest path; other blocks
@@ -164,15 +169,20 @@ class EdgeBlock:
         return (
             self.src.cpu().numpy()[mask],
             self.dst.cpu().numpy()[mask],
-            self.val.cpu().numpy()[mask],
+            pytree.tree_map(lambda a: a.cpu().numpy()[mask], self.val),
         )
 
-    def with_host_cache(self, src, dst, val) -> "EdgeBlock":
-        """Attach pre-padding host columns, PREFIX-aligned with the device
-        columns (cached row i lives in device slot i; the mask is a prefix
-        mask). Not dataclass fields, so a block built with
-        ``dataclasses.replace`` drops them and must re-download."""
+    def with_host_cache(self, src, dst, val, positions=None) -> "EdgeBlock":
+        """Attach pre-padding host columns. Not dataclass fields, so a
+        block built with ``dataclasses.replace`` (a device transform) drops
+        them and must re-download.
+
+        ``positions``: the device slot of each cached row. ``None``
+        declares PREFIX alignment (cached row i lives in device slot i),
+        valid only for a prefix mask; producers that cache the rows of a
+        mask with holes (``distinct()``) pass the real slots."""
         object.__setattr__(self, "_host_cache", (src, dst, val))
+        object.__setattr__(self, "_host_cache_pos", positions)
         return self
 
     def with_vertices(self, n_vertices: int) -> "EdgeBlock":
@@ -238,6 +248,48 @@ def stack_host_cols(
     )
 
 
+def prefix_host_cols(block: EdgeBlock):
+    """The block's host columns when they can fill one ``[K, cap]`` plane:
+    prefix-aligned, with a plain array val (a pytree val from a
+    tuple-valued ``map_edges`` cannot); else None."""
+    cache = getattr(block, "_host_cache", None)
+    if (cache is None or getattr(block, "_host_cache_pos", None) is not None
+            or not (cache[2] is None or isinstance(cache[2], np.ndarray))):
+        return None
+    return cache
+
+
+def from_arrays_tree(
+    src: np.ndarray, dst: np.ndarray, val: Any, *, n_vertices: int, device,
+    capacity: Optional[int] = None,
+) -> EdgeBlock:
+    """Like :meth:`EdgeBlock.from_arrays` but with a pytree ``val`` whose
+    leaf dtypes are kept (padding with zeros of each leaf's dtype); the
+    host columns are attached as the block's cache."""
+    device = torch.device(device)
+    n = int(np.asarray(src).shape[0])
+    cap = capacity if capacity is not None else bucket_capacity(n)
+    if n > cap:
+        raise ValueError(f"{n} edges exceed capacity {cap}")
+
+    def pad(a, dtype=None):
+        a = np.asarray(a, dtype)
+        out = np.zeros((cap,) + a.shape[1:], dtype=a.dtype)
+        out[:n] = a
+        return to_device(out, device)
+
+    val_d = (pytree.tree_map(pad, val) if val is not None
+             else _cached_zeros(cap, device))
+    return EdgeBlock(
+        src=pad(src, np.int32), dst=pad(dst, np.int32), val=val_d,
+        mask=_cached_mask(cap, n, device), n_vertices=int(n_vertices),
+    ).with_host_cache(
+        np.asarray(src, np.int32), np.asarray(dst, np.int32),
+        pytree.tree_map(np.asarray, val) if val is not None
+        else np.zeros(n, VAL_DTYPE),
+    )
+
+
 def stack_blocks(
     blocks: Sequence[EdgeBlock], capacity: Optional[int] = None
 ) -> StackedEdgeBlock:
@@ -250,7 +302,7 @@ def stack_blocks(
         raise ValueError("stack_blocks needs at least one block")
     n_vertices = max(b.n_vertices for b in blocks)
     device = blocks[0].src.device
-    if all(getattr(b, "_host_cache", None) is not None for b in blocks):
+    if all(prefix_host_cols(b) is not None for b in blocks):
         return stack_host_cols(
             [b._host_cache for b in blocks], n_vertices, device=device,
             capacity=capacity,

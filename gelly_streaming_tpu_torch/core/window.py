@@ -7,12 +7,11 @@ analog), and emits padded, capacity-bucketed
 :class:`~gelly_streaming_tpu_torch.core.edgeblock.EdgeBlock` batches on the
 stream's device — one per tumbling window.
 
-``CountWindow(n)`` — every ``n`` edges is a window — is the policy of the
-port so far, on the record path, the numpy column path and the chunked
-column path of file ingest (:meth:`Windower.blocks_from_chunks`). Time
-windows (``ProcessingTimeWindow``, ``EventTimeWindow``) are declared so
-that callers can name them, and the Windower raises
-``NotImplementedError`` for them (ROADMAP Queue 1, slice 4).
+Three policies: ``CountWindow(n)`` (every ``n`` edges is a window) on the
+record path, the numpy column path and the chunked column path of file
+ingest (:meth:`Windower.blocks_from_chunks`); ``ProcessingTimeWindow``
+(wall clock, record path); and ``EventTimeWindow`` (tumbling slots of an
+ascending event time) on the record, column and chunked paths.
 
 Superbatches pack K consecutive windows into one
 :class:`SuperbatchGroup`: one group encode and per-window host column
@@ -26,6 +25,7 @@ Blocks carry *compact* int32 ids; raw ids stay host-side in the dict.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable, Iterable, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
@@ -35,12 +35,12 @@ from .edgeblock import (
     VAL_DTYPE,
     EdgeBlock,
     StackedEdgeBlock,
+    prefix_host_cols,
     stack_blocks,
     stack_host_cols,
 )
 from .vertexdict import VertexDict
 
-_TIME_WINDOWS = "ROADMAP Queue 1, slice 4 (the window and neighborhood layer)"
 _AUTO_K = ("ROADMAP Queue 1, slice 7 (durability, control and ingest: "
            'superbatch="auto")')
 
@@ -75,6 +75,11 @@ class WindowInfo:
     start: Optional[float]
     end: Optional[float]
 
+    @property
+    def max_timestamp(self) -> Optional[float]:
+        """Inclusive end, matching Flink's ``TimeWindow.maxTimestamp()``."""
+        return None if self.end is None else self.end - 1
+
 
 @dataclasses.dataclass
 class CountWindow(WindowPolicy):
@@ -85,7 +90,10 @@ class CountWindow(WindowPolicy):
 
 @dataclasses.dataclass
 class ProcessingTimeWindow(WindowPolicy):
-    """Tumbling wall-clock window (not yet ported: the Windower raises)."""
+    """Tumbling wall-clock window: closes when ``seconds`` have passed
+    since the window's first record, or at ``max_count`` records (which
+    bounds block capacity under bursts). Live sources that can go idle
+    yield ``None`` ticks, which close an open window on schedule."""
 
     seconds: float
     max_count: int = 1 << 20
@@ -93,7 +101,14 @@ class ProcessingTimeWindow(WindowPolicy):
 
 @dataclasses.dataclass
 class EventTimeWindow(WindowPolicy):
-    """Tumbling event-time window (not yet ported: the Windower raises)."""
+    """Tumbling event-time window of ``size`` time units.
+
+    ``timestamp_fn(edge) -> number`` extracts the (ascending) event time,
+    the analog of the reference's ``AscendingTimestampExtractor``. On the
+    column paths it is applied to the column tuple itself, so an
+    index-based extractor like ``lambda e: e[2]`` selects the same column
+    it would per record; a non-indexing fn must be numpy-broadcastable or
+    the windower raises."""
 
     size: float
     timestamp_fn: Callable[[Tuple], float] = None  # type: ignore[assignment]
@@ -115,10 +130,12 @@ class Windower:
         vertex_dict: Optional[VertexDict] = None,
         *,
         device,
+        val_dtype=VAL_DTYPE,
     ):
         self.policy = policy
         self.vertex_dict = vertex_dict if vertex_dict is not None else VertexDict()
         self.device = device
+        self.val_dtype = val_dtype
 
     def _rows_to_cols(self, rows: Sequence[Tuple]) -> Tuple:
         """One window's record tuples -> raw ``(src, dst, val|None)``
@@ -127,7 +144,7 @@ class Windower:
         raw_src = np.fromiter((r[0] for r in rows), dtype=np.int64, count=n)
         raw_dst = np.fromiter((r[1] for r in rows), dtype=np.int64, count=n)
         if n and len(rows[0]) > 2 and rows[0][2] is not None:
-            val = np.asarray([r[2] for r in rows], dtype=VAL_DTYPE)
+            val = np.asarray([r[2] for r in rows], dtype=self.val_dtype)
         else:
             val = None
         return raw_src, raw_dst, val
@@ -150,16 +167,7 @@ class Windower:
             # before dst per edge), matching the reference's per-record
             # processing.
             src, dst = self.vertex_dict.encode_pair(raw_src, raw_dst)
-            block = EdgeBlock.from_arrays(
-                src, dst, val, n_vertices=self.vertex_dict.capacity,
-                device=self.device,
-            )
-            host_val = (
-                np.zeros(n, dtype=VAL_DTYPE)
-                if val is None
-                else np.asarray(val, VAL_DTYPE)
-            )
-            return block.with_host_cache(src, dst, host_val)
+            return self._encoded_block(src, dst, val)
 
     def _block_from_encoded(
         self, src: np.ndarray, dst: np.ndarray, val: Optional[np.ndarray]
@@ -174,16 +182,21 @@ class Windower:
         ):
             src = np.ascontiguousarray(src, np.int32)
             dst = np.ascontiguousarray(dst, np.int32)
-            block = EdgeBlock.from_arrays(
-                src, dst, val, n_vertices=self.vertex_dict.capacity,
-                device=self.device,
-            )
-            host_val = (
-                np.zeros(n, dtype=VAL_DTYPE)
-                if val is None
-                else np.asarray(val, VAL_DTYPE)
-            )
-            return block.with_host_cache(src, dst, host_val)
+            return self._encoded_block(src, dst, val)
+
+    def _encoded_block(self, src, dst, val) -> EdgeBlock:
+        """Upload one window of compact ids and attach its host columns."""
+        block = EdgeBlock.from_arrays(
+            src, dst, val, n_vertices=self.vertex_dict.capacity,
+            device=self.device, val_dtype=self.val_dtype,
+        )
+        n = len(src)
+        host_val = (
+            np.zeros(n, dtype=self.val_dtype)
+            if val is None
+            else np.asarray(val, self.val_dtype)
+        )
+        return block.with_host_cache(src, dst, host_val)
 
     def blocks(self, edges: Iterable[Tuple]) -> Iterator[EdgeBlock]:
         """Yield one EdgeBlock per tumbling window."""
@@ -193,21 +206,31 @@ class Windower:
     def blocks_with_info(
         self, edges: Iterable[Tuple]
     ) -> Iterator[Tuple[WindowInfo, EdgeBlock]]:
-        """Like :meth:`blocks` but paired with host-side window metadata."""
+        """Like :meth:`blocks` but paired with host-side window metadata
+        (the ``TimeWindow`` a reference window function receives,
+        ``SnapshotStream.java:146``)."""
         policy = self.policy
-        if not isinstance(policy, CountWindow):
-            if isinstance(policy, (ProcessingTimeWindow, EventTimeWindow)):
-                raise NotImplementedError(
-                    f"{type(policy).__name__} is ported in {_TIME_WINDOWS}"
-                )
-            raise TypeError(f"unknown window policy {policy!r}")
         if is_column_input(edges):
             yield from self._array_windows(edges)
             return
-        if callable(getattr(edges, "iter_chunks", None)):
-            # chunk-capable source: consume its column chunks directly
+        if callable(getattr(edges, "iter_chunks", None)) and isinstance(
+            policy, CountWindow
+        ):
+            # chunk-capable source: consume its column chunks directly.
+            # Count windows only: time policies read per-record ticks and
+            # timestamps that chunks do not carry
             yield from self.blocks_from_chunks(edges.iter_chunks())
             return
+        if isinstance(policy, CountWindow):
+            yield from self._record_count_windows(edges, policy)
+        elif isinstance(policy, ProcessingTimeWindow):
+            yield from self._record_processing_windows(edges, policy)
+        elif isinstance(policy, EventTimeWindow):
+            yield from self._record_event_windows(edges, policy)
+        else:
+            raise TypeError(f"unknown window policy {policy!r}")
+
+    def _record_count_windows(self, edges, policy: CountWindow):
         index = 0
         buf: list[Tuple] = []
         for e in edges:
@@ -221,10 +244,55 @@ class Windower:
         if buf:
             yield WindowInfo(index, None, None), self._make_block(buf)
 
+    def _record_processing_windows(self, edges, policy: ProcessingTimeWindow):
+        index = 0
+        buf: list[Tuple] = []
+        t0: Optional[float] = None
+        for e in edges:
+            now = time.perf_counter()
+            if e is not None:
+                if t0 is None:
+                    t0 = now
+                buf.append(e)
+            if buf and (now - t0 >= policy.seconds or len(buf) >= policy.max_count):
+                yield WindowInfo(index, None, None), self._make_block(buf)
+                index += 1
+                buf = []
+                t0 = None
+        if buf:
+            yield WindowInfo(index, None, None), self._make_block(buf)
+
+    def _record_event_windows(self, edges, policy: EventTimeWindow):
+        _require_timestamp_fn(policy)
+        ts_fn = policy.timestamp_fn
+        index = 0
+        buf: list[Tuple] = []
+        current: Optional[int] = None
+        for e in edges:
+            if e is None:
+                # idle tick: event-time windows close on event time only
+                continue
+            w = int(ts_fn(e) // policy.size)
+            if current is None:
+                current = w
+            if w != current:
+                if buf:
+                    yield self._info(index, current), self._make_block(buf)
+                    index += 1
+                buf = []
+                current = w
+            buf.append(e)
+        if buf:
+            yield self._info(index, current), self._make_block(buf)
+
+    def _info(self, index: int, time_slot: int) -> WindowInfo:
+        size = self.policy.size
+        return WindowInfo(index, time_slot * size, (time_slot + 1) * size)
+
     def _array_windows(self, edges) -> Iterator[Tuple[WindowInfo, EdgeBlock]]:
         """Array fast path: ``edges`` is an [N,2|3] ndarray or a
-        (src, dst[, val]) tuple/list of 1-D arrays. Window boundaries are
-        computed with numpy (no per-record Python)."""
+        (src, dst[, val][, ts]) tuple/list of 1-D arrays. Window boundaries
+        are computed with numpy (no per-record Python)."""
         if isinstance(edges, np.ndarray):
             if edges.ndim != 2 or not 2 <= edges.shape[1] <= 3:
                 raise ValueError("edge array must be [N, 2] or [N, 3]")
@@ -233,14 +301,41 @@ class Windower:
             cols = [np.asarray(c) for c in edges]
         src = cols[0].astype(np.int64)
         dst = cols[1].astype(np.int64)
-        val = cols[2].astype(VAL_DTYPE) if len(cols) > 2 else None
-        size = self.policy.size
-        for index, start in enumerate(range(0, src.shape[0], size)):
-            end = start + size
-            yield WindowInfo(index, None, None), self._block_from_arrays(
-                src[start:end], dst[start:end],
-                None if val is None else val[start:end],
-            )
+        val = cols[2].astype(self.val_dtype) if len(cols) > 2 else None
+        n = src.shape[0]
+        policy = self.policy
+        if isinstance(policy, CountWindow):
+            for index, start in enumerate(range(0, n, policy.size)):
+                end = start + policy.size
+                yield WindowInfo(index, None, None), self._block_from_arrays(
+                    src[start:end], dst[start:end],
+                    None if val is None else val[start:end],
+                )
+        elif isinstance(policy, EventTimeWindow):
+            _require_timestamp_fn(policy)
+            # the extractor applied to the column tuple: an index-based fn
+            # (lambda e: e[k]) picks the column it picks per record
+            try:
+                ts = np.asarray(policy.timestamp_fn(tuple(cols)), np.float64)
+            except Exception as e:
+                raise ValueError(
+                    "EventTimeWindow.timestamp_fn could not be applied to "
+                    "the column tuple on the array ingest path; use an "
+                    "index-based extractor (lambda e: e[k]) or a numpy-"
+                    f"broadcastable fn ({e})"
+                ) from e
+            if ts.shape != (n,):
+                raise ValueError(
+                    "EventTimeWindow.timestamp_fn returned shape "
+                    f"{ts.shape} on the array path; expected ({n},)"
+                )
+            slots = (ts // policy.size).astype(np.int64)
+            for index, (a, b) in enumerate(_slot_runs(slots)):
+                yield self._info(index, int(slots[a])), self._block_from_arrays(
+                    src[a:b], dst[a:b], None if val is None else val[a:b]
+                )
+        else:
+            raise TypeError(f"unknown window policy {policy!r}")
 
     # ------------------------------------------------------------------ #
     # Superbatch packing: K windows -> one ingest group
@@ -255,7 +350,7 @@ class Windower:
         if k < 1:
             raise ValueError(f"superbatch k must be >= 1, got {k}")
         if not isinstance(self.policy, CountWindow):
-            # blocks_with_info raises for the policies not ported yet
+            # time windows: pack the per-window blocks
             yield from superbatches_from_blocks(
                 self.blocks_with_info(edges), k, with_info=True
             )
@@ -282,7 +377,7 @@ class Windower:
             cols = [np.asarray(c) for c in edges]
         src = cols[0].astype(np.int64)
         dst = cols[1].astype(np.int64)
-        val = cols[2].astype(VAL_DTYPE) if len(cols) > 2 else None
+        val = cols[2].astype(self.val_dtype) if len(cols) > 2 else None
         n = src.shape[0]
         size = self.policy.size
         index = 0
@@ -361,7 +456,7 @@ class Windower:
                 v = c[2]
                 cols.append((
                     s_g[a:b], d_g[a:b],
-                    None if v is None else np.asarray(v, VAL_DTYPE),
+                    None if v is None else np.asarray(v, self.val_dtype),
                 ))
                 infos.append(WindowInfo(first_index + j, None, None))
                 a = b
@@ -388,10 +483,11 @@ class Windower:
         policy = self.policy
         if isinstance(policy, CountWindow):
             yield from self._chunk_count_windows(chunks, policy.size, encoded)
-        elif isinstance(policy, (ProcessingTimeWindow, EventTimeWindow)):
-            raise NotImplementedError(
-                f"{type(policy).__name__} is ported in {_TIME_WINDOWS}"
-            )
+        elif isinstance(policy, EventTimeWindow):
+            build = self._block_from_encoded if encoded else self._block_from_arrays
+            runs = iter_time_slot_runs(chunks, policy, val_dtype=self.val_dtype)
+            for index, (slot, src, dst, val) in enumerate(runs):
+                yield self._info(index, slot), build(src, dst, val)
         else:
             raise TypeError(f"unknown window policy {policy!r}")
 
@@ -410,11 +506,82 @@ class Windower:
             while have >= size:
                 have -= size
                 yield WindowInfo(index, None, None), build(
-                    *take_cols(pending, size)
+                    *take_cols(pending, size, self.val_dtype)
                 )
                 index += 1
         if have:
-            yield WindowInfo(index, None, None), build(*take_cols(pending, have))
+            yield WindowInfo(index, None, None), build(
+                *take_cols(pending, have, self.val_dtype)
+            )
+
+
+def _require_timestamp_fn(policy: EventTimeWindow) -> None:
+    if policy.timestamp_fn is None:
+        raise ValueError(
+            "EventTimeWindow requires timestamp_fn — without it the edge "
+            "value would silently be read as the event time"
+        )
+
+
+def _slot_runs(slots: np.ndarray):
+    """``(start, end)`` of each run of equal slots (ascending timestamps:
+    each run is one window)."""
+    bounds = np.nonzero(np.diff(slots))[0] + 1
+    starts = np.concatenate([[0], bounds])
+    ends = np.concatenate([bounds, [len(slots)]])
+    return zip(starts.tolist(), ends.tolist())
+
+
+def iter_time_slot_runs(chunks, policy: EventTimeWindow, val_dtype=VAL_DTYPE):
+    """The chunked event-time splitter: consume ``(src, dst[, val])``
+    column chunks and yield ``(slot, src, dst, val|None)`` per completed
+    tumbling window (ascending timestamps; boundaries are runs of equal
+    ``ts // size``; the final partial window included). A window spanning
+    many chunks is concatenated once, at its flush."""
+    _require_timestamp_fn(policy)
+    slot: Optional[int] = None
+    pend: list = []
+
+    def flush():
+        src = np.concatenate([p[0] for p in pend])
+        dst = np.concatenate([p[1] for p in pend])
+        if any(p[2] is not None for p in pend):
+            val = np.concatenate([
+                np.zeros(len(p[0]), val_dtype) if p[2] is None
+                else np.asarray(p[2], val_dtype)
+                for p in pend
+            ])
+        else:
+            val = None
+        pend.clear()
+        return slot, src, dst, val
+
+    for cols in chunks:
+        src, dst = np.asarray(cols[0]), np.asarray(cols[1])
+        val = cols[2] if len(cols) > 2 else None
+        n = len(src)
+        if n == 0:
+            continue
+        ts = np.asarray(
+            policy.timestamp_fn(tuple(
+                np.asarray(c) if c is not None else None for c in cols
+            )),
+            np.float64,
+        )
+        if ts.shape != (n,):
+            raise ValueError(
+                "EventTimeWindow.timestamp_fn returned shape "
+                f"{ts.shape} on the chunked path; expected ({n},)"
+            )
+        slots = (ts // policy.size).astype(np.int64)
+        for a, b in _slot_runs(slots):
+            run_slot = int(slots[a])
+            if slot is not None and run_slot != slot and pend:
+                yield flush()
+            slot = run_slot
+            pend.append((src[a:b], dst[a:b], None if val is None else val[a:b]))
+    if pend:
+        yield flush()
 
 
 def take_cols(pend: list, take: int, val_dtype=VAL_DTYPE):
@@ -538,7 +705,7 @@ def _group_from_blocks(group: list, infos: list) -> SuperbatchGroup:
     """One group of pre-built blocks as a :class:`SuperbatchGroup`; host
     column views when every member carries its host cache."""
     cols = None
-    if all(getattr(b, "_host_cache", None) is not None for b in group):
+    if all(prefix_host_cols(b) is not None for b in group):
         cols = [b._host_cache for b in group]
     return SuperbatchGroup(
         infos, cols, max(b.n_vertices for b in group),

@@ -1,7 +1,7 @@
 """Shared CLI plumbing for the port's example programs.
 
 A copy of the parts of ``gelly_streaming_tpu/example/common.py`` the
-streaming GraphSAGE example uses. Mirrors the reference examples'
+port's examples use, and their shared ``--cpu`` flag. Mirrors the reference examples'
 conventions (e.g. ``example/ConnectedComponentsExample.java:81-102``):
 positional args, no args -> built-in default data plus a usage message,
 results written to a file when an output path is given, printed otherwise.
@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import sys
 from typing import Iterable, List, Optional, Tuple
+
+from ..core.device import DEFAULT_DEVICE
 
 
 def read_edges(path: str, n_fields: int = 2, val_fn=float) -> List[Tuple]:
@@ -52,6 +54,16 @@ def default_chain_edges(n: int = 100) -> List[Tuple]:
     """The reference examples' built-in data: edges (k, k+2) for k=1..n
     (``ConnectedComponentsExample.java:120-130``) — two odd/even chains."""
     return [(k, k + 2, float(k * 100)) for k in range(1, n + 1)]
+
+
+def split_cpu_flag(args: List[str]):
+    """``(args without "--cpu", device)``: the examples run on the card
+    unless ``--cpu`` asks for the CPU."""
+    args = list(args)
+    if "--cpu" in args:
+        args.remove("--cpu")
+        return args, "cpu"
+    return args, DEFAULT_DEVICE
 
 
 def run_main(main_fn):

@@ -27,7 +27,14 @@ from ..core.device import DEFAULT_DEVICE
 from ..core.stream import SimpleEdgeStream
 from ..core.window import CountWindow
 from ..library import ConnectedComponents
-from .common import default_chain_edges, read_edges, run_main, usage, write_lines
+from .common import (
+    default_chain_edges,
+    read_edges,
+    run_main,
+    split_cpu_flag,
+    usage,
+    write_lines,
+)
 
 _SLICE7 = "ROADMAP Queue 1, slice 7 (durability, control and ingest)"
 _LATER_FLAGS = {
@@ -82,11 +89,7 @@ def run_corpus(name_or_path: str, window_size: int = 1 << 20,
 
 
 def main(args: List[str]) -> None:
-    args = list(args)
-    device = DEFAULT_DEVICE
-    if "--cpu" in args:
-        args.remove("--cpu")
-        device = "cpu"
+    args, device = split_cpu_flag(args)
     for flag, where in _LATER_FLAGS.items():
         if flag in args:
             raise NotImplementedError(f"{flag} is ported in {where}")

@@ -18,7 +18,14 @@ import torch
 from ..core.device import DEFAULT_DEVICE
 from ..core.stream import SimpleEdgeStream
 from ..core.window import CountWindow
-from .common import default_chain_edges, read_edges, run_main, usage, write_lines
+from .common import (
+    default_chain_edges,
+    read_edges,
+    run_main,
+    split_cpu_flag,
+    usage,
+    write_lines,
+)
 
 
 def run(
@@ -57,11 +64,7 @@ def run(
 
 
 def main(args: List[str]) -> None:
-    args = list(args)
-    device = DEFAULT_DEVICE
-    if "--cpu" in args:
-        args.remove("--cpu")
-        device = "cpu"
+    args, device = split_cpu_flag(args)
     if args:
         if len(args) not in (2, 3):
             print(

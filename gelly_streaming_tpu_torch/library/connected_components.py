@@ -363,7 +363,7 @@ class ConnectedComponents(_CCMixin, SummaryBulkAggregation):
     @classmethod
     def sliding(cls, size: int, slide=None, **kwargs):
         raise NotImplementedError(
-            "event-time sliding CC is ported in ROADMAP Queue 1, slices 4 and 8"
+            "event-time sliding CC is ported in ROADMAP Queue 1, slice 8"
         )
 
 

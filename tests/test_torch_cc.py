@@ -293,7 +293,7 @@ def test_later_slices_raise():
         TorchCC(superbatch="auto")
     with pytest.raises(NotImplementedError, match="slice 9"):
         TorchCC().servable()
-    with pytest.raises(NotImplementedError, match="slices 4 and 8"):
+    with pytest.raises(NotImplementedError, match="slice 8"):
         TorchCC.sliding(10)
 
 

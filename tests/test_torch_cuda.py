@@ -1,9 +1,12 @@
 """The port on the card: both CUDA kernels of ``fused_sage_matmul`` (the
 tensor-core "tc" and the CUDA-core "simt") against their plain version,
 the streaming GraphSAGE slice on the card against the same slice on the
-CPU, and streaming Connected Components on the card (every carry, per
+CPU, streaming Connected Components on the card (every carry, per
 window and in superbatches, and from a file) against the CPU, with the
-forest carry's host reads bounded by its fixpoint turns.
+forest carry's host reads bounded by its fixpoint turns, and the window
+and neighborhood layer (the degree update, the segmented scan, the
+lockstep fold, the window triangle count) against the CPU, with the
+degree and triangle loops making no host sync per window.
 
 Every test here is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is false. The file imports only torch, numpy
@@ -262,3 +265,118 @@ def test_stream_file_cc_on_card_matches_cpu(card, tmp_path):
     for (wi, wl), (gi, gl) in zip(want, got):
         np.testing.assert_array_equal(gi, wi)
         np.testing.assert_array_equal(gl, wl)
+
+
+# --------------------------------------------------------------------- #
+# The window and neighborhood layer on the card
+# --------------------------------------------------------------------- #
+def _zipf(seed, n_vertices, n_edges):
+    rng = np.random.default_rng(seed)
+    u, v = rng.random(n_edges), rng.random(n_edges)
+    src = np.minimum((n_vertices * u**0.75 * rng.random(n_edges)).astype(np.int64), n_vertices - 1)
+    dst = np.minimum((n_vertices * v**0.75 * rng.random(n_edges)).astype(np.int64), n_vertices - 1)
+    return src.astype(np.int32), dst.astype(np.int32)
+
+
+def test_degree_stream_on_card_matches_cpu_without_host_sync(card):
+    """Every window's changed ids and degrees equal the CPU's; the loop runs
+    under ``set_sync_debug_mode("error")`` (any implicit host sync raises)
+    until the stream's one wait at its end."""
+    src, dst = _zipf(3, 1 << 12, 1 << 15)
+
+    def stream(device):
+        return gt.SimpleEdgeStream((src, dst), window=gt.CountWindow(1 << 12),
+                                   vertex_dict=IdentityDict(1 << 12), device=device)
+
+    want = [b.columns for b in stream("cpu").get_degrees().batches()]
+    list(stream(card).get_degrees().batches())  # warm
+    torch.cuda.synchronize()
+    batches = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for b in stream(card).get_degrees().batches():
+            batches.append(b)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert len(batches) == len(want) == 8
+    for b, (wi, wd) in zip(batches, want):
+        np.testing.assert_array_equal(b.columns[0], wi)
+        np.testing.assert_array_equal(b.columns[1], wd)
+
+
+def test_segmented_scan_and_lockstep_fold_on_card_match_cpu(card):
+    """The generic scan (the degree workload's clamped composition, and a
+    float sum within 1e-5) and the lockstep fold (an order-dependent hash,
+    exact) give the CPU's results."""
+    from gelly_streaming_tpu_torch.ops import segment
+
+    rng = np.random.default_rng(8)
+    n, v = 5000, 300
+    ids = rng.integers(0, v, n).astype(np.int32)
+    nbr = rng.integers(0, v, n).astype(np.int32)
+    mask = rng.random(n) < 0.9
+    ints = rng.integers(-3, 4, n).astype(np.int32)
+    vals = rng.normal(size=n).astype(np.float32)
+
+    def combine(a, b):
+        return a[0] + b[0], torch.maximum(b[1], a[1] + b[0]), a[2] + b[2]
+
+    def fold(acc, vid, nid, val):
+        return (acc[0] * 31 + nid + vid) % 1000003, acc[1] * 0.5 + val
+
+    def run(device):
+        t = [torch.from_numpy(a).to(device) for a in (ids, nbr, mask, ints, vals)]
+        (s, m, f), ne = segment.segmented_reduce_generic(
+            (t[3], torch.zeros_like(t[3]), t[4]), t[0], t[2], v, combine)
+        before = segment.FOLD_TURNS
+        (h, d), ne2 = segment.segmented_fold((0, 0.0), fold, t[0], t[1], t[4], t[2], v)
+        turns = segment.FOLD_TURNS - before
+        return [x.cpu().numpy() for x in (s, m, f, ne, h, d, ne2)], turns
+
+    (s, m, f, ne, h, d, ne2), turns = run("cpu")
+    (gs, gm, gf, gne, gh, gd, gne2), gturns = run(card)
+    np.testing.assert_array_equal(gne, ne)
+    np.testing.assert_array_equal(gs[ne], s[ne])
+    np.testing.assert_array_equal(gm[ne], m[ne])
+    np.testing.assert_allclose(gf[ne], f[ne], rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(gne2, ne2)
+    np.testing.assert_array_equal(gh, h)
+    np.testing.assert_allclose(gd, d, rtol=1e-6, atol=1e-6)
+    assert gturns == turns == np.bincount(ids[mask], minlength=v).max()
+
+
+def test_window_triangles_on_card_match_cpu_without_host_sync(card):
+    """``window_triangle_count``'s total and per-vertex counts equal the
+    CPU's; ``run_stream`` gives the CPU's counts and its loop makes no host
+    sync (the counts stay device scalars)."""
+    from gelly_streaming_tpu_torch.library import WindowTriangles
+    from gelly_streaming_tpu_torch.library.triangles import _oriented_degree_bucket
+    from gelly_streaming_tpu_torch.ops.triangles import window_triangle_count
+
+    src, dst = _zipf(9, 1 << 12, 1 << 16)
+    width = _oriented_degree_bucket(src[: 1 << 15], dst[: 1 << 15], 1 << 12)
+    out = []
+    for device in ("cpu", card):
+        s = torch.from_numpy(src[: 1 << 15]).to(device)
+        d = torch.from_numpy(dst[: 1 << 15]).to(device)
+        m = torch.ones(1 << 15, dtype=torch.bool, device=device)
+        total, pv = window_triangle_count(s, d, m, 1 << 12, width)
+        out.append((int(total), pv.cpu().numpy()))
+    assert out[1][0] == out[0][0] > 0
+    np.testing.assert_array_equal(out[1][1], out[0][1])
+
+    def counts(device, strict=False):
+        stream = gt.SimpleEdgeStream((src, dst), window=gt.CountWindow(1 << 14),
+                                     vertex_dict=IdentityDict(1 << 12), device=device)
+        wt = WindowTriangles(gt.CountWindow(1 << 14), device=device)
+        if strict:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            totals = [c for c, _ in wt.run_stream(stream)]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        return [int(c) for c in totals]
+
+    want = counts("cpu")
+    counts(card)  # warm
+    assert counts(card, strict=True) == want and len(want) == 4

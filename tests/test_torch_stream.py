@@ -22,8 +22,12 @@ from gelly_streaming_tpu import datasets as jax_datasets
 from gelly_streaming_tpu.core.edgeblock import EdgeAccumulator as JaxAccumulator
 from gelly_streaming_tpu_torch import datasets as torch_datasets
 from gelly_streaming_tpu_torch.core.edgeblock import EdgeAccumulator
-from gelly_streaming_tpu_torch.core.window import EventTimeWindow, ProcessingTimeWindow
-from gelly_streaming_tpu_torch.library import ConnectedComponents
+from gelly_streaming_tpu_torch.library import (
+    ConnectedComponents,
+    DegreeDistribution,
+    ExactTriangleCount,
+    WindowTriangles,
+)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -178,14 +182,20 @@ def test_edge_block_caches_are_keyed_by_device_and_shared():
     assert a.with_vertices(16).n_vertices == 16
 
 
+def _meshed_slice_reduce(edges):
+    stream = gt.SimpleEdgeStream(edges, device="cpu")
+    stream.context.mesh = object()  # a context that carries a device mesh
+    return stream.slice().reduce_on_edges("sum")
+
+
 @pytest.mark.parametrize(
     "make",
     [
-        lambda e: gt.SimpleEdgeStream(e, window=EventTimeWindow(1.0, lambda r: r[2]),
-                                      device="cpu").blocks(),
-        lambda e: gt.SimpleEdgeStream(e, window=ProcessingTimeWindow(1.0),
-                                      device="cpu").blocks(),
-        lambda e: gt.SimpleEdgeStream(e, device="cpu").get_degrees(),
+        # the window and neighborhood layer is ported (slice 4): what stays
+        # for later slices on its paths still raises
+        lambda e: DegreeDistribution.sliding(10, device="cpu"),
+        lambda e: [ExactTriangleCount()],
+        _meshed_slice_reduce,
         # streaming CC is ported (slice 2): what stays for later slices on
         # the aggregate, superbatch and file paths still raises
         lambda e: gt.SimpleEdgeStream(e, device="cpu").aggregate(
@@ -194,7 +204,7 @@ def test_edge_block_caches_are_keyed_by_device_and_shared():
         lambda e: gt.SimpleEdgeStream(e, device="cpu").superbatches_dynamic(lambda: 4),
         lambda e: torch_datasets.stream_file("edges.txt", device_encode=True, device="cpu"),
     ],
-    ids=["event_time", "processing_time", "degrees", "aggregate",
+    ids=["degrees_sliding", "exact_triangles", "meshed_slice", "aggregate",
          "superbatches", "stream_file"],
 )
 def test_later_slices_raise_not_implemented_naming_their_slice(sample_edges, make):
@@ -206,6 +216,7 @@ def test_later_slices_raise_not_implemented_naming_their_slice(sample_edges, mak
 def test_entry_points_without_cpu_raise_when_cuda_is_absent(monkeypatch, sample_edges):
     """No fallback hides the device: with no card, every entry point that
     is not told device="cpu" raises instead of running on the CPU."""
+    from gelly_streaming_tpu_torch.example import degree_distribution, window_triangles
     from gelly_streaming_tpu_torch.example import streaming_graphsage as example
     from gelly_streaming_tpu_torch.models import (
         TableFeatureSource,
@@ -222,6 +233,10 @@ def test_entry_points_without_cpu_raise_when_cuda_is_absent(monkeypatch, sample_
         lambda: params_from_numpy([{"b": np.zeros(2, np.float32)}]),
         lambda: example.run(sample_edges, 3),
         lambda: example.main([]),
+        lambda: DegreeDistribution(),
+        lambda: WindowTriangles(gt.CountWindow(3)),
+        lambda: degree_distribution.main([]),
+        lambda: window_triangles.main([]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):

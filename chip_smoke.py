@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch/CUDA port (gelly_streaming_tpu_torch) on one
 NVIDIA card: build every kernel, hold each against its plain PyTorch
 version, drive streaming GraphSAGE, streaming Connected Components, the
-degree stream, window triangles and the neighborhood aggregations end to
-end, and print the results.
+degree stream, window triangles, the neighborhood aggregations,
+incremental PageRank, bipartiteness, exact triangles and the device
+spanner end to end, and print the results.
 
     python3 chip_smoke.py
 
@@ -79,11 +80,40 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``apply_on_neighbors`` and ``flat_apply_on_neighbors``, each timed on
    the card (emission included) and held against the port on the CPU
    (floats within ``NBR_TOL``).
-9. a profile of one pass of phase 6 and one of phase 7, the device steps
+   Phases 6 and 7 end with a profile of one pass each, the device steps
    opened as ``record_function`` ranges: the top operations by device
    time, the busy share, device-to-host copies, peak memory, and each
-   step's device ms, launches and byte bound per window.
-10. a ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
+   step's device ms, launches and byte bound per window (phases 9-12 end
+   the same way).
+9. pagerank — BASELINE config #4, ``bench.py:bench_pagerank``:
+   ``make_stream(1 << 18, 1 << 20, seed=11)`` in ``CountWindow(1 << 18)``
+   over ``IdentityDict(1 << 18)`` into ``IncrementalPageRank(tol=1e-6,
+   max_iter=50)``, ``sync()`` inside the timed region; one warm pass, the
+   median of 3: edges/s, ms and iterations a window, host reads a window.
+   The final ranks must be within 1e-5 of a float64 scipy run of the
+   reference's procedure and every window's iterations within 2 of its;
+   ``superbatch=4`` within 1e-6 of ``superbatch=1``. Then a scale pass on
+   phase 6's binary cache (16 windows of 2^20 over 2^21 ids) against the
+   same oracle.
+10. bipartiteness — ``bench.py:bench_bipartiteness_e2e``: the binary cache
+   through ``stream_file`` into ``BipartitenessCheck()`` (carry "auto" must
+   pick "forest"), timed like phase 9; the verdicts after window 0 and the
+   last window equal to scipy's components of the 2V-node double cover;
+   the same edges mapped to ``(u & ~1, v | 1)`` must be bipartite, window
+   0's coloring proper; on 4 windows of both streams the host and dense
+   carries and ``superbatch=4`` equal to the forest carry.
+11. exact triangles — ``bench.py:bench_exact_triangles``:
+   ``make_stream(1 << 17, 1 << 20, seed=15)`` in ``CountWindow(1 << 18)``,
+   the batches unread until the pass ends; edges/s, host syncs in the loop
+   (0 expected); after every window the running total and per-vertex
+   counts equal to scipy's ``(A @ A).multiply(A)`` on the prefix graph.
+12. spanner — ``bench.py:bench_spanner``: ``make_stream(1 << 18, 1 << 20,
+   seed=17)``, k = 2, ``DeviceSpanner(expected_edges=1 << 20)``; edges/s,
+   host syncs in the loop (0); the edge set equal to the port's on the CPU
+   and every dropped edge within 2 spanner hops (sparse products); then
+   k = 3 on the 2^18-edge prefix and on 2^16 edges over 2^12 vertices in
+   4 windows, each equal to the CPU's.
+13. a ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
 
 TF32 is off for float32 matmuls (``torch.backends.cuda.matmul.allow_tf32 =
 False``), so the plain version's f32 products are full f32.
@@ -113,6 +143,43 @@ CC_WINDOW = 1 << 20
 CC_ID_BOUND = 1 << 21
 CC_PREFIX_WINDOWS = 4
 CC_STEADY_PASSES = 3
+
+# BASELINE config #4 (bench.py: bench_pagerank): 4 windows of 2^18
+PR_VERTICES = 1 << 18
+PR_EDGES = 1 << 20
+PR_WINDOW = 1 << 18
+PR_SEED = 11
+PR_TOL = 1e-6
+PR_MAX_ITER = 50
+# final ranks against the float64 oracle (tests/test_pagerank_sage.py:47),
+# iterations within 2 of it (the L1 change at tol 1e-6 is near the
+# float32 noise floor), superbatch 4 against 1 (float atomics)
+PR_RANK_TOL = 1e-5
+PR_ITER_SLACK = 2
+PR_K4_TOL = 1e-6
+PR_STEPS = ("pagerank.window", "pagerank.fixpoint")
+
+# bipartiteness (bench.py: bench_bipartiteness_e2e) on phase 5's corpus
+BIP_STEPS = ("bip.cover_step", "cc.chase_and_group", "cc.propagate", "cc.commit_roots",
+             "cc.window_prep", "cc.window_upload")
+
+# exact triangles (bench.py: bench_exact_triangles): 4 windows of 2^18
+ETC_VERTICES = 1 << 17
+ETC_EDGES = 1 << 20
+ETC_WINDOW = 1 << 18
+ETC_SEED = 15
+ETC_STEPS = ("tri.packed_prep", "tri.packed_count", "tri.merge_packed")
+
+# the device spanner (bench.py: bench_spanner): k = 2, 4 windows of 2^18;
+# k = 3 also on 2^16 edges over 2^12 vertices in 4 windows
+SP_VERTICES = 1 << 18
+SP_EDGES = 1 << 20
+SP_WINDOW = 1 << 18
+SP_SEED = 17
+SP3_EDGES = 1 << 16
+SP3_VERTICES = 1 << 12
+SP_STEPS = ("spanner.k2", "spanner.k2_merge")
+SP3_STEPS = ("spanner.k_reach", "spanner.append")
 CC_STEPS = ("cc.window_prep", "cc.window_upload", "cc.chase_and_group", "cc.propagate",
             "cc.commit_roots", "cc.commit", "cc.forest_superbatch", "cc.resolve_flat",
             "cc.mirror_update", "engine.sync")
@@ -134,6 +201,43 @@ TRI_STEPS = ("tri.oriented_rows", "tri.membership", "csr.build", "segment.sort",
              "segment.count", "tri.plan", "window.rewindow", "window.pack")
 STEADY_PASSES = 3
 
+# BASELINE config #4 (bench.py: bench_pagerank): 4 windows of 2^18
+PR_VERTICES = 1 << 18
+PR_EDGES = 1 << 20
+PR_WINDOW = 1 << 18
+PR_SEED = 11
+PR_TOL = 1e-6
+PR_MAX_ITER = 50
+# final ranks against the float64 oracle (tests/test_pagerank_sage.py:47),
+# iterations within 2 of it (the L1 change at tol 1e-6 is near the
+# float32 noise floor), superbatch 4 against 1 (float atomics)
+PR_RANK_TOL = 1e-5
+PR_ITER_SLACK = 2
+PR_K4_TOL = 1e-6
+PR_STEPS = ("pagerank.window", "pagerank.fixpoint")
+
+# bipartiteness (bench.py: bench_bipartiteness_e2e) on phase 5's corpus
+BIP_STEPS = ("bip.cover_step", "cc.chase_and_group", "cc.propagate", "cc.commit_roots",
+             "cc.window_prep", "cc.window_upload")
+
+# exact triangles (bench.py: bench_exact_triangles): 4 windows of 2^18
+ETC_VERTICES = 1 << 17
+ETC_EDGES = 1 << 20
+ETC_WINDOW = 1 << 18
+ETC_SEED = 15
+ETC_STEPS = ("tri.packed_prep", "tri.packed_count", "tri.merge_packed")
+
+# the device spanner (bench.py: bench_spanner): k = 2, 4 windows of 2^18;
+# k = 3 also on 2^16 edges over 2^12 vertices in 4 windows
+SP_VERTICES = 1 << 18
+SP_EDGES = 1 << 20
+SP_WINDOW = 1 << 18
+SP_SEED = 17
+SP3_EDGES = 1 << 16
+SP3_VERTICES = 1 << 12
+SP_STEPS = ("spanner.k2", "spanner.k2_merge")
+SP3_STEPS = ("spanner.k_reach", "spanner.append")
+
 # phase 8: the seeded edge values of window 0, and the tolerance of its
 # float results between the card and the CPU (relative to max(|x|, 1)):
 # scatter-adds sum in another order on the card
@@ -143,7 +247,7 @@ NBR_TOL = 1e-5
 # the obs spans that open record_function ranges: device-side copies of
 # them are ranges, not kernels
 SPAN_PREFIXES = ("cc.", "window.", "engine.", "ingest.", "degree.", "tri.", "segment.",
-                 "csr.")
+                 "csr.", "pagerank.", "bip.", "spanner.")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate and dense bf16 tensor rate;
 # float32 work counts against the CUDA cores' f32 rate
@@ -1157,6 +1261,517 @@ def phase_neighborhood(torch):
 
 
 
+# --------------------------------------------------------------------- #
+# The remaining workloads (phases 9-13)
+# --------------------------------------------------------------------- #
+def _pr_stream(src, dst, device="cuda"):
+    from gelly_streaming_tpu_torch import CountWindow, SimpleEdgeStream
+    from gelly_streaming_tpu_torch.datasets import IdentityDict
+
+    return SimpleEdgeStream((src, dst), window=CountWindow(PR_WINDOW),
+                            vertex_dict=IdentityDict(PR_VERTICES), device=device)
+
+
+def _pr_pass(stream, superbatch=1):
+    """One pass of config #4 as ``bench_pagerank`` runs it (``sync()``
+    inside): the workload, its emissions, seconds, host reads."""
+    from gelly_streaming_tpu_torch.library import pagerank
+
+    pr = pagerank.IncrementalPageRank(tol=PR_TOL, max_iter=PR_MAX_ITER, superbatch=superbatch)
+    pagerank.HOST_READS = 0
+    t0 = time.perf_counter()
+    ems = list(pr.run(stream))
+    pr.sync()
+    return pr, ems, time.perf_counter() - t0, pagerank.HOST_READS
+
+
+def pagerank_oracle(src, dst, window, n_vertices, tol=PR_TOL, max_iter=PR_MAX_ITER,
+                    chunk=10, damping=0.85):
+    """The reference's procedure in float64 with scipy: per window append
+    the edges, warm start (new seen vertices at 1/n, renormalize), power
+    iterations until the L1 change is at most ``tol`` or the cap (max_iter
+    rounded up to a chunk), dangling mass spread uniformly over the seen
+    vertices (ids below 1 + the largest id seen). Returns the final ranks
+    and the iterations of each window."""
+    from scipy.sparse import csr_matrix
+
+    cap = -(-max_iter // chunk) * chunk
+    r = np.zeros(n_vertices)
+    iters = []
+    n_seen = 0
+    for a in range(0, len(src), window):
+        s, t = src[: a + window], dst[: a + window]
+        n_seen = max(n_seen, 1 + int(max(src[a:a + window].max(), dst[a:a + window].max())))
+        active = np.arange(n_vertices) < n_seen
+        r = np.where(active & (r == 0.0), 1.0 / n_seen, r)
+        r = r / max(r.sum(), 1e-30)
+        out = np.bincount(s, minlength=n_vertices).astype(np.float64)
+        m = csr_matrix((1.0 / out[s], (t, s)), shape=(n_vertices, n_vertices))
+        dangling = active & (out == 0)
+        for it in range(1, cap + 1):
+            new = (1 - damping) / n_seen + damping * (m @ r + r[dangling].sum() / n_seen)
+            new[~active] = 0.0
+            dl = np.abs(new - r).sum()
+            r = new
+            if dl <= tol:
+                break
+        iters.append(it)
+    return r, iters
+
+
+def pr_step_bytes(n, e, v):
+    """Bytes the PageRank steps must move per window of ``n`` new edges
+    over ``e`` accumulated edges and ``v`` rank slots: each input read
+    once, each output written once (the iterations re-read the edges; a
+    bound counts them once)."""
+    return {
+        # the block in and its copy into the carry; the fixpoint's
+        "pagerank.window": 16 * n + 8 * e + 8 * v,
+        # the edge columns and the ranks in, the ranks out
+        "pagerank.fixpoint": 8 * e + 8 * v,
+    }
+
+
+def phase_pagerank(torch):
+    """BASELINE config #4 (``bench.py:bench_pagerank``) and a scale pass on
+    phase 5's corpus."""
+    from gelly_streaming_tpu_torch import CountWindow, datasets
+    from gelly_streaming_tpu_torch.library import pagerank
+
+    src, dst = make_stream(PR_VERTICES, PR_EDGES, seed=PR_SEED)
+    n_win = PR_EDGES // PR_WINDOW
+    _pr_pass(_pr_stream(src, dst))  # warm
+    runs = [_pr_pass(_pr_stream(src, dst)) for _ in range(STEADY_PASSES)]
+    times = [r[2] for r in runs]
+    mid = sorted(range(len(runs)), key=lambda i: times[i])[len(runs) // 2]
+    pr, ems, sec, reads = runs[mid]
+    iters = [int(e.iterations) for e in ems]
+    cell = {"windows": len(ems), "edges_per_s": PR_EDGES / sec, "ms_per_window": sec / n_win * 1e3,
+            "edges_per_s_all": [PR_EDGES / t for t in times], "pass_s": times,
+            "iterations_per_window": iters, "host_reads_per_window": reads / len(ems),
+            "l1_delta": [float(e.l1_delta) for e in ems]}
+    say("pagerank cell " + json.dumps(cell))
+    if len(ems) != n_win:
+        raise AssertionError(f"pagerank ran {len(ems)} windows")
+
+    t0 = time.perf_counter()
+    want, want_iters = pagerank_oracle(src, dst, PR_WINDOW, PR_VERTICES)
+    got = pr._carry[2].cpu().numpy().astype(np.float64)
+    err = float(np.abs(got - want).max())
+    it_diff = max(abs(a - b) for a, b in zip(iters, want_iters))
+    ok = err <= PR_RANK_TOL and it_diff <= PR_ITER_SLACK and abs(got.sum() - 1) <= 1e-5
+    say(f"pagerank vs the float64 scipy oracle ({time.perf_counter() - t0:.1f} s): max abs rank "
+        f"error {err:.3e} (tol {PR_RANK_TOL:g}), iterations port {iters} oracle {want_iters} "
+        f"(tol +-{PR_ITER_SLACK}), rank sum {got.sum():.7f}: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("config #4 PageRank disagrees with the float64 oracle")
+    cell.update(max_abs_rank_err=err, oracle_iterations=want_iters)
+
+    pr4, ems4, sec4, _ = _pr_pass(_pr_stream(src, dst), superbatch=4)
+    err4 = float((pr4._carry[2] - pr._carry[2]).abs().max())
+    say(f"pagerank superbatch 4: {sec4 * 1e3 / len(ems4):.2f} ms a window, iterations "
+        f"{[int(e.iterations) for e in ems4]}, max abs rank difference to superbatch 1 "
+        f"{err4:.3e} (tol {PR_K4_TOL:g}): {'ok' if err4 <= PR_K4_TOL else 'FAIL'}")
+    if not err4 <= PR_K4_TOL or len(ems4) != n_win:
+        raise AssertionError("PageRank with superbatch 4 disagrees with superbatch 1")
+    cell["superbatch4_max_abs_diff"] = err4
+
+    # the scale pass: the livejournal surrogate's binary cache, 16 windows
+    path, _ = datasets.ensure_corpus(CC_CORPUS)
+    spec = datasets.CORPORA[CC_CORPUS]
+    bin_path = datasets.binary_cache(path)
+    stream = datasets.stream_file(bin_path, window=CountWindow(CC_WINDOW),
+                                  vertex_dict=datasets.IdentityDict(CC_ID_BOUND),
+                                  prefetch_depth=2, device="cuda")
+    prs, ems_s, sec_s, reads_s = _pr_pass(stream)
+    n_edges = spec.surrogate_edges
+    rs, rd = rmat_oracle_edges(n_edges, int(spec.surrogate_vscale).bit_length() - 1)
+    t1 = time.perf_counter()
+    want_s, want_iters_s = pagerank_oracle(rs, rd, CC_WINDOW, CC_ID_BOUND)
+    got_s = prs._carry[2].cpu().numpy().astype(np.float64)
+    err_s = float(np.abs(got_s - want_s).max())
+    iters_s = [int(e.iterations) for e in ems_s]
+    scale = {"windows": len(ems_s), "edges_per_s": n_edges / sec_s,
+             "ms_per_window": sec_s / len(ems_s) * 1e3, "iterations_per_window": iters_s,
+             "oracle_iterations": want_iters_s, "host_reads_per_window": reads_s / len(ems_s),
+             "max_abs_rank_err": err_s}
+    say(f"pagerank scale pass ({CC_CORPUS} surrogate, {n_edges} edges, oracle "
+        f"{time.perf_counter() - t1:.1f} s) " + json.dumps(scale))
+    if len(ems_s) != n_edges // CC_WINDOW or not err_s <= PR_RANK_TOL:
+        raise AssertionError("the PageRank scale pass disagrees with the float64 oracle")
+    cell["scale"] = scale
+    cell["profile"] = profile_cell(
+        torch, "pagerank", lambda: len(_pr_pass(_pr_stream(src, dst))[1]), PR_STEPS,
+        pr_step_bytes(PR_WINDOW, PR_EDGES * (n_win + 1) // (2 * n_win), PR_VERTICES))
+    return cell
+
+
+def _bip_stream(path_or_cols, device="cuda"):
+    from gelly_streaming_tpu_torch import CountWindow, SimpleEdgeStream, datasets
+
+    if isinstance(path_or_cols, str):
+        return datasets.stream_file(path_or_cols, window=CountWindow(CC_WINDOW),
+                                    vertex_dict=datasets.IdentityDict(CC_ID_BOUND),
+                                    prefetch_depth=2, device=device)
+    return SimpleEdgeStream(path_or_cols, window=CountWindow(CC_WINDOW),
+                            vertex_dict=datasets.IdentityDict(CC_ID_BOUND), device=device)
+
+
+def _bip_pass(source, carry="auto", superbatch=1, windows=None):
+    """One pass of ``bench_bipartiteness_e2e``: the emissions (all, or the
+    first ``windows``), seconds, the carry, host reads."""
+    from gelly_streaming_tpu_torch.library import BipartitenessCheck
+    from gelly_streaming_tpu_torch.summaries import labels
+
+    agg = BipartitenessCheck(carry=carry, superbatch=superbatch)
+    labels.HOST_READS = 0
+    t0 = time.perf_counter()
+    kept = []
+    it = _bip_stream(source).aggregate(agg)
+    for c in it:
+        kept.append(c)
+        if windows and len(kept) == windows:
+            it.close()
+            break
+    agg.sync()
+    return kept, time.perf_counter() - t0, agg._bp_mode, labels.HOST_READS
+
+
+def bipartite_oracle(src, dst, n):
+    """Bipartite iff no seen vertex's two cover nodes share a component of
+    the 2n-node signed double cover (scipy's connected components)."""
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    u = np.concatenate([src, src + n])
+    w = np.concatenate([dst + n, dst])
+    g = coo_matrix((np.ones(len(u), np.int8), (u, w)), shape=(2 * n, 2 * n))
+    _, comp = connected_components(g, directed=True, connection="weak")
+    seen = np.zeros(n, bool)
+    seen[src] = True
+    seen[dst] = True
+    v = np.nonzero(seen)[0]
+    return not bool(np.any(comp[v] == comp[v + n]))
+
+
+def _coloring_ok(cand, src, dst):
+    """Whether a bipartite emission's components are a proper 2-coloring of
+    the edges: both ends in one component, on opposite sides."""
+    col = cand.coloring()
+    if col is None:
+        return False
+    ids, comp, sign = col
+    c = np.full(CC_ID_BOUND, -1, np.int64)
+    g = np.zeros(CC_ID_BOUND, bool)
+    c[ids] = comp
+    g[ids] = sign
+    return bool(np.all(c[src] >= 0) and np.all(c[src] == c[dst]) and np.all(g[src] != g[dst]))
+
+
+def cover_step_bytes(t, n, v):
+    """Bytes of the signed-cover window step for ``n`` edges touching ``t``
+    vertices over ``v`` base vertices: the CC forest step's
+    (``cc_step_bytes``) over both cover halves, the 2v-entry forest copied
+    once."""
+    return {"bip.cover_step": 2 * 21 * t + 2 * (8 * n + 16 * t) + 16 * v + 2 * 17 * t}
+
+
+def phase_bipartiteness(torch):
+    """``bench.py:bench_bipartiteness_e2e`` on phase 6's binary cache."""
+    from gelly_streaming_tpu_torch import datasets
+
+    path, _ = datasets.ensure_corpus(CC_CORPUS)
+    spec = datasets.CORPORA[CC_CORPUS]
+    n_edges = spec.surrogate_edges
+    bin_path = datasets.binary_cache(path)
+    _bip_pass(bin_path)  # warm
+    runs = [_bip_pass(bin_path) for _ in range(STEADY_PASSES)]
+    times = [r[1] for r in runs]
+    mid = sorted(range(len(runs)), key=lambda i: times[i])[len(runs) // 2]
+    ems, sec, mode, reads = runs[mid]
+    cell = {"windows": len(ems), "edges_per_s": n_edges / sec,
+            "ms_per_window": sec / len(ems) * 1e3,
+            "edges_per_s_all": [n_edges / t for t in times], "pass_s": times, "carry": mode,
+            "host_reads_per_window": reads / len(ems)}
+    say("bipartiteness cell " + json.dumps(cell))
+    if mode != "forest" or len(ems) != n_edges // CC_WINDOW:
+        raise AssertionError(f"bipartiteness ran carry {mode} over {len(ems)} windows")
+
+    src, dst = rmat_oracle_edges(n_edges, int(spec.surrogate_vscale).bit_length() - 1)
+    t0 = time.perf_counter()
+    want = [bipartite_oracle(src[:CC_WINDOW], dst[:CC_WINDOW], CC_ID_BOUND),
+            bipartite_oracle(src, dst, CC_ID_BOUND)]
+    got = [ems[0].success, ems[-1].success]
+    say(f"bipartiteness vs scipy on the double cover ({time.perf_counter() - t0:.1f} s): window 0 "
+        f"and last: port {got}, scipy {want}: {'equal' if got == want else 'FAIL'}")
+    if got != want:
+        raise AssertionError("the bipartiteness verdict disagrees with scipy")
+    del ems, runs
+
+    # the same edges mapped to (u & ~1, v | 1): bipartite by construction
+    bsrc = (src & ~1).astype(np.int32)
+    bdst = (dst | 1).astype(np.int32)
+    ems_b, sec_b, mode_b, reads_b = _bip_pass((bsrc, bdst))
+    col_ok = _coloring_ok(ems_b[0], bsrc[:CC_WINDOW], bdst[:CC_WINDOW])
+    verdict = ems_b[-1].success
+    say(f"bipartiteness on (u & ~1, v | 1) ({sec_b * 1e3 / len(ems_b):.1f} ms a window, carry "
+        f"{mode_b}, {reads_b / len(ems_b):.1f} host reads a window): last verdict {verdict}, "
+        f"window 0 a proper 2-coloring: {col_ok}")
+    if not (verdict and col_ok):
+        raise AssertionError("the bipartite-by-construction stream was not found bipartite")
+    cell["mapped"] = {"ms_per_window": sec_b * 1e3 / len(ems_b), "bipartite": verdict,
+                      "host_reads_per_window": reads_b / len(ems_b)}
+    del ems_b
+
+    # the other carries and the superbatch on the first windows, both streams
+    for source, label in ((bin_path, "rmat"), ((bsrc, bdst), "mapped")):
+        base = _bip_pass(source, carry="forest", windows=CC_PREFIX_WINDOWS)[0]
+        base_v = [c.success for c in base]
+        base_c = [c.coloring() for c in base]
+        for carry, k in (("host", 1), ("dense", 1), ("forest", CC_PREFIX_WINDOWS)):
+            ems_k, sec_k, mode_k, _ = _bip_pass(source, carry=carry, superbatch=k,
+                                                windows=CC_PREFIX_WINDOWS)
+            same = [c.success for c in ems_k] == base_v and mode_k == carry
+            if same and label == "mapped":
+                same = all(np.array_equal(a[0], b[0]) and np.array_equal(a[2], b[2])
+                           for a, b in zip(base_c, (c.coloring() for c in ems_k)))
+            say(f"bipartiteness prefix {CC_PREFIX_WINDOWS} windows ({label}), carry {mode_k} "
+                f"superbatch {k}: {sec_k * 1e3 / len(ems_k):.1f} ms a window, "
+                f"{'equal to the forest carry' if same else 'FAIL'}")
+            if not same:
+                raise AssertionError(f"bipartiteness carry {carry} (superbatch {k}) disagrees")
+    touched = np.unique(np.concatenate([src[:CC_WINDOW], dst[:CC_WINDOW]])).size
+    cell["profile"] = profile_cell(
+        torch, "bipartiteness", lambda: len(_bip_pass(bin_path, windows=CC_PREFIX_WINDOWS)[0]),
+        BIP_STEPS, cover_step_bytes(touched, CC_WINDOW, CC_ID_BOUND))
+    return cell
+
+
+def _etc_batches(src, dst, device="cuda"):
+    from gelly_streaming_tpu_torch import CountWindow, SimpleEdgeStream
+    from gelly_streaming_tpu_torch.datasets import IdentityDict
+    from gelly_streaming_tpu_torch.library import ExactTriangleCount
+
+    stream = SimpleEdgeStream((src, dst), window=CountWindow(ETC_WINDOW),
+                              vertex_dict=IdentityDict(ETC_VERTICES), device=device)
+    etc = ExactTriangleCount()
+    return etc, etc.run(stream)
+
+
+def oracle_prefix_triangles(src, dst, n):
+    """Total and per-vertex triangle counts of the deduplicated undirected
+    simple graph of the edges, by scipy: ``(A @ A).multiply(A)``."""
+    from scipy.sparse import csr_matrix
+
+    u = np.minimum(src, dst).astype(np.int64)
+    v = np.maximum(src, dst).astype(np.int64)
+    ok = u != v
+    key = np.unique(u[ok] * n + v[ok])
+    u, v = key // n, key % n
+    a = csr_matrix((np.ones(2 * len(u), np.int64), (np.concatenate([u, v]),
+                                                    np.concatenate([v, u]))), shape=(n, n))
+    per = np.asarray((a @ a).multiply(a).sum(axis=1)).ravel() // 2
+    return int(per.sum() // 3), per
+
+
+def etc_step_bytes(n, p, v):
+    """Bytes of the exact counter's steps per window of ``n`` slots, ``p``
+    packed entries, ``v`` vertices: each input read once, each output
+    written once."""
+    return {
+        # src, dst, mask and the packed columns in; the packed columns,
+        # row_ptr and the four query columns out
+        "tri.packed_prep": 9 * n + 12 * p + 12 * p + 4 * v + 13 * n,
+        # pn, pr, row_ptr, the query columns and the counts in; counts out
+        "tri.packed_count": 8 * p + 4 * v + 13 * n + 8 * v,
+    }
+
+
+def phase_exact_triangles(torch):
+    """``bench.py:bench_exact_triangles``: batches left unread until the
+    pass ends, then every window's running total and per-vertex counts held
+    exactly against scipy on the prefix graph."""
+    src, dst = make_stream(ETC_VERTICES, ETC_EDGES, seed=ETC_SEED)
+    kept = []
+
+    def one_pass():
+        etc, it = _etc_batches(src, dst)
+        kept[:] = list(it)
+        etc.sync()
+        return len(kept)
+
+    cell = timed_passes(torch, one_pass, ETC_EDGES)
+    n, in_loop, after = count_syncs(torch, _etc_batches(src, dst)[1])
+    cell.update(host_syncs_in_loop=in_loop, host_syncs_per_window=in_loop / n,
+                host_syncs_after_loop=after)
+    say("exact triangles cell " + json.dumps(cell))
+    if in_loop != 0 or cell["windows"] != ETC_EDGES // ETC_WINDOW:
+        raise AssertionError(f"the exact counter ran {cell['windows']} windows with {in_loop} "
+                             "host syncs in the loop")
+    t0 = time.perf_counter()
+    counts = np.zeros(ETC_VERTICES, np.int64)
+    total = 0
+    ok = True
+    totals = []
+    for i, batch in enumerate(kept):
+        for vid, c in batch:
+            if vid == -1:
+                total = c
+            else:
+                counts[vid] = c
+        want_total, want_per = oracle_prefix_triangles(src[: (i + 1) * ETC_WINDOW],
+                                                       dst[: (i + 1) * ETC_WINDOW], ETC_VERTICES)
+        ok = ok and total == want_total and np.array_equal(counts, want_per)
+        totals.append((total, want_total))
+    say(f"exact triangles vs scipy, every window ({time.perf_counter() - t0:.1f} s): running "
+        f"totals (port, scipy) {totals}, per-vertex counts {'exact' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the exact triangle counts disagree with scipy")
+    cell["totals"] = [t for t, _ in totals]
+    etc, it = _etc_batches(src, dst)
+    list(it)
+    cell["profile"] = profile_cell(torch, "exact triangles", one_pass, ETC_STEPS,
+                                   etc_step_bytes(ETC_WINDOW, etc._n_packed, ETC_VERTICES))
+    return cell
+
+
+def _spanner_run(src, dst, k, window, n_vertices, device="cuda", expected=0):
+    from gelly_streaming_tpu_torch import CountWindow, SimpleEdgeStream
+    from gelly_streaming_tpu_torch.datasets import IdentityDict
+    from gelly_streaming_tpu_torch.library import DeviceSpanner
+
+    stream = SimpleEdgeStream((src, dst), window=CountWindow(window),
+                              vertex_dict=IdentityDict(n_vertices), device=device)
+    sp = DeviceSpanner(k=k, expected_edges=expected)
+    return sp, sp.run(stream)
+
+
+def _spanner_edges(sp):
+    su, sv = sp._host_columns()
+    key = (su.astype(np.int64) << 32) | sv.astype(np.int64)
+    return np.sort(key)
+
+
+def spanner_check_2hops(src, dst, keys, n):
+    """Every distinct stream edge not in the spanner has a spanner path of
+    at most 2 hops (the spanner rows of its ends share a vertex), by sparse
+    products over chunks of the dropped edges. Returns (dropped, bad)."""
+    from scipy.sparse import csr_matrix
+
+    u = np.minimum(src, dst).astype(np.int64)
+    v = np.maximum(src, dst).astype(np.int64)
+    ok = u != v
+    cand = np.unique((u[ok] << 32) | v[ok])
+    dropped = cand[~np.isin(cand, keys)]
+    su, sv = keys >> 32, keys & 0xFFFFFFFF
+    s = csr_matrix((np.ones(2 * len(su), np.int8), (np.concatenate([su, sv]),
+                                                    np.concatenate([sv, su]))), shape=(n, n))
+    du, dv = dropped >> 32, dropped & 0xFFFFFFFF
+    bad = 0
+    for a in range(0, len(dropped), 1 << 14):
+        rows = s[du[a:a + (1 << 14)]].multiply(s[dv[a:a + (1 << 14)]])
+        bad += int(np.sum(np.asarray(rows.sum(axis=1)).ravel() == 0))
+    return len(dropped), bad
+
+
+def spanner_step_bytes(q, p, v):
+    """Bytes of the k = 2 spanner steps per window of ``q`` first-seen
+    queries over ``p`` packed entries and ``v`` vertices."""
+    return {
+        # pn, row_ptr, the queries and their class selection in; the
+        # accumulator out (per window, all classes)
+        "spanner.k2": 4 * p + 4 * v + 12 * q + q,
+        # the packed columns and the queries in, the packed columns out
+        "spanner.k2_merge": 12 * p + 10 * q + 12 * p,
+    }
+
+
+def phase_spanner(torch):
+    """``bench.py:bench_spanner``: k = 2 with ``expected_edges``, the edge
+    set against the port on the CPU and the 2-hop guarantee; then k = 3 on
+    a prefix, against the CPU."""
+    src, dst = make_stream(SP_VERTICES, SP_EDGES, seed=SP_SEED)
+
+    def one_pass():
+        sp, it = _spanner_run(src, dst, 2, SP_WINDOW, SP_VERTICES, expected=SP_EDGES)
+        n = sum(1 for _ in it)
+        sp.sync()
+        return n
+
+    cell = timed_passes(torch, one_pass, SP_EDGES)
+    n, in_loop, after = count_syncs(
+        torch, _spanner_run(src, dst, 2, SP_WINDOW, SP_VERTICES, expected=SP_EDGES)[1])
+    cell.update(host_syncs_in_loop=in_loop, host_syncs_per_window=in_loop / n,
+                host_syncs_after_loop=after)
+    say("spanner cell " + json.dumps(cell))
+    if in_loop != 0 or cell["windows"] != SP_EDGES // SP_WINDOW:
+        raise AssertionError("the device spanner read the device in its window loop")
+    sp, it = _spanner_run(src, dst, 2, SP_WINDOW, SP_VERTICES, expected=SP_EDGES)
+    list(it)
+    got = _spanner_edges(sp)
+    t0 = time.perf_counter()
+    sp_c, it_c = _spanner_run(src, dst, 2, SP_WINDOW, SP_VERTICES, device="cpu",
+                              expected=SP_EDGES)
+    list(it_c)
+    want = _spanner_edges(sp_c)
+    cpu_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    dropped, bad = spanner_check_2hops(src, dst, got, SP_VERTICES)
+    same = np.array_equal(got, want)
+    say(f"spanner k=2: {len(got)} edges kept, {dropped} dropped, the port on the CPU "
+        f"({cpu_s:.1f} s) {'equal' if same else 'FAIL'}, dropped edges without a 2-hop path "
+        f"{bad} ({time.perf_counter() - t1:.1f} s)")
+    if not same or bad:
+        raise AssertionError("the device spanner disagrees with the CPU or breaks the 2-hop bound")
+    cell.update(kept=int(len(got)), dropped=dropped)
+
+    # k = 3: the 2^18-edge prefix (one window), then a smaller stream in
+    # four windows, so the frontier search meets a spanner
+    k3 = {}
+    for label, (s3, d3, w3, v3) in {
+        "prefix": (src[:SP_WINDOW], dst[:SP_WINDOW], SP_WINDOW, SP_VERTICES),
+        "windows": (src[:SP3_EDGES] % SP3_VERTICES, dst[:SP3_EDGES] % SP3_VERTICES,
+                    SP3_EDGES // 4, SP3_VERTICES),
+    }.items():
+        res = {}
+        for device in ("cuda", "cpu"):
+            t2 = time.perf_counter()
+            sp3, it3 = _spanner_run(s3, d3, 3, w3, v3, device=device)
+            nw = sum(1 for _ in it3)
+            sp3.sync()
+            res[device] = (_spanner_edges(sp3), time.perf_counter() - t2, nw)
+        same3 = np.array_equal(res["cuda"][0], res["cpu"][0])
+        k3[label] = {"edges": len(s3), "windows": res["cuda"][2], "kept": int(len(res["cuda"][0])),
+                     "card_s": res["cuda"][1], "cpu_s": res["cpu"][1], "equal": same3}
+        say(f"spanner k=3 {label}: " + json.dumps(k3[label]))
+        if not same3:
+            raise AssertionError("the k=3 device spanner on the card disagrees with the CPU")
+    cell["k3"] = k3
+    q = SP_WINDOW  # at most the window's first-seen queries
+    cell["profile"] = profile_cell(torch, "spanner", one_pass, SP_STEPS,
+                                   spanner_step_bytes(q, 2 * len(got), SP_VERTICES))
+    s3, d3 = src[:SP3_EDGES] % SP3_VERTICES, dst[:SP3_EDGES] % SP3_VERTICES
+
+    def k3_pass():
+        sp3, it3 = _spanner_run(s3, d3, 3, SP3_EDGES // 4, SP3_VERTICES)
+        n3 = sum(1 for _ in it3)
+        sp3.sync()
+        return n3
+
+    cell["profile_k3"] = profile_cell(
+        torch, "spanner k=3", k3_pass, SP3_STEPS,
+        k_reach_bytes(k3["windows"]["kept"] // 2, SP3_EDGES // 4))
+    return cell
+
+
+def k_reach_bytes(s, q):
+    """Bytes of the k >= 3 search and append per window: the spanner
+    columns at the window's start (``s`` edges, taken as half the final
+    spanner) and the ``q`` queries in, the verdicts out; the append reads
+    the columns and the queries and writes the new columns."""
+    return {"spanner.k_reach": 8 * s + 10 * q, "spanner.append": 8 * s + 9 * q + 8 * s}
+
+
 def main():
     import torch
 
@@ -1168,6 +1783,10 @@ def main():
     phase_degrees(torch)
     phase_triangles(torch)
     phase_neighborhood(torch)
+    phase_pagerank(torch)
+    phase_bipartiteness(torch)
+    phase_exact_triangles(torch)
+    phase_spanner(torch)
     kernel = {
         "name": "fused_sage_matmul",
         "variant": "tc",

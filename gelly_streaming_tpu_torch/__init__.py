@@ -3,7 +3,7 @@
 A second package beside the JAX one, which stays the reference it is held
 against. It runs on an NVIDIA card by default (``device="cuda"``, raising
 when there is none) and on the CPU only when asked (``device="cpu"``).
-Three slices run end to end so far. Streaming Connected Components, the
+Four slices run end to end so far. Streaming Connected Components, the
 headline path (file -> native parse -> count windows -> forest carry)::
 
     from gelly_streaming_tpu_torch import CountWindow, datasets
@@ -44,6 +44,22 @@ written with torch operations)::
         ...  # per-window neighborhood aggregate
     for count, window in WindowTriangles(CountWindow(1 << 20)).run_stream(stream):
         ...  # count is a device scalar
+
+The remaining aggregate-and-carry workloads: incremental PageRank,
+bipartiteness, exact triangles and the k-spanners::
+
+    from gelly_streaming_tpu_torch.library import (
+        BipartitenessCheck, DeviceSpanner, ExactTriangleCount, IncrementalPageRank)
+
+    pr = IncrementalPageRank(tol=1e-6, max_iter=50)
+    for emission in pr.run(stream):     # iterations, l1_delta: device scalars
+        ...
+    for cand in stream.aggregate(BipartitenessCheck()):
+        ...  # "(true,{...})" / "(false,{})", read lazily
+    for batch in ExactTriangleCount().run(stream):
+        ...  # change-only (vertex, count) pairs and (-1, total)
+    for edges in DeviceSpanner(k=2).run(stream):
+        ...  # a lazy edge-set snapshot per window
 """
 
 from .core.edgeblock import EdgeBlock, bucket_capacity, concat_blocks

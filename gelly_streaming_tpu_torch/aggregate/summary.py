@@ -14,10 +14,11 @@ engine runs eagerly, so a window step is a sequence of PyTorch operations
 rather than one compiled dispatch, and the reference's ``lax.scan`` over
 a superbatch is a loop over its K rows.
 
-What comes later: the sharded mesh (per-shard folds merged by
-collectives) with ROADMAP Queue 1, slice 6; ``superbatch="auto"`` with
-slice 7; host-state aggregations (the reference's ``device=False``:
-spanner, matching) with slice 5.
+Host-state aggregations (``host_state = True``, the reference's
+``device=False``: the spanner) run ``update``/``combine`` on host records
+of RAW ids, one window at a time. What comes later: the sharded mesh
+(per-shard folds merged by collectives) with ROADMAP Queue 1, slice 6;
+``superbatch="auto"`` with slice 7.
 
 Checkpoint surface (``SummaryAggregation.java:127-135``):
 :meth:`snapshot_state` / :meth:`restore_state` move the running summary
@@ -75,8 +76,13 @@ class SummaryAggregation(GroupFoldable, abc.ABC):
         per-window path.
 
     The state lives on the device of the stream the aggregation runs on
-    (``stream.device``), read when :meth:`run` starts.
+    (``stream.device``), read when :meth:`run` starts. A subclass with
+    ``host_state = True`` keeps a host object instead and folds each
+    window's raw host columns (``superbatch`` does not apply to it).
     """
+
+    #: the reference's ``device=False``: update/combine on host records
+    host_state: bool = False
 
     def __init__(self, transient_state: bool = False, mesh=None,
                  superbatch=1):
@@ -180,7 +186,7 @@ class SummaryAggregation(GroupFoldable, abc.ABC):
     def checkpoint_granularity(self) -> int:
         """Window stride at which the carried summary is observable: 1 on
         the per-window path, ``superbatch`` on the group path."""
-        return self.superbatch
+        return 1 if self.host_state else self.superbatch
 
     def _device_block(self, block: EdgeBlock) -> None:
         """Grow + fold one block into the carried summary."""
@@ -200,6 +206,9 @@ class SummaryAggregation(GroupFoldable, abc.ABC):
         carried summary is observable only on group boundaries."""
         self._adopt_device(stream)
         vdict = stream.vertex_dict
+        if self.host_state:
+            yield from self._run_host(stream, vdict)
+            return
         if self.superbatch > 1:
             yield from self._run_superbatched(stream, vdict)
             return
@@ -209,6 +218,20 @@ class SummaryAggregation(GroupFoldable, abc.ABC):
             yield self.transform(self._summary, vdict)
             if self.transient_state:
                 self._summary = self.initial_state(self._vcap)
+
+    def _run_host(self, stream, vdict) -> Iterator[Any]:
+        """The host-state loop: each window's host columns, decoded to raw
+        ids, fold into a fresh state that combines into the summary."""
+        for block in stream.blocks():
+            src, dst, val = block.to_host()
+            if self._summary is None:
+                self._summary = self.initial_state(0)
+            partial = self.update(
+                self.initial_state(0), vdict.decode(src), vdict.decode(dst), val, None)
+            self._summary = self.combine(self._summary, partial)
+            yield self.transform(self._summary, vdict)
+            if self.transient_state:
+                self._summary = self.initial_state(0)
 
     def _run_superbatched(self, stream, vdict) -> Iterator[Any]:
         """The group drive loop (:func:`drive_group_folded`)."""
@@ -258,7 +281,9 @@ class SummaryAggregation(GroupFoldable, abc.ABC):
     # ------------------------------------------------------------------ #
     def snapshot_state(self) -> Any:
         """The running summary as numpy arrays
-        (``SummaryAggregation.java:127-130``)."""
+        (``SummaryAggregation.java:127-130``); a host state as it is."""
+        if self.host_state:
+            return self._summary
         return tree_map(
             lambda t: to_numpy(t) if isinstance(t, torch.Tensor) else t,
             self._summary,
@@ -274,6 +299,9 @@ class SummaryAggregation(GroupFoldable, abc.ABC):
         (``SummaryAggregation.java:132-135``): tensors on the aggregation's
         device once a run has set it, on the CPU until then (moved to the
         stream's device when the next run starts)."""
+        if self.host_state:
+            self._summary = state
+            return
         dev = self._device if self._device is not None else torch.device("cpu")
         self._summary = tree_map(
             lambda a: torch.as_tensor(np.array(a), device=dev), state

@@ -16,7 +16,7 @@ the same spec and seed.
 
 :func:`stream_file` is the file -> stream entry point, on the stream's
 device (``"cuda"`` by default). Its ``device_encode=True`` path (vertex
-compaction on the device) comes with ROADMAP Queue 1, slice 5.
+compaction on the device) comes with ROADMAP Queue 1, slice 5b.
 """
 
 from __future__ import annotations
@@ -356,11 +356,11 @@ def stream_file(
     which pass through as compact ids); a ``VertexDict`` with the native
     encoder (parse and encode fused in one C pass per chunk); otherwise
     the parser followed by the dict's encode. ``device_encode=True`` is
-    ported in ROADMAP Queue 1, slice 5, and raises here."""
+    ported in ROADMAP Queue 1, slice 5b, and raises here."""
     if device_encode:
         raise NotImplementedError(
             "device_encode (vertex compaction on the device) is ported in "
-            "ROADMAP Queue 1, slice 5 (ops/device_dict.py)"
+            "ROADMAP Queue 1, slice 5b (ops/device_dict.py)"
         )
     context = StreamContext(device)
     policy = window or CountWindow(1 << 20)

@@ -40,7 +40,7 @@ _SLICE7 = "ROADMAP Queue 1, slice 7 (durability, control and ingest)"
 _LATER_FLAGS = {
     **dict.fromkeys(("--checkpoint", "--checkpoint-dir", "--every", "--resume",
                      "--fresh"), _SLICE7),
-    "--device-encode": "ROADMAP Queue 1, slice 5 (ops/device_dict.py)",
+    "--device-encode": "ROADMAP Queue 1, slice 5b (ops/device_dict.py)",
 }
 
 

@@ -1,2 +1,3 @@
-"""Summaries of the PyTorch port: dense labels, the forest carry and the
-group-fold contract."""
+"""Summaries of the PyTorch port: dense labels, the forest carry, the
+group-fold contract, the signed double cover (bipartiteness) and the host
+adjacency of the spanner."""

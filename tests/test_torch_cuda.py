@@ -6,7 +6,10 @@ window and in superbatches, and from a file) against the CPU, with the
 forest carry's host reads bounded by its fixpoint turns, and the window
 and neighborhood layer (the degree update, the segmented scan, the
 lockstep fold, the window triangle count) against the CPU, with the
-degree and triangle loops making no host sync per window.
+degree and triangle loops making no host sync per window, and slice 5a:
+PageRank (ranks within 1e-6 of the CPU, one host read per chunk),
+bipartiteness on every carry and superbatch, exact triangles and the
+device spanners (k = 2, 3) against the CPU with no host sync per window.
 
 Every test here is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is false. The file imports only torch, numpy
@@ -380,3 +383,106 @@ def test_window_triangles_on_card_match_cpu_without_host_sync(card):
     want = counts("cpu")
     counts(card)  # warm
     assert counts(card, strict=True) == want and len(want) == 4
+
+
+# --------------------------------------------------------------------- #
+# Slice 5: PageRank, bipartiteness, exact triangles, the spanners
+# --------------------------------------------------------------------- #
+def _syncs(run):
+    """``run()`` under ``set_sync_debug_mode("error")``: any host sync
+    raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.parametrize("superbatch", [1, 4])
+def test_pagerank_on_card_matches_cpu(card, superbatch):
+    """Ranks within 1e-6 of the CPU run's, iterations within 2 (float
+    atomics sum in another order on the card); one host read per chunk."""
+    from gelly_streaming_tpu_torch.library import IncrementalPageRank
+    from gelly_streaming_tpu_torch.library import pagerank as tpr
+
+    src, dst = _zipf(11, 1 << 12, 1 << 15)
+    out = {}
+    for device in ("cpu", card):
+        stream = gt.SimpleEdgeStream((src, dst), window=gt.CountWindow(1 << 13),
+                                     vertex_dict=IdentityDict(1 << 12), device=device)
+        pr = IncrementalPageRank(superbatch=superbatch)
+        tpr.HOST_READS = 0
+        ems = list(pr.run(stream))
+        iters = [int(e.iterations) for e in ems]
+        out[str(device)] = (pr._carry[2].cpu().numpy(), iters, tpr.HOST_READS)
+    (rc, ic, _), (rg, ig, reads) = out["cpu"], out[str(card)]
+    assert np.abs(rc - rg).max() <= 1e-6 and abs(rg.sum() - 1) <= 1e-5
+    assert max(abs(a - b) for a, b in zip(ic, ig)) <= 2
+    assert reads == sum(-(-i // 10) for i in ig)
+
+
+@pytest.mark.parametrize("superbatch", [1, 4])
+@pytest.mark.parametrize("carry", ["forest", "host", "dense"])
+def test_bipartiteness_on_card_matches_cpu(card, carry, superbatch):
+    from gelly_streaming_tpu_torch.library import BipartitenessCheck
+
+    src, dst = _zipf(12, 1 << 12, 1 << 14)
+    tests = [(src & ~1, dst | 1), (src, dst)]  # bipartite by construction, then not
+    for s, d in tests:
+        out = {}
+        for device in ("cpu", card):
+            stream = gt.SimpleEdgeStream((s, d), window=gt.CountWindow(1 << 12),
+                                         vertex_dict=IdentityDict(1 << 12), device=device)
+            agg = BipartitenessCheck(carry=carry, superbatch=superbatch)
+            out[str(device)] = [str(c) for c in stream.aggregate(agg)]
+        assert out[str(card)] == out["cpu"] and len(out["cpu"]) == 4
+    assert out["cpu"][-1] == "(false,{})"
+
+
+def test_bipartiteness_auto_is_the_forest_on_card(card):
+    from gelly_streaming_tpu_torch.library import BipartitenessCheck
+
+    src, dst = _zipf(13, 1 << 10, 1 << 12)
+    agg = BipartitenessCheck()
+    stream = gt.SimpleEdgeStream((src & ~1, dst | 1), window=gt.CountWindow(1 << 10),
+                                 vertex_dict=IdentityDict(1 << 10), device=card)
+    last = list(stream.aggregate(agg))[-1]
+    assert agg._bp_mode == "forest" and last.success
+    assert agg._failed.device.type == "cuda"
+
+
+def test_exact_triangles_on_card_match_cpu_without_host_sync(card):
+    from gelly_streaming_tpu_torch.library import ExactTriangleCount
+
+    src, dst = _zipf(14, 1 << 11, 1 << 15)
+
+    def run(device, strict=False):
+        stream = gt.SimpleEdgeStream((src, dst), window=gt.CountWindow(1 << 13),
+                                     vertex_dict=IdentityDict(1 << 11), device=device)
+        etc = ExactTriangleCount()
+        batches = _syncs(lambda: list(etc.run(stream))) if strict else list(etc.run(stream))
+        return [list(b) for b in batches], etc
+
+    want, _ = run("cpu")
+    run(card)  # warm
+    got, etc = run(card, strict=True)
+    assert got == want and len(got) == 4
+    assert etc._counts.device.type == "cuda"
+
+
+@pytest.mark.parametrize("k", [2, 3])
+def test_device_spanner_on_card_matches_cpu_without_host_sync(card, k):
+    from gelly_streaming_tpu_torch.library import DeviceSpanner
+
+    src, dst = _zipf(15, 1 << 11, 1 << 14)
+
+    def run(device, strict=False):
+        stream = gt.SimpleEdgeStream((src, dst), window=gt.CountWindow(1 << 12),
+                                     vertex_dict=IdentityDict(1 << 11), device=device)
+        sp = DeviceSpanner(k=k)
+        snaps = _syncs(lambda: list(sp.run(stream))) if strict else list(sp.run(stream))
+        return [set(s) for s in snaps]
+
+    want = run("cpu")
+    run(card)  # warm
+    assert run(card, strict=True) == want and len(want) == 4

@@ -25,9 +25,9 @@ from gelly_streaming_tpu_torch.core.edgeblock import EdgeAccumulator
 from gelly_streaming_tpu_torch.library import (
     ConnectedComponents,
     DegreeDistribution,
-    ExactTriangleCount,
     WindowTriangles,
 )
+from gelly_streaming_tpu_torch.ops import triangles as ttri
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -194,7 +194,9 @@ def _meshed_slice_reduce(edges):
         # the window and neighborhood layer is ported (slice 4): what stays
         # for later slices on its paths still raises
         lambda e: DegreeDistribution.sliding(10, device="cpu"),
-        lambda e: [ExactTriangleCount()],
+        # the exact counter is ported (slice 5); the triangle path's
+        # edge-sharded count stays for slice 6
+        lambda e: [ttri.window_triangle_count_sharded(e)],
         _meshed_slice_reduce,
         # streaming CC is ported (slice 2): what stays for later slices on
         # the aggregate, superbatch and file paths still raises

@@ -149,12 +149,17 @@ def test_zipf_stream_run_stream_matches_jax():
 
 
 def test_exact_triangle_count_is_a_later_slice():
+    """ExactTriangleCount and the packed operations came with slice 5 (their
+    parity tests are tests/test_torch_exact_triangles.py); what stays for a
+    later slice on the triangle path is the edge-sharded window count."""
     from gelly_streaming_tpu_torch.library import ExactTriangleCount
 
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        ExactTriangleCount()
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        ttri.packed_triangle_update()
+    assert ExactTriangleCount()._counts is None
+    counts, delta = ttri.packed_triangle_update(
+        *ttri.grow_packed_columns(None, None, None, 8, device="cpu")[1:],
+        torch.zeros(5, dtype=torch.int32), *(torch.zeros(1, dtype=torch.int32),) * 3,
+        torch.ones(1, dtype=torch.bool), torch.zeros(4, dtype=torch.int32), 4)
+    assert int(delta) == 0 and counts.shape == (4,)
     with pytest.raises(NotImplementedError, match="slice 6"):
         ttri.window_triangle_count_sharded()
 

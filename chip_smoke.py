@@ -3,8 +3,9 @@
 NVIDIA card: build every kernel, hold each against its plain PyTorch
 version, drive streaming GraphSAGE, streaming Connected Components, the
 degree stream, window triangles, the neighborhood aggregations,
-incremental PageRank, bipartiteness, exact triangles and the device
-spanner end to end, and print the results.
+incremental PageRank, bipartiteness, exact triangles, the device
+spanner, the device vertex dictionary, the sampling triangle estimators
+and iterative CC end to end, and print the results.
 
     python3 chip_smoke.py
 
@@ -113,7 +114,43 @@ Phases, in order; any failure raises and the script exits non-zero:
    and every dropped edge within 2 spanner hops (sparse products); then
    k = 3 on the 2^18-edge prefix and on 2^16 edges over 2^12 vertices in
    4 windows, each equal to the CPU's.
-13. a ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
+13. device-encode — the CC cell with vertex compaction on the card
+   (``bench.py:bench_cc_e2e_device`` and ``bench_cc_e2e_device_text``):
+   phase 6's binary cache with ``device_encode=True, min_vertex_capacity=
+   1 << 21`` (the declared id bound), and the text corpus with
+   ``device_encode=True, dense_ids=False`` and a ``1 << 10`` hint (the table
+   grows by re-padding from host novelty tracking), each in
+   ``CountWindow(1 << 20)`` with ``prefetch_depth=2`` into
+   ``ConnectedComponents()``, ``sync()`` timed. Device-encoded blocks carry
+   no host columns, so the carry is the dense one (as in the reference).
+   One warm pass, the median of 3: edges/s, p50/p95, the CC fold's host
+   reads a window. The last window's partition, decoded to raw ids, must
+   equal scipy's; window 0's compact ids the host ``VertexDict``'s; the
+   ingest's window loop (parse, upload, encode) makes 0 host syncs; the
+   ``probe`` ends non-negative and equal to the ids seen. A profiled pass
+   (no prefetch, so the encode's ranges are in the trace) gives the busy
+   share and ``dict.encode``'s device ms and launches a window against
+   ``dict_encode_bytes``. Then the corpus's first 2 windows mapped to
+   sparse int32 ids (an injective affine map mod 2^31 - 1) must encode as
+   the host dict does.
+14. sampling — ``make_stream(1 << 15, 1 << 22, seed=19)`` made
+   duplicate-free and loop-free, in windows of 2^20 over ``vertex_count =
+   1 << 15`` (the vectorized form). k is the least power of two at which
+   the expected ``beta_sum``, ``k T / (m (V - 2))`` for scipy's exact
+   triangle count T, is at least 100; the final estimate must lie within 4
+   binomial standard errors of T; every window's state must equal the
+   port's on the CPU fed the same uniforms, and the incidence estimator's
+   output the broadcast one's. The scan form on 2^12 edges over 2^16
+   vertices against the CPU the same way, with its ms per edge. Edges/s,
+   ms a window, busy share, ``sampling.window`` device ms and launches.
+15. iterative cc — the first 4 windows (2^18 edges each) of
+   ``make_stream(1 << 18, 1 << 20, seed=21)`` through ``IdentityDict`` (the
+   incremental host path) and through ``device_encode`` (the diff path on
+   the card): after each window the labels accumulated from the emissions
+   must equal scipy's least raw id of each component, and the two paths
+   each other; ms a window of each, and a profile of each (``icc.*``
+   ranges).
+16. a ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
 
 TF32 is off for float32 matmuls (``torch.backends.cuda.matmul.allow_tf32 =
 False``), so the plain version's f32 products are full f32.
@@ -247,7 +284,32 @@ NBR_TOL = 1e-5
 # the obs spans that open record_function ranges: device-side copies of
 # them are ranges, not kernels
 SPAN_PREFIXES = ("cc.", "window.", "engine.", "ingest.", "degree.", "tri.", "segment.",
-                 "csr.", "pagerank.", "bip.", "spanner.")
+                 "csr.", "pagerank.", "bip.", "spanner.", "dict.", "sampling.", "icc.")
+
+# phase 13: the CC cell with vertex compaction on the device
+# (bench.py: bench_cc_e2e_device, bench_cc_e2e_device_text)
+DE_HINT = 1 << 10  # the growth form's pre-sizing hint
+DE_STEPS = ("dict.encode", "engine.dispatch", "cc.propagate")
+DE_SPARSE_WINDOWS = 2  # windows of the corpus mapped to sparse int32 ids
+DE_SPARSE_PRIME = (1 << 31) - 1  # the map x -> (a x + b) mod p is injective
+# phase 14: the sampling triangle estimators
+SMP_VERTICES = 1 << 15
+SMP_EDGES = 1 << 22
+SMP_SEED = 19
+SMP_WINDOW = 1 << 20
+SMP_TARGET_BETA = 100  # k: the least power of two with E[beta_sum] >= this
+SMP_MAX_K = 1 << 24
+SMP_SE = 4  # the estimate within this many binomial standard errors
+SMP_SCAN_EDGES = 1 << 12
+SMP_SCAN_VERTICES = 1 << 16  # above the vectorized form's 46340
+SMP_SCAN_K = 1 << 12
+SMP_STEPS = ("sampling.window",)  # the scan form's range is "sampling.scan"
+# phase 15: iterative CC
+ICC_VERTICES = 1 << 18
+ICC_EDGES = 1 << 20
+ICC_SEED = 21
+ICC_WINDOW = 1 << 18
+ICC_STEPS = ("icc.incremental", "icc.diff", "dict.encode", "engine.dispatch", "cc.propagate")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate and dense bf16 tensor rate;
 # float32 work counts against the CUDA cores' f32 rate
@@ -1771,6 +1833,393 @@ def k_reach_bytes(s, q):
     the columns and the queries and writes the new columns."""
     return {"spanner.k_reach": 8 * s + 10 * q, "spanner.append": 8 * s + 9 * q + 8 * s}
 
+# --------------------------------------------------------------------- #
+# Slice 5b: the device vertex dictionary, the estimators, iterative CC
+# --------------------------------------------------------------------- #
+def dict_encode_bytes(n, kcap):
+    """Bytes of one ``dict.encode`` of a window of ``n`` edges into a table
+    of ``kcap`` keys: the raw src and dst columns read and their compact
+    ids written (int32), the table's keys, ids and reverse table read once
+    and written once (int32 each)."""
+    return 8 * n + 8 * n + 12 * kcap + 12 * kcap
+
+
+def _de_stream(path, form, prefetch=2):
+    from gelly_streaming_tpu_torch import CountWindow, datasets
+
+    bound = form == "id_bound"
+    return datasets.stream_file(
+        path, window=CountWindow(CC_WINDOW), device_encode=True,
+        min_vertex_capacity=CC_ID_BOUND if bound else DE_HINT, dense_ids=bound,
+        prefetch_depth=prefetch, device="cuda",
+    )
+
+
+def _de_pass(torch, path, form, prefetch=2):
+    """One pass of ``bench_cc_e2e_device`` (``id_bound``: the binary cache)
+    or ``bench_cc_e2e_device_text`` (``growth``: the text file), ``sync()``
+    inside the timed region."""
+    from gelly_streaming_tpu_torch.library import ConnectedComponents
+    from gelly_streaming_tpu_torch.ops import device_dict
+    from gelly_streaming_tpu_torch.summaries import labels
+
+    stream = _de_stream(path, form, prefetch)
+    agg = ConnectedComponents()
+    labels.HOST_READS = labels.FIXPOINT_TURNS = 0
+    device_dict.ENCODES = 0
+    lat, last = [], None
+    t0 = last_t = time.perf_counter()
+    for last in stream.aggregate(agg):
+        now = time.perf_counter()
+        lat.append(now - last_t)
+        last_t = now
+    agg.sync()
+    dt = time.perf_counter() - t0
+    lat_ms = np.asarray(lat) * 1e3
+    n_win = len(lat)
+    return {
+        "windows": n_win, "seconds": dt,
+        "p50_ms": float(np.percentile(lat_ms, 50)), "p95_ms": float(np.percentile(lat_ms, 95)),
+        "carry": agg._cc_mode, "encodes": device_dict.ENCODES,
+        "host_reads_per_window": labels.HOST_READS / n_win,
+        "table_capacity": stream.vertex_dict.capacity,
+    }, last, stream
+
+
+def _raw_partition_ok(last, vdict, want, seen):
+    """The emission's partition decoded to raw ids against scipy's
+    (``want``: each vertex's least raw id in its component; ``seen``: the
+    raw ids seen, ascending)."""
+    ids, lab = last.labels()
+    raw = vdict.decode(ids)
+    uniq, inv = np.unique(lab, return_inverse=True)
+    least = np.full(len(uniq), np.iinfo(np.int64).max, np.int64)
+    np.minimum.at(least, inv, raw)
+    order = np.argsort(raw)
+    ok = np.array_equal(raw[order], seen) and np.array_equal(least[inv][order], want[seen])
+    return ok, len(seen), len(uniq)
+
+
+def phase_device_encode(torch):
+    from torch.profiler import ProfilerActivity, profile
+
+    from gelly_streaming_tpu_torch import CountWindow, datasets, native
+    from gelly_streaming_tpu_torch.core.vertexdict import VertexDict
+    from gelly_streaming_tpu_torch.obs import trace
+
+    path, _ = datasets.ensure_corpus(CC_CORPUS)
+    spec = datasets.CORPORA[CC_CORPUS]
+    n_edges = spec.surrogate_edges
+    bin_path = datasets.binary_cache(path)
+    src, dst = rmat_oracle_edges(n_edges, int(spec.surrogate_vscale).bit_length() - 1)
+    want = oracle_labels(src, dst, CC_ID_BOUND)
+    seen = np.unique(np.concatenate([src, dst]))
+    cells = {}
+    for form, fpath in (("id_bound", bin_path), ("growth", path)):
+        warm, _, _ = _de_pass(torch, fpath, form)
+        passes = [_de_pass(torch, fpath, form) for _ in range(CC_STEADY_PASSES)]
+        results = [p[0] for p in passes]
+        for r in results:
+            r["edges_per_s"] = n_edges / r["seconds"]
+        mid = sorted(range(len(results)), key=lambda i: results[i]["edges_per_s"])[1]
+        cell = dict(results[mid])
+        cell["edges_per_s_all"] = [r["edges_per_s"] for r in results]
+        cell["warm_seconds"] = warm["seconds"]
+        if cell["windows"] != n_edges // CC_WINDOW or cell["encodes"] != cell["windows"]:
+            raise AssertionError(f"device-encode {form}: {cell['windows']} windows, "
+                                 f"{cell['encodes']} encodes")
+        # correctness: the last window's partition in raw ids against scipy
+        last, stream = passes[mid][1], passes[mid][2]
+        vd = stream.vertex_dict
+        t1 = time.perf_counter()
+        ok, n_seen, n_comp = _raw_partition_ok(last, vd, want, seen)
+        probe = int(vd._state["probe"])
+        cell.update(components=n_comp, vertices_seen=n_seen, probe=probe)
+        say(f"device-encode {form} vs scipy (last window, {n_seen} vertices): components "
+            f"{n_comp}, {'exact' if ok else 'FAIL'}; probe {probe} "
+            f"({time.perf_counter() - t1:.1f} s)")
+        if not ok or probe < 0 or probe != n_seen:
+            raise AssertionError(f"device-encode {form} disagrees with scipy or overflowed")
+        # window 0's compact ids against the port's host VertexDict
+        b0 = next(iter(_de_stream(fpath, form, prefetch=0).blocks()))
+        hs, hd = VertexDict().encode_pair(src[:CC_WINDOW], dst[:CC_WINDOW])
+        same0 = (np.array_equal(b0.src[:CC_WINDOW].cpu().numpy(), hs)
+                 and np.array_equal(b0.dst[:CC_WINDOW].cpu().numpy(), hd))
+        # host syncs of the ingest's window loop (parse, upload, encode)
+        n, in_loop, after = count_syncs(torch, _de_stream(fpath, form, prefetch=0).blocks())
+        cell.update(window0_ids_equal_host_dict=same0, host_syncs_in_loop=in_loop,
+                    host_syncs_after_loop=after)
+        say(f"device-encode {form} cell " + json.dumps(cell))
+        if not same0 or in_loop != 0 or n != cell["windows"]:
+            raise AssertionError(f"device-encode {form}: window 0 ids equal {same0}, "
+                                 f"{in_loop} host syncs in the ingest loop")
+        # where the time goes: one profiled pass on the main thread (no
+        # prefetch: the producer thread's ranges are not in the profile)
+        trace.enable(torch_annotations=True)
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t2 = time.perf_counter()
+                r, _, st = _de_pass(torch, fpath, form, prefetch=0)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t2
+        finally:
+            trace.disable()
+        say(f"device-encode {form} profile ({r['windows']} windows, no prefetch, "
+            f"{wall * 1e3:.1f} ms):")
+        cell["busy_share"] = profile_pass(torch, lambda: None, wall, prof=prof)
+        steps = step_rows(prof, DE_STEPS, r["windows"],
+                          {"dict.encode": dict_encode_bytes(CC_WINDOW, st.vertex_dict.capacity)})
+        say(f"device-encode {form} steps (device ms, launches and bytes' bound per window; "
+            "dict.encode bound at the final table capacity) " + json.dumps(steps))
+        cell["steps"] = steps
+        cells[form] = cell
+        del passes
+
+    # sparse arbitrary int32 ids: the corpus's first windows through an
+    # injective affine map mod 2^31 - 1, against the host dict
+    m = DE_SPARSE_WINDOWS * CC_WINDOW
+    ms = (src[:m] * 48271 + 12345) % DE_SPARSE_PRIME
+    md = (dst[:m] * 48271 + 12345) % DE_SPARSE_PRIME
+    sparse_path = os.path.join(os.path.dirname(path), "smoke_sparse_ids.txt")
+    native.write_edge_file(sparse_path, ms, md)
+    stream = datasets.stream_file(sparse_path, window=CountWindow(CC_WINDOW), device_encode=True,
+                                  dense_ids=False, min_vertex_capacity=DE_HINT, device="cuda")
+    host = VertexDict()
+    ok = True
+    for i, b in enumerate(stream.blocks()):
+        a, z = i * CC_WINDOW, (i + 1) * CC_WINDOW
+        hs, hd = host.encode_pair(ms[a:z], md[a:z])
+        ok &= (np.array_equal(b.src[:CC_WINDOW].cpu().numpy(), hs)
+               and np.array_equal(b.dst[:CC_WINDOW].cpu().numpy(), hd))
+    vd = stream.vertex_dict
+    ok &= np.array_equal(vd.raw_ids(), host.raw_ids())
+    say(f"device-encode sparse int32 ids ({m} edges, {len(host)} ids up to "
+        f"{int(max(ms.max(), md.max()))}, table {vd.capacity}): "
+        f"{'equal to the host dict' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the device dictionary disagrees with the host dict on sparse ids")
+    os.remove(sparse_path)
+    return cells
+
+
+def _simple_stream(n_vertices, n_edges, seed):
+    """``make_stream`` made duplicate-free and loop-free: each canonical
+    pair's first arrival."""
+    src, dst = make_stream(n_vertices, n_edges, seed=seed)
+    s, d = src.astype(np.int64), dst.astype(np.int64)
+    key = np.where(s != d, np.minimum(s, d) * n_vertices + np.maximum(s, d), -1)
+    _, first = np.unique(key, return_index=True)
+    first = np.sort(first[key[first] >= 0])
+    return src[first], dst[first]
+
+
+def exact_triangles(src, dst, n):
+    """scipy: triangles of the simple graph, with edges oriented from the
+    lower (degree, id) rank to the higher, as ``sum((L @ L) * L)``."""
+    from scipy.sparse import csr_matrix
+
+    s, d = src.astype(np.int64), dst.astype(np.int64)
+    deg = np.bincount(np.concatenate([s, d]), minlength=n)
+    rank = np.empty(n, np.int64)
+    rank[np.lexsort((np.arange(n), deg))] = np.arange(n)
+    up = rank[s] < rank[d]
+    a, b = np.where(up, s, d), np.where(up, d, s)
+    lo = csr_matrix((np.ones(len(a)), (a, b)), shape=(n, n))
+    return int(round((lo @ lo).multiply(lo).sum()))
+
+
+def sampling_window_bytes(e, k):
+    """Bytes of one vectorized window update: the window's src, dst (int32)
+    and mask read; the three [k] uniforms read; the sample columns (three
+    int32, two bool) read and written."""
+    return 9 * e + 12 * k + 2 * 14 * k
+
+
+def sampling_scan_bytes(e, k):
+    """Bytes of the scan over a window of ``e`` edges: per edge the two [k]
+    uniforms read and the sample columns (three int32, two bool) read and
+    written."""
+    return e * (8 * k + 2 * 14 * k)
+
+
+def _recording(cls, device):
+    """An estimator class that records its uniforms and its state after
+    every window (``replay`` feeds recorded uniforms back instead)."""
+
+    class Recording(cls):
+        def __init__(self, *a, replay=None, **kw):
+            super().__init__(*a, device=device, **kw)
+            self.drawn = [] if replay is None else list(replay)
+            self.replay = replay is not None
+            self.states = []
+
+        def _draw(self, *shape):
+            if self.replay:
+                return self.drawn.pop(0).to(self.device)
+            u = super()._draw(*shape)
+            self.drawn.append(u.cpu())
+            return u
+
+        def _window(self, block, vdict):
+            n = super()._window(block, vdict)
+            self.states.append({f: v.cpu().numpy() for f, v in self._state.items()})
+            return n
+
+    return Recording
+
+
+def _states_equal(a, b):
+    return len(a) == len(b) and all(
+        all(np.array_equal(x[f], y[f]) for f in x) for x, y in zip(a, b))
+
+
+def phase_sampling(torch):
+    from gelly_streaming_tpu_torch import CountWindow
+    from gelly_streaming_tpu_torch.library import sampling
+
+    src, dst = _simple_stream(SMP_VERTICES, SMP_EDGES, SMP_SEED)
+    m, v = len(src), SMP_VERTICES
+    t0 = time.perf_counter()
+    tri = exact_triangles(src, dst, v)
+    p = tri / (m * (v - 2))
+    k = 1
+    while k * p < SMP_TARGET_BETA and k < SMP_MAX_K:
+        k *= 2
+    say(f"sampling stream: {m} distinct edges over {v} vertices, {tri} triangles (scipy, "
+        f"{time.perf_counter() - t0:.1f} s); k = {k} samples, E[beta_sum] = {k * p:.1f}")
+    edges = (src, dst)
+    cls = _recording(sampling.BroadcastTriangleCount, "cuda")
+
+    def run(c=cls, **kw):
+        est = c(vertex_count=v, samples=k, window=CountWindow(SMP_WINDOW), seed=SMP_SEED, **kw)
+        out = list(est.run(edges))
+        torch.cuda.synchronize()
+        return est, out
+
+    def one_pass():
+        # the plain estimator: no recording, no per-window copies
+        run(sampling.BroadcastTriangleCount, device="cuda")
+        return -(-m // SMP_WINDOW)
+
+    cell = timed_passes(torch, one_pass, m)
+    est, out = run()
+    se = m * (v - 2) / k * np.sqrt(k * p * (1 - p))
+    final = out[-1][1] if out else 0
+    cell.update(samples=k, triangles=tri, estimate=final, beta=est._last_beta,
+                standard_error=se, emissions=len(out))
+    ok = abs(final - tri) <= SMP_SE * se and out[-1][0] == m
+    say(f"sampling estimate {final} against {tri} (scipy): {abs(final - tri) / se:.2f} "
+        f"standard errors, {'within' if ok else 'OUTSIDE'} {SMP_SE}")
+    if not ok:
+        raise AssertionError("the triangle estimate is outside its bound")
+    # every window's state against the CPU fed the same uniforms
+    t1 = time.perf_counter()
+    cpu = _recording(sampling.BroadcastTriangleCount, "cpu")
+    est_c, out_c = run(cpu, replay=est.drawn)
+    same = _states_equal(est.states, est_c.states) and out == out_c
+    inc, out_i = run(_recording(sampling.IncidenceSamplingTriangleCount, "cuda"))
+    same_i = out_i == out and _states_equal(inc.states, est.states)
+    say(f"sampling vectorized: {len(est.states)} windows equal to the CPU fed the same "
+        f"uniforms: {same} ({time.perf_counter() - t1:.1f} s); the incidence estimator "
+        f"equal: {same_i}")
+    if not (same and same_i):
+        raise AssertionError("the vectorized estimator on the card disagrees with the CPU")
+
+    # the scan form: an id space above the vectorized limit
+    ss, sd = src[:SMP_SCAN_EDGES], dst[:SMP_SCAN_EDGES]
+
+    def scan_run(c, **kw):
+        e = c(vertex_count=SMP_SCAN_VERTICES, samples=SMP_SCAN_K,
+              window=CountWindow(SMP_SCAN_EDGES), seed=SMP_SEED, **kw)
+        t = time.perf_counter()
+        o = list(e.run((ss, sd)))
+        torch.cuda.synchronize()
+        return e, o, time.perf_counter() - t
+
+    scan_run(cls)  # warm
+    es, os_, secs = scan_run(cls)
+    ec, oc, _ = scan_run(_recording(sampling.BroadcastTriangleCount, "cpu"), replay=es.drawn)
+    same_s = _states_equal(es.states, ec.states) and os_ == oc
+    cell["scan"] = {"edges": SMP_SCAN_EDGES, "vertex_count": SMP_SCAN_VERTICES,
+                    "samples": SMP_SCAN_K, "ms_per_edge": secs * 1e3 / SMP_SCAN_EDGES,
+                    "equal_to_cpu": same_s}
+    say("sampling scan " + json.dumps(cell["scan"]))
+    if not same_s:
+        raise AssertionError("the scan estimator on the card disagrees with the CPU")
+    say("sampling cell " + json.dumps({f: x for f, x in cell.items() if f != "profile"}))
+    cell["profile"] = profile_cell(torch, "sampling", one_pass, SMP_STEPS,
+                                   {"sampling.window": sampling_window_bytes(SMP_WINDOW, k)})
+
+    def scan_pass():
+        scan_run(sampling.BroadcastTriangleCount, device="cuda")
+        return 1
+
+    cell["profile_scan"] = profile_cell(
+        torch, "sampling scan", scan_pass, ("sampling.scan",),
+        {"sampling.scan": sampling_scan_bytes(SMP_SCAN_EDGES, SMP_SCAN_K)})
+    return cell
+
+
+def phase_iterative_cc(torch):
+    from gelly_streaming_tpu_torch import CountWindow, SimpleEdgeStream, datasets, native
+    from gelly_streaming_tpu_torch.library import IterativeConnectedComponents
+
+    src, dst = make_stream(ICC_VERTICES, ICC_EDGES, seed=ICC_SEED)
+    path = os.path.join(datasets.cache_dir(), "smoke_icc.txt")
+    os.makedirs(datasets.cache_dir(), exist_ok=True)
+    native.write_edge_file(path, src, dst)
+    n_win = ICC_EDGES // ICC_WINDOW
+
+    def streams():
+        return {
+            "incremental": SimpleEdgeStream(
+                (src, dst), window=CountWindow(ICC_WINDOW),
+                vertex_dict=datasets.IdentityDict(ICC_VERTICES), device="cuda"),
+            "diff": datasets.stream_file(
+                path, window=CountWindow(ICC_WINDOW), device_encode=True,
+                min_vertex_capacity=ICC_VERTICES, device="cuda"),
+        }
+
+    def one_pass(name):
+        icc = IterativeConnectedComponents()
+        out = []
+        for batch in icc.run(streams()[name]):
+            out.append(batch)
+            torch.cuda.synchronize()
+        return icc, out
+
+    got, times = {}, {}
+    for name in ("incremental", "diff"):
+        one_pass(name)  # warm
+        t0 = time.perf_counter()
+        icc, out = one_pass(name)
+        times[name] = (time.perf_counter() - t0) * 1e3 / len(out)
+        got[name] = (icc, out)
+    labels = np.full(ICC_VERTICES, -1, np.int64)
+    ok = all(got[n][0]._mode == n for n in got) and len(got["diff"][1]) == n_win
+    for w in range(n_win):
+        a, b = got["incremental"][1][w], got["diff"][1][w]
+        ok &= a == b
+        labels[a._v] = a._c
+        z = (w + 1) * ICC_WINDOW
+        want = oracle_labels(src[:z].astype(np.int64), dst[:z].astype(np.int64), ICC_VERTICES)
+        seen = np.unique(np.concatenate([src[:z], dst[:z]]))
+        ok &= np.array_equal(labels[seen], want[seen]) and int((labels >= 0).sum()) == len(seen)
+    cell = {"windows": n_win, "ms_per_window": times,
+            "modes": {n: got[n][0]._mode for n in got}, "emitted": [len(x) for x in got["diff"][1]],
+            "equal": bool(ok)}
+    say("iterative cc cell " + json.dumps(cell))
+    if not ok:
+        raise AssertionError("iterative CC: the paths disagree or differ from scipy")
+    cell["profile"] = {
+        name: profile_cell(torch, f"iterative cc {name}", lambda n=name: len(one_pass(n)[1]),
+                           ICC_STEPS, {})
+        for name in ("incremental", "diff")
+    }
+    os.remove(path)
+    return cell
+
+
 
 def main():
     import torch
@@ -1787,6 +2236,9 @@ def main():
     phase_bipartiteness(torch)
     phase_exact_triangles(torch)
     phase_spanner(torch)
+    phase_device_encode(torch)
+    phase_sampling(torch)
+    phase_iterative_cc(torch)
     kernel = {
         "name": "fused_sage_matmul",
         "variant": "tc",

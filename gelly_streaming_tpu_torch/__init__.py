@@ -3,7 +3,7 @@
 A second package beside the JAX one, which stays the reference it is held
 against. It runs on an NVIDIA card by default (``device="cuda"``, raising
 when there is none) and on the CPU only when asked (``device="cpu"``).
-Four slices run end to end so far. Streaming Connected Components, the
+Five slices run end to end so far. Streaming Connected Components, the
 headline path (file -> native parse -> count windows -> forest carry)::
 
     from gelly_streaming_tpu_torch import CountWindow, datasets
@@ -60,6 +60,17 @@ bipartiteness, exact triangles and the k-spanners::
         ...  # change-only (vertex, count) pairs and (-1, total)
     for edges in DeviceSpanner(k=2).run(stream):
         ...  # a lazy edge-set snapshot per window
+
+Vertex compaction on the device (any non-negative int32 ids), the
+sampling triangle estimators, iterative CC and weighted matching::
+
+    stream = datasets.stream_file(path, window=CountWindow(1 << 20),
+                                  device_encode=True, dense_ids=False)
+    for changed in IterativeConnectedComponents().run(stream):
+        ...  # corrected (vertex, component id) pairs
+    for edge_count, estimate in BroadcastTriangleCount(
+            vertex_count=1 << 15, samples=1 << 21).run(edges):
+        ...
 """
 
 from .core.edgeblock import EdgeBlock, bucket_capacity, concat_blocks
@@ -72,6 +83,7 @@ from .core.window import (
     EventTimeWindow,
     ProcessingTimeWindow,
     Windower,
+    blocks_from_edges,
 )
 
 __version__ = "0.1.0"
@@ -91,6 +103,7 @@ __all__ = [
     "Vertex",
     "VertexDict",
     "Windower",
+    "blocks_from_edges",
     "bucket_capacity",
     "concat_blocks",
 ]

@@ -2,8 +2,9 @@
 windowing and the stream API (counterpart of ``gelly_streaming_tpu.core``)."""
 
 from .device import resolve_device
-from .edgeblock import EdgeAccumulator, EdgeBlock, bucket_capacity
-from .stream import SimpleEdgeStream, StreamContext
+from .edgeblock import EdgeAccumulator, EdgeBlock, bucket_capacity, concat_blocks
+from .snapshot import SnapshotStream
+from .stream import GraphStream, SimpleEdgeStream, StreamContext
 from .types import Edge, EdgeDirection, EventType, Vertex
 from .vertexdict import VertexDict
 from .window import (
@@ -13,6 +14,7 @@ from .window import (
     WindowInfo,
     WindowPolicy,
     Windower,
+    blocks_from_edges,
 )
 
 __all__ = [
@@ -23,14 +25,18 @@ __all__ = [
     "EdgeDirection",
     "EventTimeWindow",
     "EventType",
+    "GraphStream",
     "ProcessingTimeWindow",
     "SimpleEdgeStream",
+    "SnapshotStream",
     "StreamContext",
     "Vertex",
     "VertexDict",
     "WindowInfo",
     "WindowPolicy",
     "Windower",
+    "blocks_from_edges",
     "bucket_capacity",
+    "concat_blocks",
     "resolve_device",
 ]

@@ -127,6 +127,9 @@ class VertexDict:
                 self._idx_to_raw.extend(novel.tolist())
             yield src, dst, val
 
+    def encode_one(self, raw: int) -> int:
+        return int(self.encode(np.asarray([raw]))[0])
+
     def lookup(self, raw: int) -> int | None:
         """Query without inserting; None if unseen."""
         if self._native is not None:
@@ -154,6 +157,9 @@ class VertexDict:
 
     def decode(self, idx: Iterable[int] | np.ndarray) -> np.ndarray:
         return self._rev_array()[np.asarray(idx, dtype=np.int64)]
+
+    def decode_one(self, idx: int) -> int:
+        return self._idx_to_raw[int(idx)]
 
     def _rev_array(self) -> np.ndarray:
         """Reverse table as numpy, cached by dict size."""

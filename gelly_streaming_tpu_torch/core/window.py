@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Iterable, Iterator, Optional, Sequence, Tuple
+from typing import Any, Callable, Iterable, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -39,6 +39,7 @@ from .edgeblock import (
     stack_blocks,
     stack_host_cols,
 )
+from .device import DEFAULT_DEVICE, resolve_device
 from .vertexdict import VertexDict
 
 _AUTO_K = ("ROADMAP Queue 1, slice 7 (durability, control and ingest: "
@@ -757,3 +758,17 @@ def iter_superbatches(stream, k: int) -> Iterator[SuperbatchGroup]:
 
 def iter_superbatches_dynamic(stream, k_fn):
     raise NotImplementedError(f"adaptive superbatches are ported in {_AUTO_K}")
+
+
+def blocks_from_edges(
+    edges: Iterable[Tuple],
+    window_size: int,
+    vertex_dict: Optional[VertexDict] = None,
+    *,
+    device=DEFAULT_DEVICE,
+    **kw: Any,
+) -> Iterator[EdgeBlock]:
+    """Convenience: count-window discretization of an edge iterable into
+    blocks on ``device``."""
+    w = Windower(CountWindow(window_size), vertex_dict, device=resolve_device(device), **kw)
+    return w.blocks(edges)

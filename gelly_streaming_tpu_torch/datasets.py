@@ -15,8 +15,8 @@ d=.05); :func:`synthesize` writes the same bytes as the JAX package's for
 the same spec and seed.
 
 :func:`stream_file` is the file -> stream entry point, on the stream's
-device (``"cuda"`` by default). Its ``device_encode=True`` path (vertex
-compaction on the device) comes with ROADMAP Queue 1, slice 5b.
+device (``"cuda"`` by default); ``device_encode=True`` moves vertex
+compaction onto the device (``ops/device_dict.py``).
 """
 
 from __future__ import annotations
@@ -31,10 +31,10 @@ import torch
 
 from . import native
 from .core.device import DEFAULT_DEVICE
-from .core.edgeblock import bucket_capacity
+from .core.edgeblock import bucket_capacity, to_device
 from .core.stream import SimpleEdgeStream, StreamContext
 from .core.vertexdict import VertexDict
-from .core.window import CountWindow, WindowPolicy, Windower
+from .core.window import CountWindow, EventTimeWindow, WindowPolicy, Windower
 from .obs import trace as _trace
 
 
@@ -92,6 +92,10 @@ CORPORA = {
         surrogate_vscale=1 << 11,
     ),
 }
+
+#: MovieLens item ids are offset into a range disjoint from user ids
+MOVIELENS_ITEM_OFFSET = 1 << 20
+
 
 def cache_dir() -> str:
     """Where synthesized surrogates are cached."""
@@ -185,6 +189,9 @@ class IdentityDict:
 
     def decode(self, idx):
         return np.asarray(idx, np.int64)
+
+    def decode_one(self, idx: int) -> int:
+        return int(idx)
 
     def lookup(self, raw: int):
         return int(raw) if 0 <= int(raw) < self.id_bound else None
@@ -330,6 +337,200 @@ def _parse_spans(chunks):
         yield chunk
 
 
+class _ValuePacker:
+    """Packed value columns for the device-encode path: a value-consuming
+    workload would otherwise pay a float32 upload per edge (4 B, a third of
+    the upload on top of the 8 B of id columns).
+
+    Real weighted corpora mostly carry few distinct values (MovieLens
+    ratings: 10; small integer weights), so the host keeps a sorted
+    dictionary of distinct float32 values and ships uint8 codes (uint16
+    above 255 distinct) plus a small table that uploads again only when it
+    changes; the device widens with one gather. The TOP code of each width
+    (255 / 65535) is reserved and decodes to 0.0, keeping the padded-slot
+    ``val == 0`` invariant of every other ingest path (aggregations that
+    scatter-add values without re-masking rely on it). Lossless: a window
+    that would exceed 65535 distinct values, or holds a NaN (the sorted
+    probe cannot code it), moves the stream to raw float32 for good."""
+
+    __slots__ = ("table", "mode", "_lut_dev", "_lut_stale", "device")
+
+    def __init__(self, device):
+        self.table = np.zeros(0, np.float32)
+        self.mode = "u8"  # "u8" | "u16" | "f32"
+        self._lut_dev = None
+        self._lut_stale = True
+        self.device = device
+
+    def _probe(self, v):
+        codes = np.searchsorted(self.table, v)
+        np.minimum(codes, max(len(self.table) - 1, 0), out=codes)
+        if len(self.table) == 0:
+            return codes, np.ones(len(v), bool)
+        return codes, self.table[codes] != v
+
+    def pack(self, v: np.ndarray):
+        """-> ``(codes uint8/uint16, device lut)``, or None once the stream
+        moved to raw float32."""
+        if self.mode == "f32":
+            return None
+        v = np.ascontiguousarray(v, np.float32)
+        codes, miss = self._probe(v)
+        if miss.any():
+            if np.isnan(v).any():
+                self.mode = "f32"
+                return None
+            self.table = np.union1d(self.table, np.unique(v[miss])).astype(np.float32)
+            if len(self.table) > 65535:  # the top u16 code is the pads'
+                self.mode = "f32"
+                return None
+            if len(self.table) > 255 and self.mode == "u8":
+                self.mode = "u16"
+            self._lut_stale = True
+            codes, miss = self._probe(v)
+        dt = np.uint8 if self.mode == "u8" else np.uint16
+        if self._lut_stale:
+            lut = np.zeros(256 if self.mode == "u8" else 65536, np.float32)
+            lut[: len(self.table)] = self.table
+            self._lut_dev = to_device(lut, self.device)
+            self._lut_stale = False
+        return codes.astype(dt), self._lut_dev
+
+
+def _decode_vals(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """Widen packed value codes on the device. uint16 codes travel as
+    int16 (their bits) and are read back as unsigned here."""
+    if codes.dtype == torch.int16:
+        idx = codes.to(torch.int32) & 0xFFFF
+    else:
+        idx = codes
+    return lut[idx.long()]
+
+
+def _device_encoded_blocks(path, is_binary, policy, vdict, chunk_edges,
+                           drop_values=False):
+    """Window blocks whose vertex mapping runs ON the device: the host
+    slices raw columns and uploads them; the compaction is the device
+    dictionary (``ops/device_dict.py``). ``policy`` is a CountWindow
+    (fixed ``size`` slices) or an EventTimeWindow (ascending timestamps
+    from ``timestamp_fn``, windows cut by the shared slot-run splitter).
+
+    With a declared ``id_bound`` the table covers the id space and every
+    window is one unconditional encode. Without one (arbitrary int32 ids)
+    the host counts the exact distinct ids of the raw stream as it parses
+    (``native.NoveltyBitmap``: first-seen distinctness is the device
+    table's count) and grows the table by padding before any window could
+    overflow it. Either way the window loop reads nothing from the device;
+    the sticky ``probe`` catches an overflow at the next natural read.
+
+    The encode runs on whatever thread iterates this generator (the
+    prefetch producer, which has the stream's device as its current
+    device) on the device's default stream, the stream the consumer's work
+    runs on, so the order of the two needs no event. Raw columns go up
+    through ``to_device``: a copy into fresh pinned memory, so the host
+    may reuse its parser buffers at once."""
+    from .core.edgeblock import EdgeBlock, _cached_mask, _cached_zeros
+
+    device = vdict.device
+    growth = vdict.id_bound == 0
+    if growth and getattr(vdict, "_novelty", None) is None:
+        # owned by the dict: the novelty state lives exactly as long as
+        # the table it bounds (a re-iterated stream reuses both)
+        vdict._novelty = native.NoveltyBitmap()
+        vdict._novel_seen = 0
+
+    packer = _ValuePacker(device)
+
+    def build(si, di, v, n):
+        cap = bucket_capacity(n)
+        if cap != n:
+            si = torch.nn.functional.pad(si, (0, cap - n))
+            di = torch.nn.functional.pad(di, (0, cap - n))
+        if v is None or drop_values:
+            # value-ignoring workloads skip the value upload; the cached
+            # zero column is one device constant
+            val = _cached_zeros(cap, device)
+        else:
+            packed = packer.pack(v)
+            if packed is None:  # many distinct values / NaN: raw float32
+                vp = np.zeros(cap, np.float32)
+                vp[:n] = v
+                val = to_device(vp, device)
+            else:
+                codes, lut = packed
+                # pads take the reserved top code, which decodes to 0.0
+                # (code 0 would decode to the smallest distinct value and
+                # weight vertex 0)
+                cp = np.full(cap, np.iinfo(codes.dtype).max, codes.dtype)
+                cp[:n] = codes
+                if cp.dtype == np.uint16:
+                    cp = cp.view(np.int16)
+                val = _decode_vals(lut, to_device(cp, device))
+        return EdgeBlock(
+            src=si, dst=di, val=val, mask=_cached_mask(cap, n, device),
+            n_vertices=vdict.capacity,
+        )
+
+    def emit(s, d, v):
+        if growth:
+            vdict.ensure_capacity_host(vdict._novel_seen)
+            si, di = vdict.encode_pair_spec(s, d)
+        else:
+            si, di = vdict.encode_pair(s, d)
+        return build(si, di, v, len(s))
+
+    def tracked(chunks):
+        for s, d, v in chunks:
+            s, d = np.asarray(s), np.asarray(d)
+            if growth:
+                vdict._novel_seen += vdict._novelty.novel2(s, d)
+            yield s, d, v
+
+    count = isinstance(policy, CountWindow)
+    read_chunk = policy.size if count else chunk_edges
+    src = _parse_spans(
+        iter_binary_chunks(path, read_chunk)
+        if is_binary
+        else native.iter_edge_chunks_i32(path, chunk_edges, id_bound=vdict.id_bound)
+    )
+    if not count:
+        from .core.window import iter_time_slot_runs
+
+        for _slot, s, d, v in iter_time_slot_runs(
+            tracked(src), policy, val_dtype=np.float32
+        ):
+            yield emit(s, d, v)
+        return
+    size = policy.size
+
+    def joined(pend):
+        if len(pend) == 1:
+            return pend[0]
+        cv = None
+        if any(p[2] is not None for p in pend):
+            cv = np.concatenate([
+                np.zeros(len(p[0]), np.float32) if p[2] is None
+                else np.asarray(p[2], np.float32)
+                for p in pend
+            ])
+        return (np.concatenate([p[0] for p in pend]),
+                np.concatenate([p[1] for p in pend]), cv)
+
+    pend, have = [], 0
+    for s, d, v in tracked(src):
+        pend.append((s, d, v))
+        have += len(s)
+        while have >= size:
+            cs, cd, cv = joined(pend)
+            yield emit(cs[:size], cd[:size], None if cv is None else cv[:size])
+            pend = [(cs[size:], cd[size:], None if cv is None else cv[size:])]
+            have -= size
+    if have:
+        cs, cd, cv = joined(pend)
+        if len(cs):
+            yield emit(cs, cd, cv)
+
+
 def stream_file(
     path: str,
     window: Optional[WindowPolicy] = None,
@@ -339,6 +540,8 @@ def stream_file(
     prefetch_depth: int = 0,
     min_vertex_capacity: int = 0,
     device_encode: bool = False,
+    dense_ids: bool = True,
+    drop_values: bool = False,
     device=DEFAULT_DEVICE,
 ) -> SimpleEdgeStream:
     """A :class:`SimpleEdgeStream` on ``device`` over an edge file,
@@ -355,16 +558,49 @@ def stream_file(
     binary cache; ``IdentityDict`` (the int32 parser bound-checks the ids,
     which pass through as compact ids); a ``VertexDict`` with the native
     encoder (parse and encode fused in one C pass per chunk); otherwise
-    the parser followed by the dict's encode. ``device_encode=True`` is
-    ported in ROADMAP Queue 1, slice 5b, and raises here."""
-    if device_encode:
-        raise NotImplementedError(
-            "device_encode (vertex compaction on the device) is ported in "
-            "ROADMAP Queue 1, slice 5b (ops/device_dict.py)"
-        )
+    the parser followed by the dict's encode.
+
+    ``device_encode=True`` moves vertex compaction onto the device
+    (``ops/device_dict.py``; count and event-time windows). With
+    ``dense_ids=True`` (default) ``min_vertex_capacity`` is also the
+    declared raw-id bound: the table covers the id space and never grows.
+    ``dense_ids=False`` is the general arbitrary-id path: ids may be any
+    non-negative int32, the table grows ahead of need from exact host-side
+    novelty tracking, and ``min_vertex_capacity`` is only a pre-sizing
+    hint. ``drop_values=True`` skips the value upload for value-ignoring
+    workloads on weighted corpora. Device-encoded blocks carry no host
+    columns, so the workloads take their device paths on them (streaming
+    CC: the dense carry)."""
     context = StreamContext(device)
     policy = window or CountWindow(1 << 20)
     is_binary = path.endswith(".gbin")
+    if device_encode:
+        if not isinstance(policy, (CountWindow, EventTimeWindow)):
+            raise ValueError("device_encode supports CountWindow / EventTimeWindow")
+        if vertex_dict is not None:
+            raise ValueError(
+                "device_encode builds its own DeviceVertexDict; a supplied "
+                "vertex_dict would be silently ignored"
+            )
+        from .ops.device_dict import DeviceVertexDict
+
+        vd = DeviceVertexDict(
+            min_capacity=max(min_vertex_capacity, 1 << 10),
+            id_bound=min_vertex_capacity if dense_ids else 0,
+            device=context.device,
+        )
+
+        def device_source():
+            it = _device_encoded_blocks(
+                path, is_binary, policy, vd, chunk_edges, drop_values=drop_values,
+            )
+            if prefetch_depth > 0:
+                from .core.pipeline import prefetch
+
+                return prefetch(it, prefetch_depth, device=context.device)
+            return it
+
+        return SimpleEdgeStream(context=context, _blocks=device_source, _vdict=vd)
     if vertex_dict is None and min_vertex_capacity > 0:
         vertex_dict = VertexDict(min_capacity=min_vertex_capacity)
     windower = Windower(policy, vertex_dict, device=context.device)
@@ -412,3 +648,13 @@ def stream_file(
     return SimpleEdgeStream(
         context=context, _blocks=block_source, _vdict=windower.vertex_dict
     )
+
+
+def load_movielens(path: str) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(user, item, rating) columns from a MovieLens ``u.data``-format file
+    (user \\t item \\t rating \\t timestamp); item ids offset into a
+    disjoint range (:data:`MOVIELENS_ITEM_OFFSET`)."""
+    src, dst, val = native.parse_edge_file(path)
+    if val is None:
+        val = np.ones(len(src))
+    return src, dst + MOVIELENS_ITEM_OFFSET, val

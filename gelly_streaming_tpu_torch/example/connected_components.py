@@ -10,12 +10,16 @@ Runs on the card; ``--cpu`` runs it on the CPU instead::
     python -m gelly_streaming_tpu_torch.example.connected_components \\
         [--cpu] <input edges path> <merge window size (edges)> [output path]
     python -m gelly_streaming_tpu_torch.example.connected_components \\
-        [--cpu] --corpus <name|path> [window] [--carry auto|forest|host|dense]
+        [--cpu] --corpus <name|path> [window] [--carry auto|forest|host|dense] \\
+        [--device-encode <id bound>]
 
-The checkpoint and supervisor flags of the reference CLI
-(``--checkpoint``, ``--checkpoint-dir``, ``--every``, ``--resume``,
-``--fresh``) and ``--device-encode`` raise: they are ported in ROADMAP
-Queue 1, slices 7 and 5.
+``--device-encode`` moves the vertex mapping onto the device
+(``stream_file(device_encode=True)``): with an id bound the table covers
+the dense id space, with ``0`` it grows from host novelty tracking (any
+non-negative int32 ids). The checkpoint and supervisor flags of the
+reference CLI (``--checkpoint``, ``--checkpoint-dir``, ``--every``,
+``--resume``, ``--fresh``) raise: they are ported in ROADMAP Queue 1,
+slice 7.
 """
 
 from __future__ import annotations
@@ -37,11 +41,9 @@ from .common import (
 )
 
 _SLICE7 = "ROADMAP Queue 1, slice 7 (durability, control and ingest)"
-_LATER_FLAGS = {
-    **dict.fromkeys(("--checkpoint", "--checkpoint-dir", "--every", "--resume",
-                     "--fresh"), _SLICE7),
-    "--device-encode": "ROADMAP Queue 1, slice 5b (ops/device_dict.py)",
-}
+_LATER_FLAGS = dict.fromkeys(
+    ("--checkpoint", "--checkpoint-dir", "--every", "--resume", "--fresh"), _SLICE7
+)
 
 
 def _emit(last, output_path: Optional[str], runtime_ms: float):
@@ -69,10 +71,13 @@ def run(edges, window_size: int, output_path: Optional[str] = None,
 
 
 def run_corpus(name_or_path: str, window_size: int = 1 << 20,
-               carry: str = "auto", device=DEFAULT_DEVICE):
+               carry: str = "auto", device=DEFAULT_DEVICE,
+               device_encode: bool = False, id_bound: int = 0):
     """Stream a corpus (by registry name or file path) through streaming CC:
     the measured end-to-end path as a CLI. ``carry`` pins the CC carry
-    (auto/forest/host/dense)."""
+    (auto/forest/host/dense); ``device_encode`` maps the vertices on the
+    device (``id_bound`` the dense id bound, 0 for growth mode), and the
+    blocks then run the dense carry."""
     from .. import datasets
 
     if name_or_path in datasets.CORPORA:
@@ -80,7 +85,8 @@ def run_corpus(name_or_path: str, window_size: int = 1 << 20,
         print(f"corpus: {path} ({'real' if is_real else 'surrogate'})")
     else:
         path = name_or_path
-    stream = datasets.stream_file(path, window=CountWindow(window_size), device=device)
+    kw = dict(device_encode=True, min_vertex_capacity=id_bound) if device_encode else {}
+    stream = datasets.stream_file(path, window=CountWindow(window_size), device=device, **kw)
     agg = ConnectedComponents(carry=carry)
     last = _drain(stream, agg)
     if last is not None:
@@ -100,16 +106,24 @@ def main(args: List[str]) -> None:
             i = rest.index("--carry")
             carry = rest[i + 1]
             del rest[i:i + 2]
+        dev_encode = "--device-encode" in rest
+        bound = 0
+        if dev_encode:
+            i = rest.index("--device-encode")
+            bound = int(rest[i + 1])
+            del rest[i:i + 2]
         name = rest[0] if rest else "livejournal"
         window = int(rest[1]) if len(rest) > 1 else 1 << 20
-        run_corpus(name, window, carry=carry, device=device)
+        run_corpus(name, window, carry=carry, device=device,
+                   device_encode=dev_encode, id_bound=bound)
         return
     if args:
         if len(args) not in (2, 3):
             print(
                 "Usage: connected_components [--cpu] [--corpus <name|path> "
-                "[window] [--carry auto|forest|host|dense]] | <input edges "
-                "path> <merge window size (edges)> [output path]"
+                "[window] [--carry auto|forest|host|dense] [--device-encode "
+                "<id bound>]] | <input edges path> <merge window size "
+                "(edges)> [output path]"
             )
             return
         run(read_edges(args[0]), int(args[1]),

@@ -132,6 +132,9 @@ def _declare(lib: ctypes.CDLL) -> None:
         "wprep_create": (vp, []),
         "wprep_destroy": (None, [vp]),
         "wprep_run": (i64, [vp, pi32a, pi32a, i64, i64, pi32a, pi32a, pi32a]),
+        "vbitmap_create": (vp, []),
+        "vbitmap_destroy": (None, [vp]),
+        "vbitmap_novel2": (i64, [vp, pi32a, pi32a, i64]),
     }
     for name, (restype, argtypes) in sigs.items():
         fn = getattr(lib, name)
@@ -652,3 +655,51 @@ class NativeEncoder(_Handle):
 
     def __len__(self) -> int:
         return int(self._lib.encoder_size(self._h))
+
+
+class NoveltyBitmap:
+    """First-seen counter over the non-negative int32 id space
+    (``ingest.cpp: vbitmap_*``).
+
+    ``novel2(src, dst)`` records both endpoint columns (interleaved arrival
+    order) and returns how many ids were never seen before: EXACT
+    distinctness, which lets the device-encode ingest grow its on-device
+    dictionary from host knowledge alone instead of reading a count back
+    from the card. Native: a lazily committed 2^31-bit anonymous mmap.
+    Without the native library: a bit-packed numpy map grown to the
+    observed id range."""
+
+    def __init__(self):
+        self._lib = _load()
+        self._h = self._lib.vbitmap_create() if self._lib is not None else None
+        if self._lib is not None and not self._h:
+            self._lib = None  # mmap failed: the numpy map
+        self._bits: Optional[np.ndarray] = None
+
+    def novel2(self, src: np.ndarray, dst: np.ndarray) -> int:
+        src = np.ascontiguousarray(src, np.int32)
+        dst = np.ascontiguousarray(dst, np.int32)
+        if self._lib is not None:
+            return int(self._lib.vbitmap_novel2(self._h, src, dst, src.size))
+        ids = np.stack([src, dst], axis=1).ravel()
+        ids = ids[ids >= 0]
+        if ids.size == 0:
+            return 0
+        uniq = np.unique(ids).astype(np.int64)
+        hi = (int(uniq[-1]) >> 3) + 1
+        if self._bits is None or self._bits.size < hi:
+            grown = np.zeros(max(hi, 1024), np.uint8)
+            if self._bits is not None:
+                grown[: self._bits.size] = self._bits
+            self._bits = grown
+        cell = uniq >> 3
+        mask = np.uint8(1) << (uniq & 7).astype(np.uint8)
+        fresh = (self._bits[cell] & mask) == 0
+        np.bitwise_or.at(self._bits, cell[fresh], mask[fresh])
+        return int(fresh.sum())
+
+    def __del__(self):
+        lib = getattr(self, "_lib", None)
+        h = getattr(self, "_h", None)
+        if lib is not None and h:
+            lib.vbitmap_destroy(h)

@@ -9,7 +9,11 @@ lockstep fold, the window triangle count) against the CPU, with the
 degree and triangle loops making no host sync per window, and slice 5a:
 PageRank (ranks within 1e-6 of the CPU, one host read per chunk),
 bipartiteness on every carry and superbatch, exact triangles and the
-device spanners (k = 2, 3) against the CPU with no host sync per window.
+device spanners (k = 2, 3) against the CPU with no host sync per window,
+and slice 5b: the device vertex dictionary against the CPU, the
+device-encode ingest in both forms with no host sync, both sampling
+window forms against the CPU fed the same uniforms, and iterative CC's
+diff path against its incremental path.
 
 Every test here is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is false. The file imports only torch, numpy
@@ -486,3 +490,109 @@ def test_device_spanner_on_card_matches_cpu_without_host_sync(card, k):
     want = run("cpu")
     run(card)  # warm
     assert run(card, strict=True) == want and len(want) == 4
+
+
+# --------------------------------------------------------------------- #
+# Slice 5b: the device vertex dictionary, the estimators, iterative CC
+# --------------------------------------------------------------------- #
+def test_encode_batch_on_card_matches_cpu(card):
+    """Known, new, repeated and near-INT32_MAX ids, then an overflow of the
+    16-key table: every output id and state field equal to the CPU's."""
+    from gelly_streaming_tpu_torch.ops import device_dict as dd
+
+    batches = [np.arange(10, 0, -1), np.array([3, 3, 7, 2**31 - 2, 0, 7]),
+               np.arange(12), np.arange(5, 30)]
+    states = {"cpu": dd.init_table(16, "cpu"), "card": dd.init_table(16, card)}
+    for b in batches:
+        b = torch.from_numpy(b.astype(np.int32))
+        outs = {}
+        for name, dev in (("cpu", "cpu"), ("card", card)):
+            states[name], outs[name] = dd.encode_batch(states[name], b.to(dev))
+        assert torch.equal(outs["card"].cpu(), outs["cpu"])
+        for f in states["cpu"]:
+            assert torch.equal(states["card"][f].cpu(), states["cpu"][f]), f
+    assert int(states["card"]["probe"]) < 0
+
+
+@pytest.mark.parametrize("form", ["bound", "growth"])
+def test_device_encode_ingest_makes_no_host_sync_and_cc_matches_cpu(card, tmp_path, form):
+    """The device-encode window loop (parse, upload, encode) under
+    ``set_sync_debug_mode("error")``; the components on the card equal
+    the CPU's, the probe non-negative."""
+    from gelly_streaming_tpu_torch import datasets, native
+    from gelly_streaming_tpu_torch.library import ConnectedComponents
+
+    rng = np.random.default_rng(13)
+    src, dst = rng.integers(0, 5000, 20000), rng.integers(0, 5000, 20000)
+    if form == "growth":  # sparse int32 ids through an injective map
+        src, dst = src * 7919 % (2**31 - 1), dst * 7919 % (2**31 - 1)
+    p = str(tmp_path / "g.txt")
+    native.write_edge_file(p, src, dst)
+    kw = (dict(dense_ids=False, min_vertex_capacity=16) if form == "growth"
+          else dict(min_vertex_capacity=1 << 13))
+
+    def stream(device):
+        return datasets.stream_file(p, window=gt.CountWindow(4096), device_encode=True,
+                                    device=device, **kw)
+
+    list(stream(card).blocks())  # warm the caches
+    torch.cuda.synchronize()
+    s = stream(card)
+    blocks = _syncs(lambda: list(s.blocks()))
+    assert len(blocks) == 5 and int(s.vertex_dict._state["probe"]) >= 0
+    got = want = None
+    for got in stream(card).aggregate(ConnectedComponents()):
+        pass
+    for want in stream("cpu").aggregate(ConnectedComponents()):
+        pass
+    assert sorted(got.component_sets()) == sorted(want.component_sets())
+
+
+@pytest.mark.parametrize("form", ["vectorized", "scan"])
+def test_sampling_on_card_matches_cpu_with_the_same_uniforms(card, form):
+    from gelly_streaming_tpu_torch.library import sampling
+
+    rng = np.random.default_rng(17)
+    v, k, cap, n = (40, 4096, 1024, 1000) if form == "vectorized" else (60000, 512, 64, 60)
+    s = rng.integers(0, 40, cap).astype(np.int32)
+    d = rng.integers(0, 40, cap).astype(np.int32)
+    mask = np.arange(cap) < n
+    st = {"cpu": sampling.init_sampler_state(k, "cpu"), "card": sampling.init_sampler_state(k, card)}
+    ec = 0
+    for _ in range(3):
+        if form == "vectorized":
+            u = [torch.rand(k) for _ in range(3)]
+            out = {}
+            for name, dev in (("cpu", "cpu"), ("card", card)):
+                st[name], n_total, beta = sampling._window_vectorized(
+                    st[name], ec, torch.from_numpy(s).to(dev), torch.from_numpy(d).to(dev),
+                    torch.from_numpy(mask).to(dev), n, v, *(x.to(dev) for x in u))
+                out[name] = int(beta)
+            assert out["card"] == out["cpu"]
+        else:
+            u = [torch.rand(n, k) for _ in range(2)]
+            for name, dev in (("cpu", "cpu"), ("card", card)):
+                st[name], n_total = sampling._window_scan(
+                    st[name], ec, s[:n], d[:n], v, *(x.to(dev) for x in u))
+        ec = n_total
+        for f in st["cpu"]:
+            assert torch.equal(st["card"][f].cpu(), st["cpu"][f]), f
+
+
+def test_iterative_cc_diff_path_on_card_matches_incremental(card, tmp_path):
+    from gelly_streaming_tpu_torch import datasets, native
+    from gelly_streaming_tpu_torch.library import IterativeConnectedComponents
+
+    rng = np.random.default_rng(21)
+    src = rng.integers(0, 3000, 12000)
+    dst = rng.integers(0, 3000, 12000)
+    p = str(tmp_path / "g.txt")
+    native.write_edge_file(p, src, dst)
+    runs = {}
+    for name, kw in {"incremental": dict(vertex_dict=IdentityDict(4096)),
+                     "diff": dict(device_encode=True, min_vertex_capacity=4096)}.items():
+        icc = IterativeConnectedComponents()
+        s = datasets.stream_file(p, window=gt.CountWindow(3000), device=card, **kw)
+        runs[name] = ([list(b) for b in icc.run(s)], icc.labels(), icc._mode)
+    assert runs["incremental"][2] == "incremental" and runs["diff"][2] == "diff"
+    assert runs["incremental"][:2] == runs["diff"][:2]

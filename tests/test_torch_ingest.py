@@ -322,16 +322,23 @@ def test_stream_file_cc_end_to_end(tmp_path, vdict, prefetch_depth):
 
 def test_stream_file_runs_on_the_card_by_default(tmp_path):
     """Without ``device=`` the stream is asked for on the card: with no card
-    it raises, and nothing moves quietly to the CPU."""
+    it raises, and nothing moves quietly to the CPU. The device-encode path
+    (vertex compaction on the device) runs where it is asked to: on the
+    CPU, to the same components."""
     p = tmp_path / "cc.txt"
     p.write_text(CC_FILE)
-    if torch.cuda.is_available():
-        assert torch_datasets.stream_file(str(p)).device.type == "cuda"
-    else:
-        with pytest.raises(RuntimeError, match="device='cpu'"):
-            torch_datasets.stream_file(str(p))
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        torch_datasets.stream_file(str(p), device_encode=True, device="cpu")
+    for kw in ({}, {"device_encode": True}):
+        if torch.cuda.is_available():
+            assert torch_datasets.stream_file(str(p), **kw).device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                torch_datasets.stream_file(str(p), **kw)
+    last = None
+    for last in torch_datasets.stream_file(
+        str(p), window=gt.CountWindow(2), device_encode=True, device="cpu"
+    ).aggregate(TorchCC()):
+        pass
+    assert set(last.component_sets()) == CC_WANT
 
 
 def test_binary_cache_matches_jax(tmp_path):

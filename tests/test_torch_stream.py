@@ -25,6 +25,7 @@ from gelly_streaming_tpu_torch.core.edgeblock import EdgeAccumulator
 from gelly_streaming_tpu_torch.library import (
     ConnectedComponents,
     DegreeDistribution,
+    IterativeConnectedComponents,
     WindowTriangles,
 )
 from gelly_streaming_tpu_torch.ops import triangles as ttri
@@ -204,10 +205,12 @@ def _meshed_slice_reduce(edges):
             ConnectedComponents.sliding(10)
         ),
         lambda e: gt.SimpleEdgeStream(e, device="cpu").superbatches_dynamic(lambda: 4),
-        lambda e: torch_datasets.stream_file("edges.txt", device_encode=True, device="cpu"),
+        # the device vertex dictionary and iterative CC are ported (slice
+        # 5b); iterative CC over a sharded mesh stays for slice 6
+        lambda e: IterativeConnectedComponents(mesh=object()),
     ],
     ids=["degrees_sliding", "exact_triangles", "meshed_slice", "aggregate",
-         "superbatches", "stream_file"],
+         "superbatches", "iterative_cc_mesh"],
 )
 def test_later_slices_raise_not_implemented_naming_their_slice(sample_edges, make):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, slice"):

@@ -5,7 +5,8 @@ version, drive streaming GraphSAGE, streaming Connected Components, the
 degree stream, window triangles, the neighborhood aggregations,
 incremental PageRank, bipartiteness, exact triangles, the device
 spanner, the device vertex dictionary, the sampling triangle estimators
-and iterative CC end to end, and print the results.
+and iterative CC end to end, kill and resume the headline cell under the
+supervisor, and print the results.
 
     python3 chip_smoke.py
 
@@ -150,7 +151,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    must equal scipy's least raw id of each component, and the two paths
    each other; ms a window of each, and a profile of each (``icc.*``
    ranges).
-16. a ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
+16. durability — the headline cell of phase 5 under the resilience layer:
+   (a) through ``example/common.supervised_emissions`` with a barrier
+   every 4 windows, 3 kept, and ``FaultPlan(kill_at_window=9,
+   kill_site="pipeline.item")``: exactly one restart, the resume from the
+   barrier at window 8 (the ``checkpoint.restore`` spans), the replayed
+   window deduped, carry "forest", the last window's labels equal to phase
+   5's (scipy's); (b) the head barrier flipped by ``corrupt_file``: a fresh
+   ``AutoCheckpoint`` resumes from the rotated barrier at 12 with
+   ``resilience.ckpt_rejected == 1`` and the same labels; (c) phase 6's
+   ``DegreeDistribution`` events under ``AutoCheckpoint(every=2)``, the run
+   abandoned after 5 windows and resumed: equal to the uninterrupted run
+   window by window; (d) the head barrier, written on the card, restored
+   on the CPU to the same labels; (e) edges/s with a barrier every 4
+   windows and with none, in 3 alternating pairs; each barrier's
+   ``checkpoint.barrier_wait`` and ``checkpoint.serialize`` ms, its bytes,
+   its parts (the forest's download and host resolve, the pickle, the
+   checksum, the write) and the restore ms, against the bound of its bytes
+   over a plain D2H copy and a plain file write measured here; and the
+   cadence ``every="auto"`` settles on.
+17. a ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
+Each phase's wall seconds are printed after it.
 
 TF32 is off for float32 matmuls (``torch.backends.cuda.matmul.allow_tf32 =
 False``), so the plain version's f32 products are full f32.
@@ -310,6 +331,18 @@ ICC_EDGES = 1 << 20
 ICC_SEED = 21
 ICC_WINDOW = 1 << 18
 ICC_STEPS = ("icc.incremental", "icc.diff", "dict.encode", "engine.dispatch", "cc.propagate")
+
+# phase 16: durability on the headline cell. The supervised run keeps 3
+# barriers, one every 4 windows, and is killed as prefetch item 9 is
+# taken, so it resumes from the barrier at window 8; DegreeDistribution
+# (phase 6's events) takes a barrier every 2 windows and dies after 5
+DUR_EVERY = 4
+DUR_KEEP = 3
+DUR_KILL_ITEM = 9
+DUR_RESUME_AT = 8
+DUR_PAIRS = 3
+DUR_DD_EVERY = 2
+DUR_DD_KILL_AFTER = 5
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate and dense bf16 tensor rate;
 # float32 work counts against the CUDA cores' f32 rate
@@ -885,6 +918,7 @@ def phase_cc(torch):
         raise AssertionError("the forest carry disagrees with scipy's components")
     cell["components"] = n_comp
     cell["vertices_seen"] = int(len(ids))
+    oracle = {"ids": ids, "labels": got}  # equal to scipy's, checked above
     # touched vertices per window and per group of the prefix: the sizes
     # the device steps' bounds are counted from
     touched = [np.unique(np.concatenate([src[a:a + CC_WINDOW], dst[a:a + CC_WINDOW]])).size
@@ -965,7 +999,7 @@ def phase_cc(torch):
         "call; mirror_update and forest_superbatch per window of the 4-window prefix; "
         "bound by bytes) " + json.dumps(table))
     cell["steps"] = table
-    return cell
+    return cell, oracle
 
 
 # --------------------------------------------------------------------- #
@@ -2221,24 +2255,364 @@ def phase_iterative_cc(torch):
 
 
 
+# --------------------------------------------------------------------- #
+# Durability (phase 16)
+# --------------------------------------------------------------------- #
+class _CkptSpans:
+    """An obs span sink keeping the ``checkpoint.*`` events in order."""
+
+    def __init__(self):
+        import threading
+
+        self.lock = threading.Lock()
+        self.events = []
+
+    def emit(self, event):
+        if event["name"].startswith("checkpoint."):
+            with self.lock:
+                self.events.append(event)
+
+    def take(self, name):
+        with self.lock:
+            return [e for e in self.events if e["name"] == name]
+
+
+def _dur_streams(path, device="cuda"):
+    """``make_stream(vdict)`` of the headline cell for ``AutoCheckpoint``:
+    the restored dict on a resume, a fresh ``IdentityDict`` else."""
+    from gelly_streaming_tpu_torch import CountWindow, datasets
+
+    def make_stream(vdict):
+        return datasets.stream_file(
+            path, window=CountWindow(CC_WINDOW),
+            vertex_dict=vdict if vdict is not None else datasets.IdentityDict(CC_ID_BOUND),
+            prefetch_depth=2, device=device,
+        )
+
+    return make_stream
+
+
+def _labels_equal(a, b):
+    return np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+
+
+class _EventWindows:
+    """``DegreeDistribution`` takes event records, not a stream: this
+    stream stand-in yields one window of events per ``blocks()`` item, so
+    ``AutoCheckpoint`` can skip the windows a barrier covers. The
+    workload keeps its own vertex dict (in its ``state_dict``)."""
+
+    vertex_dict = None
+
+    def __init__(self, events, window):
+        self.events = events
+        self.window = window
+
+    def blocks(self):
+        for a in range(0, len(self.events), self.window):
+            yield self.events[a:a + self.window]
+
+
+class _WindowedDD:
+    """A ``DegreeDistribution`` driven one window of events at a time."""
+
+    def __init__(self, dd):
+        self.dd = dd
+
+    def state_dict(self):
+        return self.dd.state_dict()
+
+    def load_state_dict(self, d):
+        self.dd.load_state_dict(d)
+
+    def run(self, stream):
+        for events in stream.blocks():
+            yield from self.dd.run(events)
+
+
+def _ckpt_pass(torch, make_stream, path=None, every=None):
+    """One pass of the headline cell, under ``AutoCheckpoint(path, every)``
+    when ``path`` is given (its barriers discarded first): seconds, the
+    aggregation and the checkpoint."""
+    from gelly_streaming_tpu_torch.aggregate.autockpt import AutoCheckpoint
+    from gelly_streaming_tpu_torch.library import ConnectedComponents
+
+    agg = ConnectedComponents()
+    ac = None
+    t0 = time.perf_counter()
+    if path is None:
+        it = make_stream(None).aggregate(agg)
+    else:
+        ac = AutoCheckpoint(path, every=every)
+        ac.discard()
+        t0 = time.perf_counter()
+        it = ac.run(make_stream, agg)
+    n = sum(1 for _ in it)
+    agg.sync()
+    return time.perf_counter() - t0, n, agg, ac
+
+
+def _median_ms(fn, torch, reps):
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_durability(torch, oracle):
+    import pickle
+    import tempfile
+
+    from gelly_streaming_tpu_torch import CountWindow, datasets, obs
+    from gelly_streaming_tpu_torch.aggregate.autockpt import AutoCheckpoint
+    from gelly_streaming_tpu_torch.example.common import supervised_emissions
+    from gelly_streaming_tpu_torch.library import ConnectedComponents, DegreeDistribution
+    from gelly_streaming_tpu_torch.obs import trace
+    from gelly_streaming_tpu_torch.ops import sage_kernels as sk
+    from gelly_streaming_tpu_torch.resilience import FaultPlan, faults, integrity
+    from gelly_streaming_tpu_torch.resilience.faults import corrupt_file
+    from gelly_streaming_tpu_torch.summaries.forest import resolve_flat_host
+
+    path, _ = datasets.ensure_corpus(CC_CORPUS)
+    n_edges = datasets.CORPORA[CC_CORPUS].surrogate_edges
+    n_win = n_edges // CC_WINDOW
+    make_stream = _dur_streams(path)
+    want = (oracle["ids"], oracle["labels"])
+    ckdir = tempfile.mkdtemp(prefix="smoke_ckpt_", dir=datasets.cache_dir())
+    ckpt = os.path.join(ckdir, "cc.ckpt")
+    cell = {"every": DUR_EVERY, "keep": DUR_KEEP}
+
+    # (a) kill at pipeline.item 9 under the supervisor, resume from 8; the
+    # kernel counts are 0 just before and read just after (the path has
+    # no hand-written kernel: its work is host serialization and a D2H)
+    sk.LAUNCHES = 0
+    reg = obs.set_registry(None)
+    sink = _CkptSpans()
+    trace.add_sink(sink)
+    trace.enable()
+    made = []
+
+    def factory():
+        made.append(ConnectedComponents())
+        return made[-1]
+
+    try:
+        with faults.injected(FaultPlan(kill_at_window=DUR_KILL_ITEM, kill_site="pipeline.item")):
+            emissions, _ = supervised_emissions(ckpt, DUR_EVERY, make_stream, factory,
+                                                keep=DUR_KEEP, resume=False)
+            t0 = time.perf_counter()
+            seen = 0
+            last = None
+            for last in emissions:
+                seen += 1
+            made[-1].sync()
+            run_s = time.perf_counter() - t0
+    finally:
+        trace.disable()
+        trace.remove_sink(sink)
+    say(f"durability fused_sage_matmul launches in the supervised run: {sk.LAUNCHES}")
+    restores = [e.get("attrs", {}).get("windows_done") for e in sink.take("checkpoint.restore")]
+    restarts = reg.counter("resilience.restarts", kind="transient").value
+    deduped = reg.counter("resilience.deduped_windows").value
+    slots = [AutoCheckpoint(p)._read_barrier(p)["windows_done"]
+             for p in (ckpt, ckpt + ".1", ckpt + ".2")]
+    ok = (seen == n_win and restarts == 1 and deduped == 1 and restores == [0, DUR_RESUME_AT]
+          and made[-1]._cc_mode == "forest" and _labels_equal(last.labels(), want)
+          and slots == [n_win, n_win - DUR_EVERY, n_win - 2 * DUR_EVERY])
+    cell["kill"] = {"windows": seen, "restarts": restarts, "deduped_windows": deduped,
+                    "restored_from": restores, "barriers_on_disk": slots,
+                    "carry": made[-1]._cc_mode, "seconds": run_s, "equal": bool(ok)}
+    say("durability kill/resume " + json.dumps(cell["kill"]))
+    if not ok:
+        raise AssertionError("the supervised kill/resume of the CC cell failed its checks")
+    waits = [e["dur_s"] * 1e3 for e in sink.take("checkpoint.barrier_wait")]
+    sers = [e["dur_s"] * 1e3 for e in sink.take("checkpoint.serialize")]
+    barriers = [e["dur_s"] * 1e3 for e in sink.take("checkpoint.barrier")]
+
+    # (b) a corrupt head: a fresh checkpoint falls back to the rotated 12
+    corrupt_file(ckpt, "flip")
+    reg = obs.set_registry(None)
+    fresh = AutoCheckpoint(ckpt, every=DUR_EVERY, keep=DUR_KEEP)
+    agg = ConnectedComponents()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        done = fresh.windows_done()
+        last = None
+        for last in fresh.run(make_stream, agg):
+            pass
+    agg.sync()
+    rejected = reg.counter("resilience.ckpt_rejected").value
+    ok = (done == n_win - DUR_EVERY and rejected == 1 and last is not None
+          and _labels_equal(last.labels(), want))
+    cell["corrupt_head"] = {"resumed_from": done, "ckpt_rejected": rejected, "equal": bool(ok)}
+    say("durability corrupt head " + json.dumps(cell["corrupt_head"]))
+    if not ok:
+        raise AssertionError("the corrupt-head fallback failed its checks")
+    obs.set_registry(None)
+
+    # (d) the head barrier (written on the card by (b)) restored on the CPU
+    sink = _CkptSpans()
+    trace.add_sink(sink)
+    trace.enable()
+    try:
+        cpu_agg = ConnectedComponents()
+        ac = AutoCheckpoint(ckpt)
+        rest = list(ac.run(_dur_streams(path, device="cpu"), cpu_agg))
+        em = ac.restored_emission(cpu_agg)
+    finally:
+        trace.disable()
+        trace.remove_sink(sink)
+    restore_ms = sink.take("checkpoint.restore")[0]["dur_s"] * 1e3
+    on_cpu = cpu_agg._summary["labels"].device.type == "cpu"
+    ok = not rest and on_cpu and _labels_equal(em.labels(), want)
+    cell["cross_device"] = {"restored_on": "cpu", "windows_left": len(rest),
+                            "restore_ms": restore_ms, "equal": bool(ok)}
+    say("durability card barrier on the cpu " + json.dumps(cell["cross_device"]))
+    if not ok:
+        raise AssertionError("the barrier written on the card did not restore on the CPU")
+
+    # (c) the workload kind: DegreeDistribution under AutoCheckpoint(every=2)
+    events = _dd_events()
+    dd_path = os.path.join(ckdir, "dd.ckpt")
+    full = [list(b) for b in DegreeDistribution(CountWindow(DD_WINDOW), device="cuda").run(events)]
+
+    def windows():
+        return lambda vd: _EventWindows(events, DD_WINDOW)
+
+    before = []
+    run = AutoCheckpoint(dd_path, every=DUR_DD_EVERY).run(
+        windows(), _WindowedDD(DegreeDistribution(CountWindow(DD_WINDOW), device="cuda")))
+    for b in run:
+        before.append(list(b))
+        if len(before) == DUR_DD_KILL_AFTER:
+            break  # the run dies here: its generator is abandoned
+    run.close()
+    ac = AutoCheckpoint(dd_path, every=DUR_DD_EVERY)
+    done = ac.windows_done()
+    dd = DegreeDistribution(CountWindow(DD_WINDOW), device="cuda")
+    after = [list(b) for b in ac.run(windows(), _WindowedDD(dd))]
+    ok = (done == DUR_DD_KILL_AFTER - DUR_DD_KILL_AFTER % DUR_DD_EVERY
+          and before == full[:DUR_DD_KILL_AFTER] and before[:done] + after == full)
+    cell["degree_distribution"] = {"events": DD_EVENTS, "windows": len(full), "resumed_from": done,
+                                   "replayed": DUR_DD_KILL_AFTER - done, "equal": bool(ok)}
+    say("durability degree distribution " + json.dumps(cell["degree_distribution"]))
+    if not ok:
+        raise AssertionError("the DegreeDistribution resume differs from the uninterrupted run")
+
+    # (e) times: edges/s with barriers every 4 windows and without, in
+    # alternating pairs; the parts of a barrier; its bound; the auto cadence
+    pairs = []
+    for i in range(DUR_PAIRS):
+        order = ("none", "every") if i % 2 == 0 else ("every", "none")
+        got = {}
+        for kind in order:
+            sec, n, _, _ = _ckpt_pass(torch, make_stream,
+                                      None if kind == "none" else ckpt, DUR_EVERY)
+            if n != n_win:
+                raise AssertionError(f"a timed pass ran {n} windows")
+            got[kind] = n_edges / sec
+        pairs.append(got)
+    plain = statistics.median(p["none"] for p in pairs)
+    with_b = statistics.median(p["every"] for p in pairs)
+    cell["edges_per_s"] = {"no_barriers": plain, "every_4": with_b, "pairs": pairs,
+                           "ratio": with_b / plain}
+    say(f"durability edges/s (median of {DUR_PAIRS} alternating pairs): no barriers "
+        f"{plain:.0f}, every {DUR_EVERY} windows {with_b:.0f}, ratio {with_b / plain:.3f}")
+
+    # the parts of one barrier, on the last forest carry: the download, the
+    # host resolve, the pickle, the checksum, the write
+    _, _, agg, _ = _ckpt_pass(torch, make_stream)
+    from gelly_streaming_tpu_torch.summaries.labels import to_numpy
+
+    d2h = _median_ms(lambda: to_numpy(agg._canon), torch, 5)
+    canon = to_numpy(agg._canon)
+    resolve = _median_ms(lambda: resolve_flat_host(canon), torch, 5)
+    state = agg.snapshot_state()
+    payload = {"windows_done": n_win, "kind": "aggregation",
+               "state": {"summary": state, "vcap": int(agg._vcap)},
+               "vdict": {"kind": "identity", "id_bound": CC_ID_BOUND, "observed": CC_ID_BOUND}}
+    dumps = _median_ms(lambda: pickle.dumps(payload), torch, 5)
+    raw = pickle.dumps(payload)
+    crc = _median_ms(lambda: integrity.wrap_checksummed(raw), torch, 5)
+    blob = integrity.wrap_checksummed(raw)
+    probe = os.path.join(ckdir, "write_probe")
+
+    def write():
+        with open(probe, "wb") as f:
+            f.write(blob)
+
+    nbytes = os.path.getsize(ckpt)
+    write_ms = _median_ms(write, torch, 5)
+    # the bound: the barrier's bytes over a plain D2H copy's rate and a
+    # plain file write's rate, both measured here
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    d2h_plain = _median_ms(lambda: dev.to("cpu"), torch, 7)
+    host = np.zeros(nbytes, np.uint8).tobytes()
+
+    def write_plain():
+        with open(probe, "wb") as f:
+            f.write(host)
+
+    write_plain_ms = _median_ms(write_plain, torch, 5)
+    os.remove(probe)
+    bound = d2h_plain + write_plain_ms
+    barrier_ms = statistics.median(barriers)
+    h2d = _median_ms(lambda: (torch.as_tensor(state["labels"]).to("cuda"),
+                              torch.as_tensor(state["touched"]).to("cuda")), torch, 5)
+    cell["barrier"] = {
+        "bytes": nbytes, "barriers": len(barriers), "barrier_ms": barriers,
+        "barrier_wait_ms": waits, "serialize_ms": sers,
+        "parts_ms": {"d2h_canon": d2h, "resolve_flat_host": resolve, "pickle": dumps,
+                     "crc32_frame": crc, "write": write_ms},
+        "restore_ms": restore_ms, "restore_h2d_ms": h2d,
+        "bound_ms": bound, "bound_parts_ms": {"d2h_plain": d2h_plain, "write_plain": write_plain_ms},
+        "d2h_gb_per_s": nbytes / d2h_plain / 1e6, "write_gb_per_s": nbytes / write_plain_ms / 1e6,
+        "bound_share": bound / barrier_ms,
+    }
+    say("durability barrier " + json.dumps(cell["barrier"]))
+
+    # the cadence every="auto" settles on for this cell
+    sec, n, _, ac = _ckpt_pass(torch, make_stream, ckpt, "auto")
+    cell["auto"] = {"every": ac.every, "barrier_s": ac.measured_barrier_s,
+                    "window_s": ac.measured_window_s, "edges_per_s": n_edges / sec,
+                    "target_overhead": ac.target_overhead}
+    say("durability every=auto " + json.dumps(cell["auto"]))
+    shutil.rmtree(ckdir, ignore_errors=True)
+    return cell
+
+
+def timed(name, fn, *args):
+    """Run one phase and print its wall seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    say(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main():
     import torch
 
-    phase_device(torch)
-    phase_build()
-    main_err, rows = phase_kernels(torch)
-    slice_result = phase_slice(torch, rows)
-    phase_cc(torch)
-    phase_degrees(torch)
-    phase_triangles(torch)
-    phase_neighborhood(torch)
-    phase_pagerank(torch)
-    phase_bipartiteness(torch)
-    phase_exact_triangles(torch)
-    phase_spanner(torch)
-    phase_device_encode(torch)
-    phase_sampling(torch)
-    phase_iterative_cc(torch)
+    t_start = time.perf_counter()
+    timed("device", phase_device, torch)
+    timed("build", phase_build)
+    main_err, rows = timed("kernels", phase_kernels, torch)
+    slice_result = timed("slice", phase_slice, torch, rows)
+    _, cc_oracle = timed("cc", phase_cc, torch)
+    timed("degrees", phase_degrees, torch)
+    timed("triangles", phase_triangles, torch)
+    timed("neighborhood", phase_neighborhood, torch)
+    timed("pagerank", phase_pagerank, torch)
+    timed("bipartiteness", phase_bipartiteness, torch)
+    timed("exact triangles", phase_exact_triangles, torch)
+    timed("spanner", phase_spanner, torch)
+    timed("device-encode", phase_device_encode, torch)
+    timed("sampling", phase_sampling, torch)
+    timed("iterative cc", phase_iterative_cc, torch)
+    timed("durability", phase_durability, torch, cc_oracle)
+    say(f"all phases: {time.perf_counter() - t_start:.1f} s")
     kernel = {
         "name": "fused_sage_matmul",
         "variant": "tc",

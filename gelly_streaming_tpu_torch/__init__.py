@@ -3,7 +3,7 @@
 A second package beside the JAX one, which stays the reference it is held
 against. It runs on an NVIDIA card by default (``device="cuda"``, raising
 when there is none) and on the CPU only when asked (``device="cpu"``).
-Five slices run end to end so far. Streaming Connected Components, the
+Six slices run end to end so far. Streaming Connected Components, the
 headline path (file -> native parse -> count windows -> forest carry)::
 
     from gelly_streaming_tpu_torch import CountWindow, datasets
@@ -71,10 +71,26 @@ sampling triangle estimators, iterative CC and weighted matching::
     for edge_count, estimate in BroadcastTriangleCount(
             vertex_count=1 << 15, samples=1 << 21).run(edges):
         ...
+
+Durability: periodic checkpoint barriers with keep-last-N rotation and a
+supervisor that restores from the newest valid barrier after a failure,
+dedupes replayed windows and restarts under bounded backoff::
+
+    from gelly_streaming_tpu_torch import AutoCheckpoint, Supervisor
+
+    def make_stream(vdict):  # None on a fresh start, else the restored dict
+        return datasets.stream_file(path, window=CountWindow(1 << 20),
+                                    vertex_dict=vdict)
+
+    sup = Supervisor(AutoCheckpoint("run/cc.ckpt", every=4, keep=3))
+    for comps in sup.run(make_stream, ConnectedComponents):
+        ...  # each window once, in order, through restarts
 """
 
 from .core.edgeblock import EdgeBlock, bucket_capacity, concat_blocks
+from .aggregate.autockpt import AutoCheckpoint
 from .core.snapshot import SnapshotStream
+from .core.sources import GeneratorSource, SocketEdgeSource
 from .core.stream import GraphStream, SimpleEdgeStream, StreamContext
 from .core.types import Edge, EdgeDirection, EventType, Vertex
 from .core.vertexdict import VertexDict
@@ -85,21 +101,28 @@ from .core.window import (
     Windower,
     blocks_from_edges,
 )
+from .resilience import FaultPlan, RetryPolicy, Supervisor
 
 __version__ = "0.1.0"
 
 __all__ = [
+    "AutoCheckpoint",
     "CountWindow",
     "Edge",
     "EdgeBlock",
     "EdgeDirection",
     "EventTimeWindow",
     "EventType",
+    "FaultPlan",
+    "GeneratorSource",
     "GraphStream",
     "ProcessingTimeWindow",
+    "RetryPolicy",
     "SimpleEdgeStream",
     "SnapshotStream",
+    "SocketEdgeSource",
     "StreamContext",
+    "Supervisor",
     "Vertex",
     "VertexDict",
     "Windower",

@@ -18,7 +18,7 @@ Host-state aggregations (``host_state = True``, the reference's
 ``device=False``: the spanner) run ``update``/``combine`` on host records
 of RAW ids, one window at a time. What comes later: the sharded mesh
 (per-shard folds merged by collectives) with ROADMAP Queue 1, slice 6;
-``superbatch="auto"`` with slice 7.
+``superbatch="auto"`` with slice 7b (control and ingest).
 
 Checkpoint surface (``SummaryAggregation.java:127-135``):
 :meth:`snapshot_state` / :meth:`restore_state` move the running summary
@@ -39,7 +39,7 @@ from ..summaries.groupfold import GroupFoldable, drive_group_folded
 from ..summaries.labels import to_numpy
 
 _MESH = "ROADMAP Queue 1, slice 6 (multiple devices)"
-_AUTO_K = ('ROADMAP Queue 1, slice 7 (durability, control and ingest: '
+_AUTO_K = ('ROADMAP Queue 1, slice 7b (control and ingest: '
            'superbatch="auto")')
 
 

@@ -15,9 +15,13 @@ pull, after the items already queued drain.
 
 PyTorch keeps the current CUDA device per thread, so the producer thread
 is pinned to the stream's device (``device=``): otherwise what it
-uploads without an explicit index would land on card 0. The adaptive
-depth (``tuner=``) and the chaos hook of the reference come with ROADMAP
-Queue 1, slice 7.
+uploads without an explicit index would land on card 0.
+
+An installed ``FaultPlan`` (``resilience/faults.py``) is consulted at
+each item the consumer takes (site ``pipeline.item``, index = the item's
+ordinal): the in-process kill the ``Supervisor`` recovers from. The
+adaptive depth (``tuner=``) of the reference comes with ROADMAP Queue 1,
+slice 7b (control and ingest).
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ import torch
 
 from ..obs import trace as _trace
 from ..obs.registry import get_registry
+from ..resilience import faults as _faults
 from ..resilience.errors import StallError
 
 T = TypeVar("T")
@@ -188,6 +193,8 @@ def prefetch(iterator: Iterator[T], depth: int = 2,
                 if error:
                     raise error[0]
                 return
+            if _faults.active():  # chaos hook: kill/stall at item n
+                _faults.fire("pipeline.item", index=n)
             n += 1
             yield item
     finally:

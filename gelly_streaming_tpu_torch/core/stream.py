@@ -199,7 +199,7 @@ class SimpleEdgeStream(GraphStream):
     def superbatches_dynamic(self, k_fn, skip: int = 0):
         raise NotImplementedError(
             "SimpleEdgeStream.superbatches_dynamic is ported in ROADMAP "
-            "Queue 1, slice 7 (durability, control and ingest)"
+            "Queue 1, slice 7b (control and ingest)"
         )
 
     def _derive(self, block_fn: Callable[[Iterator[EdgeBlock]], Iterator[EdgeBlock]]) -> "SimpleEdgeStream":

@@ -17,7 +17,7 @@ Superbatches pack K consecutive windows into one
 :class:`SuperbatchGroup`: one group encode and per-window host column
 views, with the ``[K, cap]`` device stack built only for consumers that
 fold on it. The adaptive-K packers (``*_dynamic``) come with
-``superbatch="auto"`` in ROADMAP Queue 1, slice 7.
+``superbatch="auto"`` in ROADMAP Queue 1, slice 7b (control and ingest).
 
 Blocks carry *compact* int32 ids; raw ids stay host-side in the dict.
 """
@@ -42,8 +42,7 @@ from .edgeblock import (
 from .device import DEFAULT_DEVICE, resolve_device
 from .vertexdict import VertexDict
 
-_AUTO_K = ("ROADMAP Queue 1, slice 7 (durability, control and ingest: "
-           'superbatch="auto")')
+_AUTO_K = ('ROADMAP Queue 1, slice 7b (control and ingest: superbatch="auto")')
 
 
 def is_column_input(edges) -> bool:

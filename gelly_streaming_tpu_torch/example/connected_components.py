@@ -8,7 +8,9 @@ DisjointSet ``toString`` format its test parses).
 Runs on the card; ``--cpu`` runs it on the CPU instead::
 
     python -m gelly_streaming_tpu_torch.example.connected_components \\
-        [--cpu] <input edges path> <merge window size (edges)> [output path]
+        [--cpu] <input edges path> <merge window size (edges)> [output path] \\
+        [--checkpoint <path> | --checkpoint-dir <dir>] [--every <windows|auto>] \\
+        [--resume | --fresh]
     python -m gelly_streaming_tpu_torch.example.connected_components \\
         [--cpu] --corpus <name|path> [window] [--carry auto|forest|host|dense] \\
         [--device-encode <id bound>]
@@ -16,10 +18,15 @@ Runs on the card; ``--cpu`` runs it on the CPU instead::
 ``--device-encode`` moves the vertex mapping onto the device
 (``stream_file(device_encode=True)``): with an id bound the table covers
 the dense id space, with ``0`` it grows from host novelty tracking (any
-non-negative int32 ids). The checkpoint and supervisor flags of the
-reference CLI (``--checkpoint``, ``--checkpoint-dir``, ``--every``,
-``--resume``, ``--fresh``) raise: they are ported in ROADMAP Queue 1,
-slice 7.
+non-negative int32 ids).
+
+The checkpoint flags run the edge-file form SUPERVISED
+(``example/common.py:supervised_emissions``): an atomic barrier every
+``--every`` windows (``auto`` tunes the cadence so barriers cost at most
+about 5 % of wall time), restart with backoff on transient faults, and
+transparent restore — re-running the same command after a kill resumes
+from the last barrier and ends with identical output. Resuming is the
+default; ``--fresh`` discards any barrier at the path first.
 """
 
 from __future__ import annotations
@@ -32,17 +39,23 @@ from ..core.stream import SimpleEdgeStream
 from ..core.window import CountWindow
 from ..library import ConnectedComponents
 from .common import (
+    checkpoint_path_in,
     default_chain_edges,
+    parse_checkpoint_flags,
     read_edges,
     run_main,
     split_cpu_flag,
+    supervised_emissions,
     usage,
     write_lines,
 )
 
-_SLICE7 = "ROADMAP Queue 1, slice 7 (durability, control and ingest)"
-_LATER_FLAGS = dict.fromkeys(
-    ("--checkpoint", "--checkpoint-dir", "--every", "--resume", "--fresh"), _SLICE7
+_USAGE = (
+    "Usage: connected_components [--cpu] [--corpus <name|path> [window] "
+    "[--carry auto|forest|host|dense] [--device-encode <id bound>]] | "
+    "<input edges path> <merge window size (edges)> [output path] "
+    "[--checkpoint <path> | --checkpoint-dir <dir>] "
+    "[--every <windows|auto>] [--resume | --fresh]"
 )
 
 
@@ -65,9 +78,34 @@ def _drain(stream, agg, output_path: Optional[str] = None):
 
 
 def run(edges, window_size: int, output_path: Optional[str] = None,
-        device=DEFAULT_DEVICE):
-    stream = SimpleEdgeStream(edges, window=CountWindow(window_size), device=device)
-    return _drain(stream, ConnectedComponents(), output_path)
+        device=DEFAULT_DEVICE, checkpoint_path: Optional[str] = None,
+        checkpoint_every=64, resume: bool = True):
+    """``checkpoint_path`` runs the stream supervised with a barrier every
+    ``checkpoint_every`` windows (see the module doc)."""
+    if checkpoint_path is None:
+        stream = SimpleEdgeStream(edges, window=CountWindow(window_size), device=device)
+        return _drain(stream, ConnectedComponents(), output_path)
+    agg = ConnectedComponents()
+    emissions, ac = supervised_emissions(
+        checkpoint_path, checkpoint_every,
+        lambda vd: SimpleEdgeStream(edges, window=CountWindow(window_size),
+                                    vertex_dict=vd, device=device),
+        agg, resume=resume,
+    )
+    done = ac.windows_done()
+    if done:
+        print(f"resuming from barrier at window {done}")
+    last = None
+    t0 = time.perf_counter()
+    for last in emissions:
+        pass
+    agg.sync()
+    runtime_ms = (time.perf_counter() - t0) * 1000
+    if last is None and done:
+        # the barrier already covers the whole stream: emit the restored
+        # summary instead of an empty re-run
+        last = ac.restored_emission(agg)
+    return _emit(last, output_path, runtime_ms)
 
 
 def run_corpus(name_or_path: str, window_size: int = 1 << 20,
@@ -96,10 +134,17 @@ def run_corpus(name_or_path: str, window_size: int = 1 << 20,
 
 def main(args: List[str]) -> None:
     args, device = split_cpu_flag(args)
-    for flag, where in _LATER_FLAGS.items():
-        if flag in args:
-            raise NotImplementedError(f"{flag} is ported in {where}")
+    try:
+        args, spec = parse_checkpoint_flags(args)
+    except ValueError:
+        print(_USAGE)
+        return
     if args and args[0] == "--corpus":
+        if spec is not None:
+            raise ValueError(
+                "the checkpoint flags apply to the edge-file form "
+                "(<input edges path> <window> [output path])"
+            )
         rest = args[1:]
         carry = "auto"
         if "--carry" in rest:
@@ -118,21 +163,21 @@ def main(args: List[str]) -> None:
                    device_encode=dev_encode, id_bound=bound)
         return
     if args:
-        if len(args) not in (2, 3):
-            print(
-                "Usage: connected_components [--cpu] [--corpus <name|path> "
-                "[window] [--carry auto|forest|host|dense] [--device-encode "
-                "<id bound>]] | <input edges path> <merge window size "
-                "(edges)> [output path]"
-            )
+        if len(args) not in (2, 3) or not args[1].isdigit():
+            print(_USAGE)
             return
+        ckpt = checkpoint_path_in(spec, "cc.ckpt") if spec is not None else None
         run(read_edges(args[0]), int(args[1]),
-            args[2] if len(args) > 2 else None, device=device)
+            args[2] if len(args) > 2 else None, device=device,
+            checkpoint_path=ckpt,
+            checkpoint_every=spec["every"] if spec is not None else 64,
+            resume=spec["resume"] if spec is not None else True)
     else:
         usage(
             "connected_components",
             "[--cpu] [--corpus <name|path> [window]] | <input edges path> "
-            "<merge window size (edges)> [output path]",
+            "<merge window size (edges)> [output path] [--checkpoint-dir <dir>] "
+            "[--every <windows|auto>] [--resume | --fresh]",
         )
         run(default_chain_edges(), 100, device=device)
 

@@ -70,7 +70,9 @@ class CentralizedWeightedMatching:
         return {"by_vertex": dict(self._by_vertex)}
 
     def load_state_dict(self, d: dict) -> None:
-        self._by_vertex = dict(d["by_vertex"])
+        # a checkpoint of either package: its (src, dst, val) records
+        # become this package's Edge
+        self._by_vertex = {v: Edge(*e) for v, e in d["by_vertex"].items()}
 
     def matching(self) -> set:
         """The current matched edge set."""

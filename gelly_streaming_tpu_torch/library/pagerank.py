@@ -169,8 +169,8 @@ class IncrementalPageRank(GroupFoldable):
                 "slice 6 (multiple devices)")
         if superbatch == "auto":
             raise NotImplementedError(
-                'superbatch="auto" is ported in ROADMAP Queue 1, slice 7 '
-                "(durability, control and ingest)")
+                'superbatch="auto" is ported in ROADMAP Queue 1, slice 7b '
+                "(control and ingest)")
         if isinstance(superbatch, str):
             raise ValueError(f'superbatch must be an int >= 1 or "auto", got {superbatch!r}')
         if superbatch < 1:

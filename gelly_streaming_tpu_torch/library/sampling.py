@@ -239,7 +239,8 @@ class BroadcastTriangleCount:
             "state": {k: v.cpu().numpy() for k, v in self._state.items()},
             "edge_count": int(self._edge_count),
             "previous": self._previous,
-            "generator": self._gen.get_state(),
+            # numpy, not a tensor: a checkpoint holds numpy and builtins only
+            "generator": self._gen.get_state().numpy(),
         }
 
     def load_state_dict(self, d: dict) -> None:
@@ -252,7 +253,7 @@ class BroadcastTriangleCount:
         self._edge_count = int(d["edge_count"])
         self._previous = d["previous"]
         if "generator" in d:
-            self._gen.set_state(d["generator"])
+            self._gen.set_state(torch.as_tensor(np.asarray(d["generator"], np.uint8)))
 
     def _window(self, block, vdict) -> int:
         """Fold one window block; returns its edge count. The vectorized

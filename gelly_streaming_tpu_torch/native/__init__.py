@@ -135,6 +135,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         "vbitmap_create": (vp, []),
         "vbitmap_destroy": (None, [vp]),
         "vbitmap_novel2": (i64, [vp, pi32a, pi32a, i64]),
+        "parse_edge_lines": (i64, [ctypes.c_char_p, i64, p64, p64, pf64, i64, pi32,
+                                   ctypes.POINTER(i64)]),
     }
     for name, (restype, argtypes) in sigs.items():
         fn = getattr(lib, name)
@@ -370,11 +372,13 @@ def _saturate_i64(token: str) -> int:
     return -mag if neg else mag
 
 
-def _parse_python(path: str):
-    """Numpy fallback without a compiler; mirrors the C grammar: two
-    integers separated by space/tab/comma runs, trailing junk after a
-    number tolerated, an unparseable third column leaves the edge valid
-    with value 0."""
+def _parse_text_lines(lines):
+    """The numpy-fallback line grammar, shared by the file and the socket
+    paths; mirrors the C grammar: two integers separated by space/tab/comma
+    runs, trailing junk after a number tolerated, an unparseable third
+    column leaves the edge valid with value 0. Returns ``(src, dst,
+    val|None, malformed)``, ``malformed`` counting non-blank, non-comment
+    lines the grammar rejected."""
     global _LINE_RE
     import re
 
@@ -386,34 +390,66 @@ def _parse_python(path: str):
     line_re, float_re = _LINE_RE
     srcs, dsts, vals = [], [], []
     any_val = False
-    with open(path) as f:
-        for line in f:
-            stripped = line.lstrip(" \t,\r")
-            if not stripped or stripped[0] in "#%\n":
-                continue
-            m = line_re.match(line.rstrip("\n"))
-            if not m:
-                continue
-            srcs.append(_saturate_i64(m.group(1)))
-            dsts.append(_saturate_i64(m.group(2)))
-            rest = m.group(3).lstrip(" \t,\r")
-            v = 0.0
-            if rest:
-                c0, follows = rest[0], rest[1:2]
-                if c0 in "+-" and follows in ("", " ", "\t", "\r"):
-                    v = 1.0 if c0 == "+" else -1.0
+    malformed = 0
+    for line in lines:
+        stripped = line.lstrip(" \t,\r")
+        if not stripped or stripped[0] in "#%\n":
+            continue
+        m = line_re.match(line.rstrip("\n"))
+        if not m:
+            malformed += 1
+            continue
+        srcs.append(_saturate_i64(m.group(1)))
+        dsts.append(_saturate_i64(m.group(2)))
+        rest = m.group(3).lstrip(" \t,\r")
+        v = 0.0
+        if rest:
+            c0, follows = rest[0], rest[1:2]
+            if c0 in "+-" and follows in ("", " ", "\t", "\r"):
+                v = 1.0 if c0 == "+" else -1.0
+                any_val = True
+            else:
+                fm = float_re.match(rest)
+                if fm:
+                    v = float(fm.group(0))
                     any_val = True
-                else:
-                    fm = float_re.match(rest)
-                    if fm:
-                        v = float(fm.group(0))
-                        any_val = True
-            vals.append(v)
+        vals.append(v)
     return (
         np.asarray(srcs, np.int64),
         np.asarray(dsts, np.int64),
         np.asarray(vals, np.float64) if any_val else None,
+        malformed,
     )
+
+
+def _parse_python(path: str):
+    """Numpy fallback of the file parser without a compiler."""
+    with open(path) as f:
+        src, dst, val, _ = _parse_text_lines(f)
+    return src, dst, val
+
+
+def parse_edge_lines(data: bytes) -> Tuple[np.ndarray, np.ndarray, Optional[np.ndarray], int]:
+    """Parse a buffer of COMPLETE text edge lines into ``(src, dst,
+    val|None, malformed)``: the socket source's one call per ``recv``. The
+    grammar is the file parser's, so a socket stream and the same bytes on
+    disk parse identically; ``malformed`` counts non-blank, non-comment
+    lines the grammar rejected. ``data`` need not end with a newline."""
+    lib = _load()
+    if lib is None:
+        return _parse_text_lines(data.decode("latin-1").split("\n"))
+    cap = data.count(b"\n") + 2
+    src = np.empty(cap, np.int64)
+    dst = np.empty(cap, np.int64)
+    val = np.empty(cap, np.float64)
+    has_val = ctypes.c_int32(0)
+    malformed = ctypes.c_int64(0)
+    # newline-terminate the final line + zero padding for the word loads
+    buf = data + b"\n" + bytes(64)
+    got = lib.parse_edge_lines(buf, len(data) + 1, src, dst, val, cap,
+                               ctypes.byref(has_val), ctypes.byref(malformed))
+    return (src[:got].copy(), dst[:got].copy(),
+            val[:got].copy() if has_val.value else None, int(malformed.value))
 
 
 class _Handle:

@@ -1,5 +1,5 @@
-"""Observability of the PyTorch port: the metric registry and the
-host-side pipeline spans."""
+"""Observability of the PyTorch port: the metric registry, the
+host-side pipeline spans and the crash flight recorder."""
 
 from .registry import (
     Counter,
@@ -12,10 +12,12 @@ from .registry import (
     set_registry,
 )
 from .trace import NOOP_SPAN, Span, disable, enable, on, span
+from .flight import FlightRecorder, read_dump
 
 __all__ = [
     "NOOP_SPAN",
     "Counter",
+    "FlightRecorder",
     "Gauge",
     "Histogram",
     "MetricRegistry",
@@ -26,6 +28,7 @@ __all__ = [
     "get_registry",
     "nearest_rank",
     "on",
+    "read_dump",
     "set_registry",
     "span",
 ]

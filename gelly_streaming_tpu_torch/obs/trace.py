@@ -83,6 +83,9 @@ class _NoopSpan:
     def __exit__(self, *exc):
         return False
 
+    def set(self, **attrs):
+        return self
+
 
 NOOP_SPAN = _NoopSpan()
 
@@ -103,6 +106,14 @@ class Span:
         self.t0 = 0.0
         self.dur_s = 0.0
         self._ann = None
+
+    def set(self, **attrs) -> "Span":
+        """Attach attributes after entry (values computed inside the span;
+        call sites guard on ``.recording``)."""
+        if self.attrs is None:
+            self.attrs = {}
+        self.attrs.update(attrs)
+        return self
 
     def __enter__(self) -> "Span":
         stack = getattr(_LOCAL, "stack", None)

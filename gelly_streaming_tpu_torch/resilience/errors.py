@@ -1,6 +1,6 @@
 """Resilience-layer exception taxonomy (the port's copy of
-``gelly_streaming_tpu/resilience/errors.py``; the supervisor and the fault
-plan it names come with ROADMAP Queue 1, slice 7).
+``gelly_streaming_tpu/resilience/errors.py``; the coordinated cluster
+errors come with ROADMAP Queue 1, slice 7b (control and ingest)).
 
 One small module so every other layer (checkpointing, pipeline, sources,
 serving, supervision) can share failure types without import cycles:
@@ -17,8 +17,9 @@ The taxonomy mirrors what the supervisor classifies
   (or a bug it tickles) is at fault, and retrying forever would loop.
   :class:`PoisonWindowError`.
 - **fatal** — the process must not continue (interpreter shutdown,
-  memory exhaustion) or the recovery budget is spent
-  (:class:`RestartBudgetExceeded`).
+  memory exhaustion), the device the run asks for is absent
+  (:class:`DeviceUnavailable`: no restart brings a card), or the recovery
+  budget is spent (:class:`RestartBudgetExceeded`).
 
 :class:`CheckpointCorrupt` marks an artifact that failed integrity
 validation (checksum, leaf count, structure) — raised at LOAD time so a
@@ -33,6 +34,12 @@ class CheckpointCorrupt(ValueError):
     checksum mismatch, leaf count disagreeing with its sidecar). Subclass
     of ``ValueError`` so pre-existing ``load_pytree`` rejection handling
     keeps working."""
+
+
+class DeviceUnavailable(RuntimeError):
+    """The run asks for a device this machine does not have (a CUDA device
+    where ``torch.cuda.is_available()`` is false). Never retried: nothing in
+    the package moves quietly to the CPU."""
 
 
 class TransientSourceError(ConnectionError):

@@ -17,7 +17,7 @@ the stream's packer, prefetched one group ahead on the stream's device so
 the host assembles group N+1 while the device folds N.
 :func:`verify_group_fold` is the reusable conformance check. The
 adaptive-K controller (``controller=``) comes with ROADMAP Queue 1,
-slice 7.
+slice 7b (control and ingest).
 """
 
 from __future__ import annotations
@@ -75,7 +75,8 @@ def drive_group_folded(workload: GroupFoldable, stream, k: int,
     workload's declared fold."""
     if controller is not None:
         raise NotImplementedError(
-            "an adaptive-K controller is ported in ROADMAP Queue 1, slice 7"
+            "an adaptive-K controller is ported in ROADMAP Queue 1, slice 7b "
+            "(control and ingest)"
         )
     from ..core.pipeline import prefetch
     from ..core.window import iter_superbatches

@@ -561,7 +561,8 @@ def test_superbatch_groups_match_jax_packer():
 def test_example_cli_matches_jax(tmp_path, capsys):
     """``python -m gelly_streaming_tpu_torch.example.connected_components``:
     the same output file as the JAX package's CLI; ``--cpu`` on the CLI
-    runs the file path, and the checkpoint flags raise (slice 7)."""
+    runs the file path, and ``--checkpoint`` runs it supervised with the
+    same output."""
     from gelly_streaming_tpu.example import connected_components as jax_example
     from gelly_streaming_tpu_torch.example import connected_components as example
 
@@ -575,8 +576,10 @@ def test_example_cli_matches_jax(tmp_path, capsys):
     assert (tmp_path / "cli.txt").read_text() == (tmp_path / "j.txt").read_text()
     example.main(["--cpu", "--corpus", str(edge_file), "16", "--carry", "forest"])
     assert "(carry: forest)" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        example.main(["--cpu", str(edge_file), "16", "--checkpoint", "x"])
+    example.main(["--cpu", str(edge_file), "16", str(tmp_path / "ck.txt"),
+                  "--checkpoint", str(tmp_path / "x.ckpt"), "--every", "2"])
+    assert (tmp_path / "ck.txt").read_text() == (tmp_path / "j.txt").read_text()
+    assert (tmp_path / "x.ckpt").exists()
 
 
 def test_cc_steps_are_spans():

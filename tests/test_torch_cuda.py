@@ -13,7 +13,10 @@ device spanners (k = 2, 3) against the CPU with no host sync per window,
 and slice 5b: the device vertex dictionary against the CPU, the
 device-encode ingest in both forms with no host sync, both sampling
 window forms against the CPU fed the same uniforms, and iterative CC's
-diff path against its incremental path.
+diff path against its incremental path, and slice 7a: an ``AutoCheckpoint``
+barrier (CC's forest carry, and a workload) written on the card restores on
+the CPU and the reverse, and a supervised run killed at ``pipeline.item``
+on the card resumes to the uninterrupted labels.
 
 Every test here is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is false. The file imports only torch, numpy
@@ -596,3 +599,104 @@ def test_iterative_cc_diff_path_on_card_matches_incremental(card, tmp_path):
         runs[name] = ([list(b) for b in icc.run(s)], icc.labels(), icc._mode)
     assert runs["incremental"][2] == "incremental" and runs["diff"][2] == "diff"
     assert runs["incremental"][:2] == runs["diff"][:2]
+
+
+# --------------------------------------------------------------------- #
+# Slice 7a: barriers across devices, a supervised kill on the card
+# --------------------------------------------------------------------- #
+def _ckpt_stream(device, vdict=None):
+    rng = np.random.default_rng(31)
+    edges = list(zip(rng.integers(0, 3000, 12 * 512).tolist(),
+                     rng.integers(0, 3000, 12 * 512).tolist()))
+    return gt.SimpleEdgeStream(edges, window=gt.CountWindow(512), device=device,
+                               vertex_dict=vdict)
+
+
+@pytest.mark.parametrize("writer,reader", [("card", "cpu"), ("cpu", "card")])
+def test_cc_barrier_crosses_devices(card, tmp_path, writer, reader):
+    """The forest carry's barrier at window 8, written on one device,
+    resumes on the other: the state lands on the reader's device and the
+    last window's labels equal an uninterrupted run's."""
+    from gelly_streaming_tpu_torch.aggregate.autockpt import AutoCheckpoint
+    from gelly_streaming_tpu_torch.library import ConnectedComponents
+
+    dev = {"card": card, "cpu": "cpu"}
+    want = list(_ckpt_stream("cpu").aggregate(ConnectedComponents(carry="forest")))[-1].labels()
+    path = str(tmp_path / "cc.ckpt")
+    run = AutoCheckpoint(path, every=4).run(lambda vd: _ckpt_stream(dev[writer], vd),
+                                            ConnectedComponents(carry="forest"))
+    for i, _ in enumerate(run):
+        if i >= 8:
+            break
+    run.close()
+    ac = AutoCheckpoint(path, every=4)
+    assert ac.windows_done() == 8
+    agg = ConnectedComponents(carry="forest")
+    last = list(ac.run(lambda vd: _ckpt_stream(dev[reader], vd), agg))[-1]
+    assert agg._canon.device.type == ("cuda" if reader == "card" else "cpu")
+    for a, b in zip(last.labels(), want):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("writer,reader", [("card", "cpu"), ("cpu", "card")])
+def test_workload_barrier_crosses_devices(card, tmp_path, writer, reader):
+    """Exact triangles: the barrier at window 6 from one device resumes on
+    the other to the uninterrupted totals."""
+    from gelly_streaming_tpu_torch.aggregate.autockpt import AutoCheckpoint
+    from gelly_streaming_tpu_torch.library import ExactTriangleCount
+
+    dev = {"card": card, "cpu": "cpu"}
+    full = ExactTriangleCount()
+    for b in full.run(_ckpt_stream("cpu")):
+        list(b)
+    path = str(tmp_path / "tri.ckpt")
+    run = AutoCheckpoint(path, every=3).run(lambda vd: _ckpt_stream(dev[writer], vd),
+                                            ExactTriangleCount())
+    for i, b in enumerate(run):
+        list(b)
+        if i >= 6:
+            break
+    run.close()
+    second = ExactTriangleCount()
+    for b in AutoCheckpoint(path, every=3).run(lambda vd: _ckpt_stream(dev[reader], vd), second):
+        list(b)
+    got, want = second.state_dict(), full.state_dict()
+    assert got["total"] == want["total"]
+    np.testing.assert_array_equal(got["counts"], want["counts"])
+
+
+def test_supervised_pipeline_item_kill_on_card(card, tmp_path):
+    """A prefetched file stream on the card killed as item 5 is taken:
+    one restart from barrier 4, the replayed window deduped, the last
+    labels equal to the CPU's uninterrupted run."""
+    from gelly_streaming_tpu_torch import datasets, native, obs
+    from gelly_streaming_tpu_torch.example.common import supervised_emissions
+    from gelly_streaming_tpu_torch.library import ConnectedComponents
+    from gelly_streaming_tpu_torch.resilience import FaultPlan, faults
+
+    rng = np.random.default_rng(6)
+    path = str(tmp_path / "g.txt")
+    native.write_edge_file(path, rng.integers(0, 4096, 8 * 2048),
+                           rng.integers(0, 4096, 8 * 2048))
+
+    def make_stream(device):
+        return lambda vd: datasets.stream_file(
+            path, window=gt.CountWindow(2048),
+            vertex_dict=vd if vd is not None else datasets.IdentityDict(4096),
+            prefetch_depth=2, device=device)
+
+    want = list(make_stream("cpu")(None).aggregate(ConnectedComponents()))[-1].labels()
+    reg = obs.set_registry(None)
+    try:
+        with faults.injected(FaultPlan(kill_at_window=5, kill_site="pipeline.item")):
+            emissions, _ = supervised_emissions(str(tmp_path / "ck" / "cc.ckpt"), 4,
+                                                make_stream(card), ConnectedComponents,
+                                                keep=3)
+            got = [c.labels() for c in emissions]
+        assert reg.counter("resilience.restarts", kind="transient").value == 1
+        assert reg.counter("resilience.deduped_windows").value == 1
+    finally:
+        obs.set_registry(None)
+    assert len(got) == 8
+    for a, b in zip(got[-1], want):
+        np.testing.assert_array_equal(a, b)

@@ -1,9 +1,11 @@
 """The port's example CLIs of this slice, driven through ``main()`` on temp
 files beside the JAX package's: the two triangle estimators, weighted
 matching (with its MovieLens mode), iterative CC, and the CC CLI's
-``--device-encode``.
+``--device-encode`` and checkpoint flags (``--checkpoint``,
+``--checkpoint-dir``, ``--every``, ``--resume``, ``--fresh``).
 
-Mirrors ``tests/test_examples.py:97``, ``:109``, ``:119`` and ``:155``.
+Mirrors ``tests/test_examples.py:97``, ``:109``, ``:119``, ``:155`` and
+``:272-300``.
 """
 
 import numpy as np
@@ -103,3 +105,78 @@ def test_clis_raise_without_a_card_unless_told_cpu(monkeypatch, capsys, cli):
         cli.main([])
     cli.main(["--cpu"])
     assert "Usage" in capsys.readouterr().out
+
+
+def test_cc_supervised_checkpoint_dir_flags(tmp_path, capsys):
+    """``--checkpoint-dir`` runs the CC example supervised; a re-run resumes
+    from the barrier by default with the same output, ``--fresh`` discards
+    it; both equal the JAX package's CLI (mirrors
+    ``tests/test_examples.py:272``)."""
+    import os
+
+    from gelly_streaming_tpu.example import connected_components as jax_cc
+
+    inp = tmp_path / "e.txt"
+    inp.write_text("".join(f"{k} {k + 2}\n" for k in range(1, 41)))
+    out = str(tmp_path / "out.txt")
+    ckdir = str(tmp_path / "ck")
+
+    connected_components.main(["--cpu", str(inp), "8", out, "--checkpoint-dir", ckdir,
+                               "--every", "2"])
+    capsys.readouterr()
+    first = open(out).read()
+    assert os.path.exists(os.path.join(ckdir, "cc.ckpt"))
+    jax_cc.main([str(inp), "8", str(tmp_path / "jax.txt")])
+    assert first == (tmp_path / "jax.txt").read_text()
+
+    connected_components.main(["--cpu", str(inp), "8", out, "--checkpoint-dir", ckdir,
+                               "--every", "2", "--resume"])
+    assert "resuming from barrier at window 4" in capsys.readouterr().out
+    assert open(out).read() == first
+
+    connected_components.main(["--cpu", str(inp), "8", out, "--checkpoint-dir", ckdir,
+                               "--every", "2", "--fresh"])
+    assert "resuming" not in capsys.readouterr().out
+    assert open(out).read() == first
+
+
+def test_cc_checkpoint_barriers_cross_the_clis(tmp_path, capsys):
+    """A barrier the JAX package's CLI left (``--every auto``) resumes in the
+    port's CLI, and the reverse, with the same output."""
+    from gelly_streaming_tpu.example import connected_components as jax_cc
+
+    inp = tmp_path / "e.txt"
+    rng = np.random.default_rng(5)
+    inp.write_text("".join(f"{a} {b}\n" for a, b in rng.integers(0, 90, (120, 2))))
+    for writer, reader in ((jax_cc.main, connected_components.main),
+                           (connected_components.main, jax_cc.main)):
+        ck = str(tmp_path / f"{writer.__module__}.ckpt")
+        wout, rout = str(tmp_path / "w.txt"), str(tmp_path / "r.txt")
+        cpu = ["--cpu"] if writer is connected_components.main else []
+        writer(cpu + [str(inp), "16", wout, "--checkpoint", ck, "--every", "auto"])
+        capsys.readouterr()
+        cpu = ["--cpu"] if reader is connected_components.main else []
+        reader(cpu + [str(inp), "16", rout, "--checkpoint", ck])
+        assert "resuming from barrier" in capsys.readouterr().out
+        assert open(rout).read() == open(wout).read()
+
+
+@pytest.mark.parametrize("args", [
+    ["--every", "2"], ["--fresh"], ["--resume"], ["--checkpoint"], ["--every", "x", "--checkpoint", "c"],
+])
+def test_cc_checkpoint_flag_misuse_prints_usage(tmp_path, capsys, args):
+    inp = tmp_path / "e.txt"
+    inp.write_text("1 2\n")
+    connected_components.main(["--cpu", str(inp), "8"] + args)
+    assert "Usage: connected_components" in capsys.readouterr().out
+    with pytest.raises(ValueError, match="edge-file form"):
+        connected_components.main(["--cpu", "--corpus", str(inp), "--checkpoint-dir",
+                                   str(tmp_path / "d")])
+
+
+def test_cc_checkpointed_cli_raises_without_a_card_unless_told_cpu(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    inp = tmp_path / "e.txt"
+    inp.write_text("1 2\n2 3\n")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        connected_components.main([str(inp), "2", "--checkpoint-dir", str(tmp_path / "d")])

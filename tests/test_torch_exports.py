@@ -18,7 +18,7 @@ import gelly_streaming_tpu
 
 _REF_ROOT = os.path.dirname(gelly_streaming_tpu.__file__)
 _PACKAGES = ["", "core", "ops", "summaries", "library", "utils", "models",
-             "aggregate", "obs", "resilience"]
+             "aggregate", "obs", "resilience", "control"]
 
 
 def _reference_exports(package):
@@ -46,7 +46,7 @@ def _ported(package, submodule, name):
 _CASES = sorted(
     {(pkg, name) for pkg in _PACKAGES for sub, name in _reference_exports(pkg)
      if _ported(pkg, sub, name)}
-) + [("ops", "DeviceVertexDict")]
+) + [("ops", "DeviceVertexDict"), ("resilience", "DeviceUnavailable")]
 
 
 @pytest.mark.parametrize("package,name", _CASES,
@@ -63,8 +63,14 @@ def test_ported_name_imports_from_the_package(package, name):
     ("library", "MatchingEvent"), ("library", "MatchingEventType"),
     ("utils", "EngineConfig"), ("utils", "StreamProfiler"), ("utils", "SampledEdge"),
     ("summaries", "Components"), ("ops", "CSR"), ("core", "SnapshotStream"),
+    # the durability slice
+    ("", "AutoCheckpoint"), ("", "FaultPlan"), ("", "RetryPolicy"), ("", "Supervisor"),
+    ("", "GeneratorSource"), ("", "SocketEdgeSource"), ("resilience", "Supervisor"),
+    ("resilience", "FaultPlan"), ("resilience", "RetryPolicy"), ("resilience", "exp_backoff"),
+    ("resilience", "jittered"), ("obs", "FlightRecorder"), ("obs", "read_dump"),
+    ("control", "SignalReader"),
 ])
 def test_slice_names_are_cases(package, name):
-    """The names this slice ports, and the three imports that used to fail,
+    """The names the slices port, and the three imports that used to fail,
     are among the cases above (the reference exports them all)."""
     assert (package, name) in _CASES

@@ -6,7 +6,8 @@ degree stream, window triangles, the neighborhood aggregations,
 incremental PageRank, bipartiteness, exact triangles, the device
 spanner, the device vertex dictionary, the sampling triangle estimators
 and iterative CC end to end, kill and resume the headline cell under the
-supervisor, and print the results.
+supervisor, run CC under the auto-K controller and the event-time sliding
+windows, and print the results.
 
     python3 chip_smoke.py
 
@@ -170,7 +171,41 @@ Phases, in order; any failure raises and the script exits non-zero:
    checksum, the write) and the restore ms, against the bound of its bytes
    over a plain D2H copy and a plain file write measured here; and the
    cadence ``every="auto"`` settles on.
-17. a ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
+17. autok  — ``superbatch="auto"`` (the ``AutoK`` controller) on the card,
+   CC with the forest carry, ``sync()`` timed: (a) the cliff cell of
+   ``bench.py:764 bench_autotune_pair``, phase 5's corpus prefix of 2^23
+   edges (its binary cache) in ``CountWindow(1024)`` over
+   ``IdentityDict(1 << 21)``: the hand K of ``auto_superbatch_k`` (256)
+   and auto (from K = 1) alternate, a warm pass each and 3 pairs; edges/s
+   of each and their ratio, the controller's ``k_path``, its retunes and
+   final K, and the host reads a window of a pass pinned at that K; the
+   last window's labels equal to scipy's. (b) the shift cell of
+   ``bench.py:846``: ``ScheduledCountWindow`` 1024 -> 8192 edges at window
+   512 over 2^22 edges folded into 2^16 ids, ``AutoK(k_max=64,
+   decide_groups=2)`` with a ``PrefetchTuner``: a ``window-shift`` decision
+   and every emission equal to the run pinned by ``AutoK(k0=1, k_max=1)``.
+   (c) PageRank at ``bench.py:908`` (2^15 edges into 2^14 ids): auto, the
+   per-window loop and the adaptive path pinned at K = 1 alternate (a warm
+   pass each, 3 rounds); the controller's final K and path are printed
+   (the reference's CPU record holds K = 1) and the ranks must be within
+   1e-6 of the per-window run's; and a kill at
+   ``pipeline.item`` 12 under ``superbatch="auto"`` through
+   ``AutoCheckpoint(every=4)`` must resume to the uninterrupted labels.
+18. eventtime — ``bench.py:2089 bench_eventtime`` at full size: 96 panes of
+   8192 edges over a drifting key span of 2^15, a window of 8 panes: the
+   sliding aggregator's edges/s (one warm pass, the median of 3), a pass
+   with ``verify=True`` (every window against the from-scratch oracles),
+   and every expiry's retraction against a rebuild of the three summaries
+   (0 mismatches, the cycles, the median refolded edges, the
+   retract-versus-rebuild ratio). Then the kill at ``eventtime.retract``
+   before the commit recovers to the uninterrupted answers; the skewed
+   two-shard stream of ``tests/test_eventtime.py:513`` drops no record and
+   its closed panes under ``ConnectedComponents(superbatch="auto")`` on the
+   card equal ``superbatch=1``; and the busy share of a profiled pass of
+   that path and of the aggregator alone.
+   Phases 17 and 18 print their ``fused_sage_matmul`` launches (0: their
+   paths have no hand-written kernel).
+19. a ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
 Each phase's wall seconds are printed after it.
 
 TF32 is off for float32 matmuls (``torch.backends.cuda.matmul.allow_tf32 =
@@ -331,6 +366,34 @@ ICC_EDGES = 1 << 20
 ICC_SEED = 21
 ICC_WINDOW = 1 << 18
 ICC_STEPS = ("icc.incremental", "icc.diff", "dict.encode", "engine.dispatch", "cc.propagate")
+
+# phase 17 (bench.py:764 bench_autotune_pair, :846 bench_autotune_shift,
+# :908 bench_autotune_pagerank_hold): the corpus prefix at the cliff window
+AK_WINDOW = 1024
+AK_EDGES = 1 << 23
+AK_HAND_K = 256  # bench.py:auto_superbatch_k(1024), BENCH_AUTOTUNE_CPU.json
+AK_PAIRS = 3
+AK_SHIFT_EDGES = 1 << 22
+AK_SHIFT_FOLD = 1 << 16
+AK_SHIFT_SCHEDULE = ((0, 1024), (512, 8192))
+AK_SHIFT_KMAX = 64
+AK_PR_EDGES = 1 << 15
+AK_PR_FOLD = 1 << 14
+AK_KILL_ITEM = 12  # the group ordinal of the kill at pipeline.item
+AK_KILL_EVERY = 4  # a barrier lands by group 4, before the kill
+
+# phase 18 (bench.py:2089 bench_eventtime at full size)
+ET_PANES = 96
+ET_PER_PANE = 1 << 13
+ET_VSPAN = 1 << 15
+ET_WINDOW_PANES = 8
+ET_CHUNK = 1 << 13
+ET_KILL_PANES = 24
+ET_KILL_AT = 13
+ET_SKEW_RECORDS = 1 << 15  # tests/test_eventtime.py:513
+ET_SKEW_VMAX = 4096
+ET_SKEW = 3
+ET_SKEW_WINDOW = 256
 
 # phase 16: durability on the headline cell. The supervised run keeps 3
 # barriers, one every 4 windows, and is killed as prefetch item 9 is
@@ -2584,6 +2647,477 @@ def phase_durability(torch, oracle):
     return cell
 
 
+# ---------------------------------------------------------------------- #
+# Phase 17: superbatch="auto" (the AutoK controller) on the card
+# ---------------------------------------------------------------------- #
+def _corpus_prefix(n_edges):
+    """The first ``n_edges`` corpus edges from its binary cache, as int64
+    columns (``bench.py:_corpus_cols``)."""
+    from gelly_streaming_tpu_torch import datasets
+
+    path, _ = datasets.ensure_corpus(CC_CORPUS)
+    cols, have = [], 0
+    for s, d, _v in datasets.iter_binary_chunks(datasets.binary_cache(path), 1 << 22):
+        cols.append((s, d))
+        have += len(s)
+        if have >= n_edges:
+            break
+    src = np.concatenate([c[0] for c in cols])[:n_edges].astype(np.int64)
+    dst = np.concatenate([c[1] for c in cols])[:n_edges].astype(np.int64)
+    return src, dst
+
+
+def _cache_dir():
+    from gelly_streaming_tpu_torch import datasets
+
+    os.makedirs(datasets.cache_dir(), exist_ok=True)
+    return datasets.cache_dir()
+
+
+def _ak_stream(src, dst, window, bound):
+    from gelly_streaming_tpu_torch import SimpleEdgeStream
+    from gelly_streaming_tpu_torch.datasets import IdentityDict
+
+    return SimpleEdgeStream((src, dst), window=window, vertex_dict=IdentityDict(bound),
+                            device="cuda")
+
+
+def _ak_cc_pass(src, dst, superbatch, window=AK_WINDOW, bound=CC_ID_BOUND, plane=None):
+    """One CC pass as ``bench_autotune_pair`` runs it, ``sync()`` timed:
+    seconds, the aggregation, the last emission, windows, host reads."""
+    from gelly_streaming_tpu_torch import CountWindow
+    from gelly_streaming_tpu_torch.library import ConnectedComponents
+    from gelly_streaming_tpu_torch.summaries import labels
+
+    agg = ConnectedComponents(superbatch=superbatch)
+    agg.control = plane
+    labels.HOST_READS = 0
+    policy = window if not isinstance(window, int) else CountWindow(window)
+    t0 = time.perf_counter()
+    n = 0
+    last = None
+    for last in agg.run(_ak_stream(src, dst, policy, bound)):
+        n += 1
+    agg.sync()
+    return time.perf_counter() - t0, agg, last, n, labels.HOST_READS
+
+
+def _k_path(ak):
+    return [[o, n, sig] for o, n, sig in ak.history]
+
+
+def phase_autok(torch):
+    import tempfile
+    import zlib
+
+    from gelly_streaming_tpu_torch import CountWindow, ScheduledCountWindow, datasets
+    from gelly_streaming_tpu_torch.aggregate.autockpt import AutoCheckpoint
+    from gelly_streaming_tpu_torch.control import AutoK, ControlPlane, PrefetchTuner
+    from gelly_streaming_tpu_torch.library import ConnectedComponents, IncrementalPageRank
+    from gelly_streaming_tpu_torch.ops import sage_kernels as sk
+    from gelly_streaming_tpu_torch.resilience import FaultPlan, SimulatedCrash, faults
+
+    cell = {}
+    sk.LAUNCHES = 0
+
+    # (a) the cliff cell: hand K against auto, alternating in one process
+    src, dst = _corpus_prefix(AK_EDGES)
+    _ak_cc_pass(src, dst, AK_HAND_K)
+    _ak_cc_pass(src, dst, "auto")  # warm both shapes
+    hand, auto, last_auto = [], [], None
+    for _ in range(AK_PAIRS):
+        sec, _, _, n_h, _ = _ak_cc_pass(src, dst, AK_HAND_K)
+        hand.append(AK_EDGES / sec)
+        sec, last_auto, last, n_a, _ = _ak_cc_pass(src, dst, "auto")
+        auto.append(AK_EDGES / sec)
+    ak = last_auto.control.autok
+    hand_med, auto_med = statistics.median(hand), statistics.median(auto)
+    # host reads a window at the controller's final K (a pinned pass)
+    sec_f, _, _, n_f, reads = _ak_cc_pass(src, dst, int(ak.k))
+    cliff = {
+        "window": AK_WINDOW, "edges": AK_EDGES, "windows": n_a, "carry": last_auto._cc_mode,
+        "hand": {"superbatch": AK_HAND_K, "edges_per_s": hand_med, "edges_per_s_all": hand},
+        "auto": {"edges_per_s": auto_med, "edges_per_s_all": auto, "k_final": int(ak.k),
+                 "retunes": len(ak.history), "k_path": _k_path(ak)},
+        "ratio_auto_vs_hand": auto_med / hand_med,
+        "at_k_final": {"superbatch": int(ak.k), "edges_per_s": AK_EDGES / sec_f,
+                       "host_reads_per_window": reads / n_f},
+    }
+    say("autok cliff " + json.dumps(cliff))
+    want = oracle_labels(src, dst, CC_ID_BOUND)
+    seen = np.zeros(CC_ID_BOUND, bool)
+    seen[src] = True
+    seen[dst] = True
+    ids, got = last.labels()
+    want_ids = np.nonzero(seen)[0]
+    ok = (n_h == n_a == AK_EDGES // AK_WINDOW and last_auto._cc_mode == "forest"
+          and np.array_equal(ids, want_ids) and np.array_equal(got, want[want_ids]))
+    say(f"autok cliff last window vs scipy ({len(ids)} vertices): {'exact' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the auto-K cliff cell disagrees with scipy or ran another carry")
+    cliff["scipy_exact"] = True
+    cell["cliff"] = cliff
+    del want, seen
+
+    # (b) the shift cell: ScheduledCountWindow 1024 -> 8192 at window 512,
+    # ids folded into 2^16, against the pinned K = 1 run, emission by emission
+    src, dst = _corpus_prefix(AK_SHIFT_EDGES)
+    src %= AK_SHIFT_FOLD
+    dst %= AK_SHIFT_FOLD
+
+    def digests(plane):
+        agg = ConnectedComponents(superbatch="auto")
+        agg.control = plane
+        out = []
+        t0 = time.perf_counter()
+        for c in agg.run(_ak_stream(src, dst, ScheduledCountWindow(AK_SHIFT_SCHEDULE),
+                                    AK_SHIFT_FOLD)):
+            ids, lab = c.labels()
+            out.append((zlib.crc32(ids.tobytes()), zlib.crc32(lab.tobytes())))
+        agg.sync()
+        return agg, out, time.perf_counter() - t0
+
+    _, base, _ = digests(ControlPlane(autok=AutoK(k0=1, k_max=1)))
+    agg, got, sec = digests(ControlPlane(autok=AutoK(k_max=AK_SHIFT_KMAX, decide_groups=2),
+                                         prefetch=PrefetchTuner()))
+    ak = agg.control.autok
+    mismatches = sum(a != b for a, b in zip(base, got)) + abs(len(base) - len(got))
+    shift = {"schedule": [list(x) for x in AK_SHIFT_SCHEDULE], "windows": len(got),
+             "edges": AK_SHIFT_EDGES, "id_fold": AK_SHIFT_FOLD, "k_max": AK_SHIFT_KMAX,
+             "edges_per_s": AK_SHIFT_EDGES / sec, "oracle_mismatches": int(mismatches),
+             "k_final": int(ak.k), "k_path": _k_path(ak),
+             "prefetch_depth_path": [[o, n, sig] for o, n, sig in agg.control.prefetch.history],
+             "shift_retuned": any(sig == "window-shift" for _o, _n, sig in ak.history)}
+    say("autok shift " + json.dumps(shift))
+    if mismatches or not shift["shift_retuned"]:
+        raise AssertionError("the shift cell differs from pinned K = 1 or never re-tuned on the "
+                             "window-size shift")
+    cell["shift"] = shift
+
+    # (c1) PageRank, the negative control of bench.py:908: the reference
+    # holds K = 1 there on its CPU record; here the controller's end K is
+    # measured and printed beside the per-window loop and the adaptive
+    # path pinned at K = 1, and the ranks must equal the pinned run's
+    psrc, pdst = _corpus_prefix(AK_PR_EDGES)
+    psrc %= AK_PR_FOLD
+    pdst %= AK_PR_FOLD
+
+    def pr_pass(mode):
+        pr = IncrementalPageRank(superbatch=1 if mode == "pinned" else "auto")
+        if mode == "dynamic_k1":
+            pr.control = ControlPlane(autok=AutoK(k0=1, k_max=1))
+        t0 = time.perf_counter()
+        for _ in pr.run(_ak_stream(psrc, pdst, CountWindow(AK_WINDOW), AK_PR_FOLD)):
+            pass
+        pr.sync()
+        return AK_PR_EDGES / (time.perf_counter() - t0), pr
+
+    modes = ("pinned", "auto", "dynamic_k1")
+    for mode in modes:
+        pr_pass(mode)  # warm each shape
+    eps = {m: [] for m in modes}
+    runs = {}
+    for i in range(AK_PAIRS):
+        for mode in (modes if i % 2 == 0 else modes[::-1]):
+            e, runs[mode] = pr_pass(mode)
+            eps[mode].append(e)
+    ak = runs["auto"].control.autok
+    pr_r, au_r = runs["pinned"].ranks(), runs["auto"].ranks()
+    rank_err = max(abs(pr_r[v] - au_r[v]) for v in pr_r)
+    med = {m: statistics.median(v) for m, v in eps.items()}
+    hold = {"window": AK_WINDOW, "edges": AK_PR_EDGES, "id_fold": AK_PR_FOLD,
+            "pinned_edges_per_s": med["pinned"], "pinned_all": eps["pinned"],
+            "auto_edges_per_s": med["auto"], "auto_all": eps["auto"],
+            "dynamic_k1_edges_per_s": med["dynamic_k1"], "dynamic_k1_all": eps["dynamic_k1"],
+            "ratio_auto_vs_pinned": med["auto"] / med["pinned"],
+            "ratio_dynamic_k1_vs_pinned": med["dynamic_k1"] / med["pinned"],
+            "k_final": int(ak.k), "held_k1": int(ak.k) == 1, "k_path": _k_path(ak),
+            "max_rank_err": rank_err}
+    say("autok pagerank hold " + json.dumps(hold))
+    if set(pr_r) != set(au_r) or rank_err > 1e-6:
+        raise AssertionError("auto-K PageRank's ranks differ from the pinned run's")
+    cell["pagerank_hold"] = hold
+
+    # (c2) a kill at pipeline.item under superbatch="auto" through
+    # AutoCheckpoint, resumed to the uninterrupted run's labels
+    want = _ak_cc_pass(src, dst, 1, window=AK_WINDOW, bound=AK_SHIFT_FOLD)[2].labels()
+    ckdir = tempfile.mkdtemp(prefix="smoke_autok_", dir=_cache_dir())
+    path = os.path.join(ckdir, "auto.ckpt")
+
+    def make_stream(vdict):
+        from gelly_streaming_tpu_torch import SimpleEdgeStream
+
+        return SimpleEdgeStream((src, dst), window=CountWindow(AK_WINDOW),
+                                vertex_dict=vdict if vdict is not None
+                                else datasets.IdentityDict(AK_SHIFT_FOLD), device="cuda")
+
+    first = ConnectedComponents(superbatch="auto")
+    crashed, seen_w = False, 0
+    with faults.injected(FaultPlan(kill_at_window=AK_KILL_ITEM, kill_site="pipeline.item")):
+        try:
+            for _ in AutoCheckpoint(path, every=AK_KILL_EVERY).run(make_stream, first):
+                seen_w += 1
+        except SimulatedCrash:
+            crashed = True
+    done = AutoCheckpoint(path).windows_done()
+    second = ConnectedComponents(superbatch="auto")
+    tail = 0
+    for last in AutoCheckpoint(path, every=AK_KILL_EVERY).run(make_stream, second):
+        tail += 1
+    second.sync()
+    kill = {"killed_at_item": AK_KILL_ITEM, "crashed": crashed, "windows_before_kill": seen_w,
+            "resumed_from": done, "windows_after": tail,
+            "k_path_before": _k_path(first.control.autok),
+            "k_path_after": _k_path(second.control.autok)}
+    ok = (crashed and 0 < done <= seen_w and done + tail == len(src) // AK_WINDOW
+          and _labels_equal(last.labels(), want))
+    kill["equal"] = bool(ok)
+    say("autok kill/resume " + json.dumps(kill))
+    shutil.rmtree(ckdir, ignore_errors=True)
+    if not ok:
+        raise AssertionError("the auto-K kill and resume did not reach the uninterrupted labels")
+    cell["kill"] = kill
+    say(f"autok fused_sage_matmul launches in phase 17: {sk.LAUNCHES} (the path has no "
+        "hand-written kernel; the forest carry's steps are PyTorch operations)")
+    cell["fused_sage_matmul_launches"] = sk.LAUNCHES
+    return cell
+
+
+# ---------------------------------------------------------------------- #
+# Phase 18: event-time sliding windows with retraction
+# ---------------------------------------------------------------------- #
+def _drifting_ts_stream(panes, per_pane, vspan, seed=7, wrap=12):
+    """``bench.py:_drifting_ts_stream``: pane ``p``'s edges live on
+    vertices ``[b, b + vspan)`` with ``b = (p % wrap) * vspan / 2``, so
+    consecutive panes share half their vertex range and retired keys recur
+    once they have aged out of every live window."""
+    rng = np.random.default_rng(seed)
+    srcs, dsts, tss = [], [], []
+    for p in range(panes):
+        base = (p % wrap) * (vspan // 2)
+        srcs.append(base + rng.integers(0, vspan, per_pane))
+        dsts.append(base + rng.integers(0, vspan, per_pane))
+        tss.append(np.full(per_pane, p, np.int64))
+    return (np.concatenate(srcs).astype(np.int64), np.concatenate(dsts).astype(np.int64),
+            np.concatenate(tss))
+
+
+def _et_push_all(agg, src, dst, ts, chunk=ET_CHUNK):
+    out = []
+    for a in range(0, len(src), chunk):
+        out.extend(agg.push(src[a:a + chunk], dst[a:a + chunk], ts[a:a + chunk]))
+    out.extend(agg.finish())
+    return out
+
+
+def _skewed_panes(n=ET_SKEW_RECORDS, vmax=ET_SKEW_VMAX, skew=ET_SKEW):
+    """The skewed two-shard stream of ``tests/test_eventtime.py:513``: one
+    shard's timestamps jitter within +/- ``skew``; the lateness allowance
+    covers it. Returns the closed panes' columns in close order and the
+    records dropped."""
+    from gelly_streaming_tpu_torch.eventtime import (
+        EventTimeSlidingWindow,
+        PaneAssembler,
+        WatermarkTracker,
+    )
+    from gelly_streaming_tpu_torch.resilience import FaultPlan
+
+    rng = np.random.default_rng(19)
+    src = rng.integers(0, vmax, n).astype(np.int64)
+    dst = rng.integers(0, vmax, n).astype(np.int64)
+    ts = np.arange(n, dtype=np.int64) // 8
+    plan = FaultPlan(seed=19, skew_records=tuple(range(1, n, 2)), skew_ts_s=skew)
+    recs = list(plan.perturb_records(
+        iter([(int(s), int(d), 0.0, int(t)) for s, d, t in zip(src, dst, ts)])))
+    tr = WatermarkTracker(2)
+    asm = PaneAssembler(EventTimeSlidingWindow(4, 4), allowed_lateness=2 * skew + 2)
+    panes, dropped, wm = [], 0, tr.current()
+    for lo in range(0, n, 512):
+        chunk = recs[lo:lo + 512]
+        for shard in (0, 1):
+            mine = [r for i, r in enumerate(chunk) if (lo + i) % 2 == shard]
+            dropped += asm.add(np.array([r[0] for r in mine], np.int64),
+                               np.array([r[1] for r in mine], np.int64),
+                               np.array([r[3] for r in mine], np.int64), wm)
+            tr.observe(shard, np.array([r[3] for r in mine], np.int64))
+        wm = tr.current()
+        panes.extend(asm.advance(wm))
+    panes.extend(asm.flush())
+    cols = [p.cols() for p in panes if len(p)]
+    return (np.concatenate([c[0] for c in cols]), np.concatenate([c[1] for c in cols]),
+            dropped, len(cols))
+
+
+def phase_eventtime(torch):
+    import tempfile
+
+    from gelly_streaming_tpu_torch import CountWindow
+    from gelly_streaming_tpu_torch.eventtime import (
+        SlidingGraphAggregator,
+        oracle_bipartite,
+        oracle_degrees,
+        oracle_labels,
+    )
+    from gelly_streaming_tpu_torch.library import ConnectedComponents
+    from gelly_streaming_tpu_torch.ops import sage_kernels as sk
+    from gelly_streaming_tpu_torch.resilience import FaultPlan, SimulatedCrash, faults
+
+    sk.LAUNCHES = 0
+    cell = {}
+    src, dst, ts = _drifting_ts_stream(ET_PANES, ET_PER_PANE, ET_VSPAN)
+    n_edges = len(src)
+
+    # the sliding cell: edges/s of the aggregator (watermarks, panes,
+    # retraction, all three summaries), one warm pass and the median of 3
+    def one_pass(verify=False):
+        agg = SlidingGraphAggregator(ET_WINDOW_PANES, 1, verify=verify)
+        t0 = time.perf_counter()
+        res = _et_push_all(agg, src, dst, ts)
+        return time.perf_counter() - t0, res
+
+    one_pass()
+    secs = [one_pass()[0] for _ in range(STEADY_PASSES)]
+    sec_v, res_v = one_pass(verify=True)  # raises on any mismatch
+    sliding = {"edges": n_edges, "panes": ET_PANES, "per_pane": ET_PER_PANE,
+               "vspan": ET_VSPAN, "window_panes": ET_WINDOW_PANES,
+               "edges_per_s": n_edges / statistics.median(secs),
+               "edges_per_s_all": [n_edges / t for t in secs],
+               "windows": len(res_v), "verify_pass_s": sec_v, "verify_mismatches": 0}
+    say("eventtime sliding " + json.dumps(sliding))
+
+    # the retract cell: every expiry's incremental cycle against a
+    # from-scratch rebuild of the three summaries on the survivors
+    agg = SlidingGraphAggregator(ET_WINDOW_PANES, 1)
+    t_inc = t_rebuild = 0.0
+    refolded, mismatches, cycles = [], 0, 0
+    for a in range(0, n_edges, ET_CHUNK):
+        t0 = time.perf_counter()
+        results = agg.push(src[a:a + ET_CHUNK], dst[a:a + ET_CHUNK], ts[a:a + ET_CHUNK])
+        t_inc += time.perf_counter() - t0
+        for res in results:
+            if res.repair is None:
+                continue  # the window is still filling
+            cycles += 1
+            refolded.append(res.repair["refolded"])
+            m = (ts >= res.start) & (ts < res.end)
+            s, d = src[m], dst[m]
+            vcap = len(res.labels)
+            t0 = time.perf_counter()
+            want_lab = oracle_labels(vcap, s, d)
+            want_deg = oracle_degrees(vcap, s, d)
+            want_bip = oracle_bipartite(vcap, s, d)
+            t_rebuild += time.perf_counter() - t0
+            if (not np.array_equal(res.labels, want_lab)
+                    or not np.array_equal(res.degrees, want_deg) or res.bipartite != want_bip):
+                mismatches += 1
+    retract = {"expiry_cycles": cycles, "incremental_s": t_inc, "rebuild_s": t_rebuild,
+               "ratio_rebuild_vs_retract": t_rebuild / t_inc,
+               "refolded_median": float(np.median(refolded)),
+               "surviving_per_cycle": ET_PER_PANE * ET_WINDOW_PANES, "mismatches": mismatches}
+    say("eventtime retract " + json.dumps(retract))
+    # every pane past the first window expires one; the last window
+    # closes at finish(), outside the timed pushes (bench.py counts 87)
+    if mismatches or cycles != ET_PANES - ET_WINDOW_PANES - 1:
+        raise AssertionError(f"{mismatches} windows differ from the rebuild over {cycles} cycles")
+    cell["sliding"] = sliding
+    cell["retract"] = retract
+
+    # the kill at eventtime.retract before the commit recovers to the
+    # uninterrupted run's answers (which verify=True held to the oracles)
+    k_src, k_dst, k_ts = (c[:ET_KILL_PANES * ET_PER_PANE] for c in (src, dst, ts))
+    base = {r.index: r for r in _et_push_all(
+        SlidingGraphAggregator(ET_WINDOW_PANES, 1, verify=True), k_src, k_dst, k_ts)}
+    cdir = tempfile.mkdtemp(prefix="smoke_et_", dir=_cache_dir())
+    crashed = False
+    with faults.injected(FaultPlan(kill_at_window=ET_KILL_AT, kill_site="eventtime.retract",
+                                   kill_exit_code=None)):
+        try:
+            _et_push_all(SlidingGraphAggregator(ET_WINDOW_PANES, 1, commit_dir=cdir),
+                         k_src, k_dst, k_ts)
+        except SimulatedCrash:
+            crashed = True
+    back = SlidingGraphAggregator(ET_WINDOW_PANES, 1, commit_dir=cdir, verify=True)
+    t0 = time.perf_counter()
+    restored = back.restore()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    done = back._done_panes
+    got = {r.index: r for r in _et_push_all(back, k_src, k_dst, k_ts)}
+    ok = (crashed and restored and done == ET_KILL_AT
+          and sorted(got) == [i for i in sorted(base) if i >= done]
+          and all(np.array_equal(got[i].labels, base[i].labels)
+                  and np.array_equal(got[i].degrees, base[i].degrees)
+                  and got[i].bipartite == base[i].bipartite and got[i].top == base[i].top
+                  for i in got))
+    shutil.rmtree(cdir, ignore_errors=True)
+    cell["kill"] = {"panes": ET_KILL_PANES, "killed_at_pane": ET_KILL_AT, "crashed": crashed,
+                    "resumed_from": done, "restore_ms": restore_ms,
+                    "windows_after": len(got), "equal": bool(ok)}
+    say("eventtime kill/restore " + json.dumps(cell["kill"]))
+    if not ok:
+        raise AssertionError("the kill at eventtime.retract did not recover the oracle answers")
+
+    # the skewed two-shard stream: no record dropped; its closed panes
+    # under superbatch="auto" on the card equal superbatch=1 on the card
+    t0 = time.perf_counter()
+    p_src, p_dst, dropped, n_panes = _skewed_panes()
+    pane_s = time.perf_counter() - t0
+
+    def pane_pass(superbatch):
+        agg = ConnectedComponents(superbatch=superbatch)
+        t1 = time.perf_counter()
+        ems = list(agg.run(_ak_stream(p_src, p_dst, CountWindow(ET_SKEW_WINDOW),
+                                      ET_SKEW_VMAX)))
+        agg.sync()
+        return agg, ems, time.perf_counter() - t1
+
+    _, ems1, sec1 = pane_pass(1)
+    agg_a, ems_a, sec_a = pane_pass("auto")
+    same = len(ems1) == len(ems_a) and all(
+        _labels_equal(a.labels(), b.labels()) for a, b in zip(ems1, ems_a))
+    skew = {"records": ET_SKEW_RECORDS, "dropped": dropped, "panes": n_panes,
+            "conserved": int(len(p_src)) == ET_SKEW_RECORDS, "assembly_s": pane_s,
+            "windows": len(ems_a), "carry": agg_a._cc_mode,
+            "k_path": _k_path(agg_a.control.autok), "k1_s": sec1, "auto_s": sec_a,
+            "auto_equal_to_k1": bool(same)}
+    say("eventtime skewed panes on the card " + json.dumps(skew))
+    if dropped or not skew["conserved"] or not same or agg_a._cc_mode != "forest":
+        raise AssertionError("the skewed panes dropped records or auto-K differs from K = 1")
+    cell["skew"] = skew
+
+    # the busy share: a profiled pass of the path that reaches the card
+    # (pane assembly on the host, then the panes' CC under auto-K)
+    def card_pass():
+        ps, pd, _, _ = _skewed_panes()
+        agg = ConnectedComponents(superbatch="auto")
+        for _ in agg.run(_ak_stream(ps, pd, CountWindow(ET_SKEW_WINDOW), ET_SKEW_VMAX)):
+            pass
+        agg.sync()
+
+    t0 = time.perf_counter()
+    card_pass()
+    wall = time.perf_counter() - t0
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        card_pass()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    cell["busy_share"] = profile_pass(torch, lambda: None, wall, prof=prof)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        agg = SlidingGraphAggregator(ET_WINDOW_PANES, 1)
+        _et_push_all(agg, src[:ET_KILL_PANES * ET_PER_PANE], dst[:ET_KILL_PANES * ET_PER_PANE],
+                     ts[:ET_KILL_PANES * ET_PER_PANE])
+        wall = time.perf_counter() - t0
+    cell["sliding_busy_share"] = profile_pass(torch, lambda: None, wall, prof=prof)
+    say(f"eventtime fused_sage_matmul launches in phase 18: {sk.LAUNCHES} (no hand-written "
+        "kernel: retraction is host numpy, the panes fold through the forest carry's PyTorch "
+        "operations)")
+    cell["fused_sage_matmul_launches"] = sk.LAUNCHES
+    return cell
+
+
 def timed(name, fn, *args):
     """Run one phase and print its wall seconds."""
     t0 = time.perf_counter()
@@ -2612,6 +3146,8 @@ def main():
     timed("sampling", phase_sampling, torch)
     timed("iterative cc", phase_iterative_cc, torch)
     timed("durability", phase_durability, torch, cc_oracle)
+    timed("autok", phase_autok, torch)
+    timed("eventtime", phase_eventtime, torch)
     say(f"all phases: {time.perf_counter() - t_start:.1f} s")
     kernel = {
         "name": "fused_sage_matmul",

@@ -3,7 +3,7 @@
 A second package beside the JAX one, which stays the reference it is held
 against. It runs on an NVIDIA card by default (``device="cuda"``, raising
 when there is none) and on the CPU only when asked (``device="cpu"``).
-Six slices run end to end so far. Streaming Connected Components, the
+Seven slices run end to end so far. Streaming Connected Components, the
 headline path (file -> native parse -> count windows -> forest carry)::
 
     from gelly_streaming_tpu_torch import CountWindow, datasets
@@ -85,6 +85,15 @@ dedupes replayed windows and restarts under bounded backoff::
     sup = Supervisor(AutoCheckpoint("run/cc.ckpt", every=4, keep=3))
     for comps in sup.run(make_stream, ConnectedComponents):
         ...  # each window once, in order, through restarts
+
+Event-time sliding windows that retract expired panes, and the
+superbatch size re-tuned per group by the auto-K controller::
+
+    agg = ConnectedComponents.sliding(8, 1)      # event-time units
+    for result in agg.push(src, dst, ts):        # one per closed pane
+        ...  # result.labels over the surviving edges
+    for comps in ConnectedComponents(superbatch="auto").run(stream):
+        ...
 """
 
 from .core.edgeblock import EdgeBlock, bucket_capacity, concat_blocks
@@ -98,6 +107,7 @@ from .core.window import (
     CountWindow,
     EventTimeWindow,
     ProcessingTimeWindow,
+    ScheduledCountWindow,
     Windower,
     blocks_from_edges,
 )
@@ -118,6 +128,7 @@ __all__ = [
     "GraphStream",
     "ProcessingTimeWindow",
     "RetryPolicy",
+    "ScheduledCountWindow",
     "SimpleEdgeStream",
     "SnapshotStream",
     "SocketEdgeSource",

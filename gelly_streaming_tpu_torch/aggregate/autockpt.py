@@ -46,8 +46,11 @@ state capture: the download that waits on the carry's device work (and,
 for CC's forest carry, the host resolution of the forest to flat labels);
 ``checkpoint.serialize`` is the pickle, the checksum and the write.
 
-The adaptive-K resume (``superbatch="auto"``, ``superbatches_dynamic``)
-comes with ROADMAP Queue 1, slice 7b (control and ingest).
+ADAPTIVE K: under ``superbatch="auto"`` the controller re-tiles the groups
+mid-run, so no static stride exists; a barrier lands on the FIRST group
+boundary at least ``every`` windows past the previous barrier (the work's
+``checkpoint_aligned``), and a resume re-packs the skipped windows through
+the dynamic packer (``_SkipStream.superbatches_dynamic``).
 """
 
 from __future__ import annotations
@@ -66,8 +69,6 @@ from ..obs import trace as _trace
 from ..resilience import faults as _faults
 from ..resilience import integrity as _integrity
 from .checkpoint import host_tree
-
-_AUTO_K = ('ROADMAP Queue 1, slice 7b (control and ingest: superbatch="auto")')
 
 #: the barrier and segment stopwatch (a test replaces it with a stub clock)
 _clock = time.perf_counter
@@ -115,10 +116,29 @@ class _SkipStream:
         )
 
     def superbatches_dynamic(self, k_fn, skip: int = 0):
-        """The adaptive-K replay skip: defined so that ``__getattr__`` never
-        hands out the inner stream's packer with the skip dropped."""
-        raise NotImplementedError(
-            f"the adaptive-K resume is ported in {_AUTO_K}"
+        """The adaptive-K replay skip (the ``superbatch="auto"`` resume):
+        the inner dynamic packer packs the skipped windows (the
+        vertex-dictionary replay) without surfacing them. The resumed
+        controller may re-tile from the barrier on: values are the same
+        under any tiling, and barriers only land on group boundaries.
+        Defined here so that ``__getattr__`` never hands out the inner
+        stream's packer with the skip dropped."""
+        inner = getattr(self._stream, "superbatches_dynamic", None)
+        if callable(inner):
+            yield from inner(k_fn, skip=self._skip + skip)
+            return
+        from ..core.pipeline import prefetch, superbatch_prefetch_depth
+        from ..core.window import superbatches_from_blocks_dynamic
+
+        # self.blocks() consumes self._skip; a nested wrapper's skip too
+        blocks = self.blocks()
+        for _ in range(skip):
+            if next(blocks, None) is None:
+                break
+        yield from superbatches_from_blocks_dynamic(
+            prefetch(blocks, superbatch_prefetch_depth(int(k_fn())),
+                     device=getattr(self._stream, "device", None)),
+            k_fn,
         )
 
 
@@ -228,8 +248,6 @@ class AutoCheckpoint:
         return 0 if payload is None else payload["windows_done"]
 
     def run(self, make_stream: Callable, work) -> Iterator[Any]:
-        if getattr(work, "superbatch_auto", False):
-            raise NotImplementedError(f"checkpointing a workload is ported in {_AUTO_K}")
         with _trace.span("checkpoint.restore") as sp:
             payload = self._load()
             done = 0
@@ -253,6 +271,11 @@ class AutoCheckpoint:
             self.every = self.every + (k - self.every % k)
         aligned = getattr(work, "checkpoint_aligned", None)
         use_pred = callable(aligned)
+        # a dynamically tiled work (superbatch="auto") has no static group
+        # stride for the modulo cadence to meet: its barriers land on the
+        # FIRST group boundary at least `every` windows past the previous
+        # barrier (the counting rule of the auto cadence)
+        dynamic = bool(getattr(work, "superbatch_auto", False))
         w = done
         last_barrier = done
         seg_t0 = _clock()  # start of the inter-barrier segment
@@ -263,7 +286,8 @@ class AutoCheckpoint:
             # multiples of `every`, a resume re-tiles identically); the
             # auto tuner counts windows SINCE the last barrier, because
             # `every` itself moves between barriers
-            due = w - last_barrier >= self.every if self.auto else w % self.every == 0
+            due = (w - last_barrier >= self.every if self.auto or dynamic
+                   else w % self.every == 0)
             ok = aligned(w - done) if use_pred else w % k == 0
             if due and ok:
                 window_s = (_clock() - seg_t0) / max(1, w - last_barrier)

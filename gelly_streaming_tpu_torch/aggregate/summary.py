@@ -16,9 +16,13 @@ a superbatch is a loop over its K rows.
 
 Host-state aggregations (``host_state = True``, the reference's
 ``device=False``: the spanner) run ``update``/``combine`` on host records
-of RAW ids, one window at a time. What comes later: the sharded mesh
-(per-shard folds merged by collectives) with ROADMAP Queue 1, slice 6;
-``superbatch="auto"`` with slice 7b (control and ingest).
+of RAW ids, one window at a time. The sharded mesh (per-shard folds merged by
+collectives) comes with ROADMAP Queue 1, slice 6.
+
+``superbatch="auto"`` runs the group path under an
+:class:`~gelly_streaming_tpu_torch.control.AutoK` controller: K starts at 1
+and is re-tuned at group boundaries from measured group throughput
+(``GroupFoldable._attach_control`` is the one attach rule).
 
 Checkpoint surface (``SummaryAggregation.java:127-135``):
 :meth:`snapshot_state` / :meth:`restore_state` move the running summary
@@ -39,8 +43,6 @@ from ..summaries.groupfold import GroupFoldable, drive_group_folded
 from ..summaries.labels import to_numpy
 
 _MESH = "ROADMAP Queue 1, slice 6 (multiple devices)"
-_AUTO_K = ('ROADMAP Queue 1, slice 7b (control and ingest: '
-           'superbatch="auto")')
 
 
 def tree_map(fn, state):
@@ -73,7 +75,11 @@ class SummaryAggregation(GroupFoldable, abc.ABC):
         Fold this many consecutive windows as one group, still yielding
         one record per window with the same values; a group's K records
         surface together after its fold. ``1`` (default) keeps the
-        per-window path.
+        per-window path. ``"auto"``: the group path under an
+        :class:`~gelly_streaming_tpu_torch.control.AutoK` controller, K
+        starting at 1; ``superbatch`` then tracks the LIVE operating point
+        and ``control`` holds the run's plane (a plane set before the run
+        is used as it is: ``AutoK(k0=K, k_max=K)`` pins the knob).
 
     The state lives on the device of the stream the aggregation runs on
     (``stream.device``), read when :meth:`run` starts. A subclass with
@@ -89,15 +95,7 @@ class SummaryAggregation(GroupFoldable, abc.ABC):
         if mesh is not None:
             raise NotImplementedError(f"a sharded mesh is ported in {_MESH}")
         self.transient_state = transient_state
-        if superbatch == "auto":
-            raise NotImplementedError(f'superbatch="auto" is ported in {_AUTO_K}')
-        if isinstance(superbatch, str):
-            raise ValueError(
-                f'superbatch must be an int >= 1 or "auto", got {superbatch!r}'
-            )
-        if superbatch < 1:
-            raise ValueError(f"superbatch must be >= 1, got {superbatch}")
-        self.superbatch = int(superbatch)
+        self._set_superbatch(superbatch)
         self._summary = None
         self._vcap = 0
         self._sync_ref = None  # last state folded (the sync target)
@@ -209,7 +207,7 @@ class SummaryAggregation(GroupFoldable, abc.ABC):
         if self.host_state:
             yield from self._run_host(stream, vdict)
             return
-        if self.superbatch > 1:
+        if self.superbatch > 1 or self.superbatch_auto:
             yield from self._run_superbatched(stream, vdict)
             return
         for block in stream.blocks():
@@ -234,9 +232,13 @@ class SummaryAggregation(GroupFoldable, abc.ABC):
                 self._summary = self.initial_state(0)
 
     def _run_superbatched(self, stream, vdict) -> Iterator[Any]:
-        """The group drive loop (:func:`drive_group_folded`)."""
+        """The group drive loop (:func:`drive_group_folded`), adaptive
+        under ``superbatch="auto"``."""
         self._gf_vdict = vdict
-        yield from drive_group_folded(self, stream, self.superbatch)
+        yield from drive_group_folded(
+            self, stream, self.superbatch,
+            controller=self._attach_control(self.superbatch),
+        )
 
     def fold_group(self, group) -> Iterator[Any]:
         """The engine's declared group fold: the K rows of the group's

@@ -11,6 +11,7 @@ from .window import (
     CountWindow,
     EventTimeWindow,
     ProcessingTimeWindow,
+    ScheduledCountWindow,
     WindowInfo,
     WindowPolicy,
     Windower,
@@ -27,6 +28,7 @@ __all__ = [
     "EventType",
     "GraphStream",
     "ProcessingTimeWindow",
+    "ScheduledCountWindow",
     "SimpleEdgeStream",
     "SnapshotStream",
     "StreamContext",

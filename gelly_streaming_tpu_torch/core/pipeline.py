@@ -19,9 +19,11 @@ uploads without an explicit index would land on card 0.
 
 An installed ``FaultPlan`` (``resilience/faults.py``) is consulted at
 each item the consumer takes (site ``pipeline.item``, index = the item's
-ordinal): the in-process kill the ``Supervisor`` recovers from. The
-adaptive depth (``tuner=``) of the reference comes with ROADMAP Queue 1,
-slice 7b (control and ingest).
+ordinal): the in-process kill the ``Supervisor`` recovers from.
+
+``tuner=`` (a :class:`~gelly_streaming_tpu_torch.control.PrefetchTuner`)
+makes the depth adaptive: the queue is allocated at the tuner's
+``depth_max`` and the producer honours its live ``depth``.
 """
 
 from __future__ import annotations
@@ -90,7 +92,8 @@ def prefetch(iterator: Iterator[T], depth: int = 2,
              name: str = "pipeline", *,
              device=None,
              stall_timeout_s: Optional[float] = None,
-             join_timeout_s: float = 10.0) -> Iterator[T]:
+             join_timeout_s: float = 10.0,
+             tuner=None) -> Iterator[T]:
     """Iterate ``iterator`` on a background thread, ``depth`` items ahead.
 
     ``device`` is the stream's device; the producer thread runs with it
@@ -112,8 +115,21 @@ def prefetch(iterator: Iterator[T], depth: int = 2,
     the registry: ``<name>.queue_depth`` (items ready at each pull),
     ``<name>.producer_blocked_s`` (host blocked on a full queue: the
     device side is the bottleneck) and ``<name>.consumer_idle_s``
-    (consumer blocked on an empty queue: the host side is)."""
-    q: "queue.Queue[Any]" = queue.Queue(maxsize=max(1, depth))
+    (consumer blocked on an empty queue: the host side is).
+
+    ``tuner`` (a :class:`~gelly_streaming_tpu_torch.control.PrefetchTuner`)
+    makes the depth ADAPTIVE: the queue is allocated at the tuner's
+    ``depth_max`` and the producer honours the tuner's live ``depth`` as a
+    soft cap, while both sides tap their blocked and idle seconds into the
+    tuner, which moves the depth with hysteresis and bounded steps. A tuner
+    costs one clock read per item on each side, whatever the obs flag;
+    ``depth`` is then ignored."""
+    soft_cap = tuner
+    maxsize = max(1, depth) if tuner is None else max(1, tuner.depth_max)
+    q: "queue.Queue[Any]" = queue.Queue(maxsize=maxsize)
+    # the soft cap's wake-up channel: the consumer notifies after every
+    # pull, so a producer waiting at the cap blocks on a condition
+    space = threading.Condition() if soft_cap is not None else None
     error: list = []
     stop = threading.Event()
     inst: list = [None]
@@ -130,12 +146,25 @@ def prefetch(iterator: Iterator[T], depth: int = 2,
 
     def _put(item) -> bool:
         obs = _trace.on()
-        t0 = time.perf_counter() if obs else 0.0
+        measured = obs or soft_cap is not None
+        t0 = time.perf_counter() if measured else 0.0
+        if soft_cap is not None:
+            # soft depth cap: the tuner's live depth bounds how far the
+            # producer runs ahead while the queue stays allocated at
+            # depth_max. A condition wait, not a semaphore: the cap moves
+            # between puts; the timeout slice covers stop and retune races
+            with space:
+                while q.qsize() >= soft_cap.depth:
+                    if stop.is_set():
+                        return False
+                    space.wait(0.05)
 
         def done(_waited):
-            if obs:
+            if measured:
                 dt = time.perf_counter() - t0
-                if dt > 1e-4:  # count real blocking, not put cost
+                if soft_cap is not None:
+                    soft_cap.tap_put(dt if dt > 1e-4 else 0.0)
+                if obs and dt > 1e-4:  # count real blocking, not put cost
                     _instruments()[1].inc(dt)
 
         return bounded_put(q, item, stop, on_done=done)
@@ -179,13 +208,20 @@ def prefetch(iterator: Iterator[T], depth: int = 2,
     n = 0
     try:
         while True:
-            if _trace.on():
-                depth_g, _pw, cw = _instruments()
-                depth_g.set(q.qsize())
+            obs = _trace.on()
+            if obs or soft_cap is not None:
+                if obs:
+                    depth_g, _pw, cw = _instruments()
+                    depth_g.set(q.qsize())
                 t0 = time.perf_counter()
                 item = _blocking_get()
                 dt = time.perf_counter() - t0
-                if dt > 1e-4:  # real starvation, not get cost
+                if soft_cap is not None:
+                    # wake a producer waiting at the soft cap: a slot opened
+                    with space:
+                        space.notify()
+                    soft_cap.tap_get(dt if dt > 1e-4 else 0.0)
+                if obs and dt > 1e-4:  # real starvation, not get cost
                     cw.inc(dt)
             else:
                 item = _blocking_get()

@@ -15,9 +15,13 @@ stream with no known end, consumed as it arrives — and both feed
   :meth:`GeneratorSource.iter_chunks` exposes the R-MAT columns directly;
   the windower consumes them on its chunk path.
 
+Event time: ``SocketEdgeSource(ts_extractor=f)`` appends ``f(s, d, v)``
+to each record as a fourth field; ``GeneratorSource(ts_rate=r)`` stamps
+``ts_start + ordinal // r`` (:meth:`GeneratorSource.iter_chunks_ts` yields
+``(src, dst, ts)`` columns for a
+:class:`~gelly_streaming_tpu_torch.eventtime.SlidingGraphAggregator`).
 The sharded scale-out path (``ShardedEdgeSource``, the binary wire
-format) comes with ROADMAP Queue 1, slice 7b (control and ingest), and
-event-time records (``ts_extractor=``, ``ts_rate=``) with slice 8.
+format) comes with ROADMAP Queue 1, slice 7b (ingest).
 
 Both yield ``None`` ticks while idle so a ``ProcessingTimeWindow`` can
 close an open window on schedule even when no records arrive.
@@ -46,10 +50,6 @@ from ..resilience import faults as _faults
 from ..resilience.errors import TransientSourceError
 from ..resilience.retry import exp_backoff
 
-_EVENT_TIME = ("event-time records (ts_extractor=, ts_rate=) are ported in "
-               "ROADMAP Queue 1, slice 8 (event time)")
-
-
 def _perturbed(records: Iterator) -> Iterator:
     """Route a record iterator through the installed fault plan's
     drop/duplicate/reorder schedule (no-op — and no wrapper generator —
@@ -58,6 +58,19 @@ def _perturbed(records: Iterator) -> Iterator:
     if plan is not None and plan.perturbs_records():
         return plan.perturb_records(records)
     return records
+
+
+def _with_ts(records: Iterator, extractor) -> Iterator:
+    """Append an event timestamp to each record: ``(s, d, v)`` becomes
+    ``(s, d, v, ts)`` via ``extractor(s, d, v) -> int``; ``None`` idle
+    ticks pass through. Applied BEFORE the fault plan's perturbation, so
+    an installed skew schedule (``FaultPlan.skew_records``) jitters the
+    extracted ts like any other field."""
+    for rec in records:
+        if rec is None:
+            yield None
+            continue
+        yield rec + (int(extractor(*rec)),)
 
 
 class SocketEdgeSource:
@@ -100,8 +113,6 @@ class SocketEdgeSource:
         reconnect_max_s: float = 2.0,
         ts_extractor=None,
     ):
-        if ts_extractor is not None:
-            raise NotImplementedError(_EVENT_TIME)
         self.host = host
         self.port = port
         self.tick_s = tick_s
@@ -109,10 +120,17 @@ class SocketEdgeSource:
         self.reconnect = int(reconnect)
         self.reconnect_base_s = float(reconnect_base_s)
         self.reconnect_max_s = float(reconnect_max_s)
+        # event-time extractor: ``f(s, d, v) -> int`` turns each record into
+        # ``(s, d, v, ts)`` (the line protocol has no ts column, so event
+        # time rides whatever field the deployment encodes it in)
+        self.ts_extractor = ts_extractor
         self._malformed = None  # lazy counter (registry may be swapped)
 
     def __iter__(self) -> Iterator[Optional[Tuple]]:
-        return _perturbed(self._records())
+        records = self._records()
+        if self.ts_extractor is not None:
+            records = _with_ts(records, self.ts_extractor)
+        return _perturbed(records)
 
     # ------------------------------------------------------------------ #
     def _records(self) -> Iterator[Optional[Tuple]]:
@@ -258,14 +276,20 @@ class GeneratorSource:
         ts_rate: Optional[int] = None,
         ts_start: int = 0,
     ):
-        if ts_rate is not None:
-            raise NotImplementedError(_EVENT_TIME)
         self.scale = scale
         self.chunk = chunk
         self.seed = seed
         self.limit = limit
+        # synthetic event time: ``ts_rate`` edges per tick from ``ts_start``
+        # (monotone, so the stream's own max is a valid watermark)
+        if ts_rate is not None and ts_rate < 1:
+            raise ValueError(f"ts_rate must be >= 1, got {ts_rate}")
+        self.ts_rate = ts_rate
+        self.ts_start = int(ts_start)
 
     def __iter__(self) -> Iterator[Tuple]:
+        if self.ts_rate is not None:
+            return _perturbed(self._records_ts())
         return _perturbed(self._records())
 
     def iter_chunks(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
@@ -317,3 +341,51 @@ class GeneratorSource:
         for src, dst in self._column_chunks():
             for s, d in zip(src.tolist(), dst.tolist()):
                 yield (s, d, 0.0)
+
+    # ------------------------------------------------------------------ #
+    # Event time
+    # ------------------------------------------------------------------ #
+    def _records_ts(self) -> Iterator[Tuple]:
+        ordinal = 0
+        for src, dst in self._column_chunks():
+            for s, d in zip(src.tolist(), dst.tolist()):
+                yield (s, d, 0.0, self.ts_start + ordinal // self.ts_rate)
+                ordinal += 1
+
+    def iter_chunks_ts(
+        self,
+    ) -> Iterator[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+        """:meth:`iter_chunks` with the synthetic i64 ts column appended:
+        ``(src, dst, ts)``. Requires ``ts_rate``. Under a fault plan with
+        record perturbations the chunks re-assemble from the perturbed
+        record path (any ts skew included)."""
+        if self.ts_rate is None:
+            raise RuntimeError(
+                "iter_chunks_ts() requires GeneratorSource(ts_rate=...)"
+            )
+        plan = _faults.plan()
+        if plan is not None and plan.perturbs_records():
+            bs: list = []
+            bd: list = []
+            bt: list = []
+            for rec in _perturbed(self._records_ts()):
+                if rec is None:
+                    continue
+                bs.append(rec[0])
+                bd.append(rec[1])
+                bt.append(rec[3])
+                if len(bs) >= self.chunk:
+                    yield (np.asarray(bs, np.int64), np.asarray(bd, np.int64),
+                           np.asarray(bt, np.int64))
+                    bs, bd, bt = [], [], []
+            if bs:
+                yield (np.asarray(bs, np.int64), np.asarray(bd, np.int64),
+                       np.asarray(bt, np.int64))
+            return
+        produced = 0
+        for src, dst in self._column_chunks():
+            n = len(src)
+            ts = (self.ts_start
+                  + (produced + np.arange(n, dtype=np.int64)) // self.ts_rate)
+            produced += n
+            yield src, dst, ts

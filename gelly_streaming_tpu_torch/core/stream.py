@@ -24,8 +24,8 @@ step over a block:
 Emission is per block and change-only; with ``CountWindow(1)`` it is the
 reference's per-record emission, record for record.
 
-``superbatches_dynamic`` raises ``NotImplementedError`` naming the ROADMAP
-slice that ports it.
+``superbatches``/``superbatches_dynamic`` pack K windows (fixed, or
+re-read from a controller at each group boundary) per superbatch group.
 """
 
 from __future__ import annotations
@@ -197,10 +197,21 @@ class SimpleEdgeStream(GraphStream):
         return superbatches_from_blocks(self.blocks(), k)
 
     def superbatches_dynamic(self, k_fn, skip: int = 0):
-        raise NotImplementedError(
-            "SimpleEdgeStream.superbatches_dynamic is ported in ROADMAP "
-            "Queue 1, slice 7b (control and ingest)"
-        )
+        """Adaptive-K superbatch ingest (``superbatch="auto"``): like
+        :meth:`superbatches` but the group size is re-read from ``k_fn()``
+        at every group boundary, so a controller re-tiles the stream
+        mid-run. ``skip`` packs the first ``skip`` windows without
+        surfacing them (checkpoint resume). Single use, like
+        :meth:`blocks`."""
+        from .window import superbatches_from_blocks_dynamic
+
+        if self._windower is not None:
+            return self._windower.superbatches_dynamic(self._edges, k_fn, skip=skip)
+        blocks = self.blocks()
+        for _ in range(skip):
+            if next(blocks, None) is None:
+                break
+        return superbatches_from_blocks_dynamic(blocks, k_fn)
 
     def _derive(self, block_fn: Callable[[Iterator[EdgeBlock]], Iterator[EdgeBlock]]) -> "SimpleEdgeStream":
         parent_source = self._block_source

@@ -16,8 +16,10 @@ ascending event time) on the record, column and chunked paths.
 Superbatches pack K consecutive windows into one
 :class:`SuperbatchGroup`: one group encode and per-window host column
 views, with the ``[K, cap]`` device stack built only for consumers that
-fold on it. The adaptive-K packers (``*_dynamic``) come with
-``superbatch="auto"`` in ROADMAP Queue 1, slice 7b (control and ingest).
+fold on it. The adaptive-K packers (``*_dynamic``, the ingest half of
+``superbatch="auto"``) re-read K from the controller at every group
+boundary; :class:`ScheduledCountWindow` shifts the window size mid-stream
+for them.
 
 Blocks carry *compact* int32 ids; raw ids stay host-side in the dict.
 """
@@ -41,9 +43,6 @@ from .edgeblock import (
 )
 from .device import DEFAULT_DEVICE, resolve_device
 from .vertexdict import VertexDict
-
-_AUTO_K = ('ROADMAP Queue 1, slice 7b (control and ingest: superbatch="auto")')
-
 
 def is_column_input(edges) -> bool:
     """True when ``edges`` is vectorized column input: an ``[N, k]``
@@ -86,6 +85,51 @@ class CountWindow(WindowPolicy):
     """Tumbling window of a fixed number of edges."""
 
     size: int
+
+
+class ScheduledCountWindow(CountWindow):
+    """Count windows whose SIZE follows a window-indexed schedule: the
+    mid-stream window-size shift for the adaptive packer.
+
+    ``schedule`` is ``((start_index, size), ...)`` with ascending start
+    indices, the first at 0: window ``i`` has the size of the last segment
+    whose start is ``<= i``. Only the DYNAMIC packer
+    (:meth:`Windower.superbatches_dynamic`) honours the schedule: it reads
+    the size per group and caps each group at the next boundary, so a
+    group never spans two sizes. The static paths read ``.size`` (the
+    first segment) like any ``CountWindow``."""
+
+    def __init__(self, schedule):
+        sched = tuple((int(a), int(b)) for a, b in schedule)
+        if not sched or sched[0][0] != 0:
+            raise ValueError(
+                "schedule must be non-empty with its first segment at "
+                f"window 0, got {schedule!r}"
+            )
+        for (a, _sa), (b, _sb) in zip(sched, sched[1:]):
+            if b <= a:
+                raise ValueError(f"schedule starts must ascend, got {a} then {b}")
+        if any(s < 1 for _a, s in sched):
+            raise ValueError("every scheduled size must be >= 1")
+        super().__init__(size=sched[0][1])
+        self.schedule = sched
+
+    def size_at(self, index: int) -> int:
+        """The window size at window ``index``."""
+        size = self.schedule[0][1]
+        for start, s in self.schedule:
+            if start > index:
+                break
+            size = s
+        return size
+
+    def run_length(self, index: int) -> Optional[int]:
+        """Windows from ``index`` (inclusive) to the next size boundary;
+        None inside the final segment."""
+        for start, _s in self.schedule:
+            if start > index:
+                return start - index
+        return None
 
 
 @dataclasses.dataclass
@@ -365,10 +409,9 @@ class Windower:
             self.blocks_with_info(edges), k, with_info=True
         )
 
-    def _array_superbatches(self, edges, k: int) -> Iterator["SuperbatchGroup"]:
-        """Count-window column fast path: slice the raw columns into
-        per-window triples and pack each group through
-        :meth:`pack_window_cols`."""
+    def _columns(self, edges):
+        """Raw ``(src, dst, val|None)`` columns of column input (an
+        ``[N, 2|3]`` array or a tuple of 1-D arrays)."""
         if isinstance(edges, np.ndarray):
             if edges.ndim != 2 or not 2 <= edges.shape[1] <= 3:
                 raise ValueError("edge array must be [N, 2] or [N, 3]")
@@ -378,6 +421,13 @@ class Windower:
         src = cols[0].astype(np.int64)
         dst = cols[1].astype(np.int64)
         val = cols[2].astype(self.val_dtype) if len(cols) > 2 else None
+        return src, dst, val
+
+    def _array_superbatches(self, edges, k: int) -> Iterator["SuperbatchGroup"]:
+        """Count-window column fast path: slice the raw columns into
+        per-window triples and pack each group through
+        :meth:`pack_window_cols`."""
+        src, dst, val = self._columns(edges)
         n = src.shape[0]
         size = self.policy.size
         index = 0
@@ -424,8 +474,120 @@ class Windower:
         if win_rows:
             yield flush()
 
-    def superbatches_dynamic(self, edges, k_fn, skip: int = 0):
-        raise NotImplementedError(f"adaptive superbatches are ported in {_AUTO_K}")
+    #: windows per group while the dynamic packer replays a resume skip
+    #: (packed for the vertex-dictionary replay, never surfaced)
+    SKIP_GROUP_WINDOWS = 256
+
+    def superbatches_dynamic(
+        self, edges: Iterable[Tuple], k_fn, skip: int = 0
+    ) -> Iterator["SuperbatchGroup"]:
+        """Adaptive-K superbatch packing: like :meth:`superbatches`, but
+        the group size is re-read from ``k_fn()`` at EVERY group boundary
+        (the controller moves K between groups; window boundaries, packing
+        and emission values are the fixed-K path's, the group TILING is
+        the only freedom). Count windows read ``policy.size`` per group,
+        so a :class:`ScheduledCountWindow` shifts size mid-stream with
+        groups capped at each size boundary. ``skip`` packs the first
+        ``skip`` windows (the vertex-dictionary replay of a checkpoint
+        resume) without surfacing them."""
+        if skip < 0:
+            raise ValueError(f"skip must be >= 0, got {skip}")
+        policy = self.policy
+        if isinstance(policy, CountWindow) and is_column_input(edges):
+            yield from self._dynamic_array_superbatches(edges, k_fn, skip)
+            return
+        if isinstance(policy, CountWindow) and not callable(
+            getattr(edges, "iter_chunks", None)
+        ):
+            yield from self._dynamic_record_superbatches(iter(edges), k_fn, skip)
+            return
+        blocks = self.blocks_with_info(edges)
+        for _ in range(skip):
+            if next(blocks, None) is None:
+                break
+        yield from superbatches_from_blocks_dynamic(blocks, k_fn, with_info=True)
+
+    def _group_k(self, index: int, k_fn, skip: int) -> Tuple[int, int]:
+        """``(window size, windows in the group)`` for the group starting
+        at window ``index``: the scheduled size there, the controller's K
+        (or the skip-replay tile), capped so a group never crosses a size
+        boundary or the skip watermark."""
+        policy = self.policy
+        size_at = getattr(policy, "size_at", None)
+        size = int(size_at(index)) if callable(size_at) else int(policy.size)
+        if index < skip:
+            k = min(self.SKIP_GROUP_WINDOWS, skip - index)
+        else:
+            k = max(1, int(k_fn()))
+        run_length = getattr(policy, "run_length", None)
+        if callable(run_length):
+            rl = run_length(index)
+            if rl is not None:
+                k = min(k, max(1, rl))
+        return size, k
+
+    def _dynamic_array_superbatches(
+        self, edges, k_fn, skip: int
+    ) -> Iterator["SuperbatchGroup"]:
+        """Count-window column fast path with per-group tiling (the shape
+        of :meth:`_array_superbatches`, the group size decided per
+        group)."""
+        src, dst, val = self._columns(edges)
+        n = src.shape[0]
+        index = 0
+        g0 = 0
+        while g0 < n:
+            size, k = self._group_k(index, k_fn, skip)
+            g1 = min(g0 + size * k, n)
+            win_cols = [
+                (src[w0:min(w0 + size, g1)], dst[w0:min(w0 + size, g1)],
+                 None if val is None else val[w0:min(w0 + size, g1)])
+                for w0 in range(g0, g1, size)
+            ]
+            group = self.pack_window_cols(win_cols, first_index=index)
+            index += len(win_cols)
+            g0 = g1
+            if index > skip:  # groups never straddle skip (capped above)
+                yield group
+
+    def _dynamic_record_superbatches(
+        self, edges: Iterator[Tuple], k_fn, skip: int
+    ) -> Iterator["SuperbatchGroup"]:
+        """Count-window RECORD path with per-group tiling (the dynamic
+        :meth:`_record_superbatches`); live-source ``None`` ticks are
+        ignored."""
+        index = 0
+        win_rows: list = []
+        rows: list = []
+        size, k_target = self._group_k(index, k_fn, skip)
+
+        def flush():
+            nonlocal win_rows, index, size, k_target
+            cols = [self._rows_to_cols(rws) for rws in win_rows]
+            group = self.pack_window_cols(cols, first_index=index)
+            start = index
+            index += len(cols)
+            win_rows = []
+            size, k_target = self._group_k(index, k_fn, skip)
+            return group if start >= skip else None
+
+        for e in edges:
+            if e is None:
+                continue
+            rows.append(e)
+            if len(rows) >= size:
+                win_rows.append(rows)
+                rows = []
+                if len(win_rows) >= k_target:
+                    group = flush()
+                    if group is not None:
+                        yield group
+        if rows:
+            win_rows.append(rows)
+        if win_rows:
+            group = flush()
+            if group is not None:
+                yield group
 
     def pack_window_cols(
         self, win_cols: Sequence[Tuple], first_index: int = 0
@@ -589,8 +751,8 @@ def take_cols(pend: list, take: int, val_dtype=VAL_DTYPE):
     column chunks, mutating ``pend`` in place. A take from one chunk hands
     out slice views; a take across chunks concatenates once, filling
     ``None`` value chunks with zeros when any chunk carries values. (The
-    event-time ``ts`` column of the reference's wire frames comes with
-    ROADMAP Queue 1, slice 8.)"""
+    event-time ``ts`` column of the reference's wire frames comes with the
+    sharded ingest, ROADMAP Queue 1, slice 7b (ingest).)"""
     s_parts, d_parts, v_parts = [], [], []
     got = 0
     while got < take:
@@ -732,8 +894,26 @@ def superbatches_from_blocks(
         yield _group_from_blocks(group, infos)
 
 
-def superbatches_from_blocks_dynamic(blocks, k_fn, with_info: bool = False):
-    raise NotImplementedError(f"adaptive superbatches are ported in {_AUTO_K}")
+def superbatches_from_blocks_dynamic(
+    blocks: Iterable, k_fn, with_info: bool = False,
+) -> Iterator[SuperbatchGroup]:
+    """The adaptive-K :func:`superbatches_from_blocks`: the group size is
+    re-read from ``k_fn()`` at every group boundary, so a controller moves
+    the tiling between groups on streams that only offer pre-built
+    blocks."""
+    group: list = []
+    infos: list = []
+    want = max(1, int(k_fn()))
+    for item in blocks:
+        info, block = item if with_info else (None, item)
+        group.append(block)
+        infos.append(info)
+        if len(group) >= want:
+            yield _group_from_blocks(group, infos)
+            group, infos = [], []
+            want = max(1, int(k_fn()))
+    if group:
+        yield _group_from_blocks(group, infos)
 
 
 def iter_superbatches(stream, k: int) -> Iterator[SuperbatchGroup]:
@@ -755,8 +935,22 @@ def iter_superbatches(stream, k: int) -> Iterator[SuperbatchGroup]:
     )
 
 
-def iter_superbatches_dynamic(stream, k_fn):
-    raise NotImplementedError(f"adaptive superbatches are ported in {_AUTO_K}")
+def iter_superbatches_dynamic(stream, k_fn) -> Iterator[SuperbatchGroup]:
+    """Adaptive-K superbatch groups for any stream (the ``superbatch=
+    "auto"`` :func:`iter_superbatches`): the stream's own dynamic packer
+    when it offers one, else generic dynamic packing of its block
+    iterator, prefetched on the stream's device."""
+    fast = getattr(stream, "superbatches_dynamic", None)
+    if callable(fast):
+        yield from fast(k_fn)
+        return
+    from .pipeline import prefetch, superbatch_prefetch_depth
+
+    yield from superbatches_from_blocks_dynamic(
+        prefetch(stream.blocks(), superbatch_prefetch_depth(max(1, int(k_fn()))),
+                 device=getattr(stream, "device", None)),
+        k_fn,
+    )
 
 
 def blocks_from_edges(

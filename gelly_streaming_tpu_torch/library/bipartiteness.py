@@ -24,8 +24,9 @@ checkpoint format (flat cover labels + touched) is one across carries and
 across the two packages. Emission reproduces the reference's
 ``(true,{...})`` / ``(false,{})`` format.
 
-``sliding()`` (event time), ``servable()`` and the mesh come with ROADMAP
-Queue 1, slices 8, 9 and 6.
+``superbatch="auto"`` re-tiles the groups under an ``AutoK`` controller;
+``sliding()`` is the event-time shape (``eventtime/``). ``servable()`` and
+the mesh come with ROADMAP Queue 1, slices 9 and 6.
 """
 
 from __future__ import annotations
@@ -101,8 +102,14 @@ class BipartitenessCheck(SummaryBulkAggregation):
 
     @classmethod
     def sliding(cls, size: int, slide=None, **kwargs):
-        raise NotImplementedError(
-            "event-time sliding bipartiteness is ported in ROADMAP Queue 1, slice 8")
+        """The EVENT-TIME shape of this workload: bipartiteness over a
+        sliding window, the odd-cycle latch RE-RESOLVED when panes expire,
+        a :class:`~gelly_streaming_tpu_torch.eventtime.SlidingGraphAggregator`
+        restricted to the cover summary. ``size``/``slide`` are event-time
+        units; other keywords pass through."""
+        from ..eventtime import SlidingGraphAggregator
+
+        return SlidingGraphAggregator(size, slide, summaries=("bipartite",), **kwargs)
 
     def servable(self, vdict=None):
         raise NotImplementedError(
@@ -143,11 +150,14 @@ class BipartitenessCheck(SummaryBulkAggregation):
     def run(self, stream) -> Iterator[Candidates]:
         self._adopt_device(stream)
         vdict = stream.vertex_dict
-        if self.superbatch > 1 and not self.transient_state:
+        if (self.superbatch > 1 or self.superbatch_auto) and not self.transient_state:
             # transient_state keeps the per-window loop: its carry reset
             # is window-granular
             self._gf_vdict = vdict
-            yield from drive_group_folded(self, stream, self.superbatch)
+            yield from drive_group_folded(
+                self, stream, self.superbatch,
+                controller=self._attach_control(self.superbatch),
+            )
             return
         for block in stream.blocks():
             cache = getattr(block, "_host_cache", None)

@@ -35,10 +35,13 @@ one chase and one commit per GROUP for the forest, one native call for
 the host carry, a loop over the stacked block for dense. Emission VALUES
 are identical per window; a group's K records surface together, and
 mid-group views rebuild lazily on first read. ``transient_state`` keeps
-the per-window loop.
+the per-window loop. ``superbatch="auto"`` re-tiles the groups at their
+boundaries under an ``AutoK`` controller; any K folds on the stream's
+device. :meth:`ConnectedComponents.sliding` is the event-time shape
+(``eventtime/``, host numpy, as in the reference).
 
-The reference's mesh, ``superbatch="auto"``, ``sliding()`` (event time)
-and ``servable()`` come with ROADMAP Queue 1, slices 6, 7, 8 and 9.
+The reference's mesh and ``servable()`` come with ROADMAP Queue 1,
+slices 6 and 9.
 
 Usage parity with the reference::
 
@@ -142,13 +145,16 @@ class _CCMixin:
     def run(self, stream) -> Iterator[Components]:
         self._adopt_device(stream)
         vdict = stream.vertex_dict
-        if self.superbatch > 1 and not self.transient_state:
+        if (self.superbatch > 1 or self.superbatch_auto) and not self.transient_state:
             # transient_state keeps the per-window loop: its carry reset
             # is window-granular
             self._gf_vdict = vdict
             from ..summaries.groupfold import drive_group_folded
 
-            yield from drive_group_folded(self, stream, self.superbatch)
+            yield from drive_group_folded(
+                self, stream, self.superbatch,
+                controller=self._attach_control(self.superbatch),
+            )
             return
         for block in stream.blocks():
             yield from self._one_window(block, vdict)
@@ -362,9 +368,15 @@ class ConnectedComponents(_CCMixin, SummaryBulkAggregation):
 
     @classmethod
     def sliding(cls, size: int, slide=None, **kwargs):
-        raise NotImplementedError(
-            "event-time sliding CC is ported in ROADMAP Queue 1, slice 8"
-        )
+        """The EVENT-TIME shape of this workload: CC over a sliding window
+        that retracts expired panes by bounded forest repair, a
+        :class:`~gelly_streaming_tpu_torch.eventtime.SlidingGraphAggregator`
+        restricted to the CC summary. ``size``/``slide`` are event-time
+        units; other keywords pass through (``allowed_lateness``,
+        ``nshards``, ``commit_dir``, ...)."""
+        from ..eventtime import SlidingGraphAggregator
+
+        return SlidingGraphAggregator(size, slide, summaries=("cc",), **kwargs)
 
 
 class ConnectedComponentsTree(_CCMixin, SummaryTreeReduce):

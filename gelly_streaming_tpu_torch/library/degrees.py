@@ -91,12 +91,14 @@ class DegreeDistribution:
 
     @classmethod
     def sliding(cls, size: int, slide: Optional[int] = None, **kwargs):
-        """The event-time shape of this workload (a sliding window that
-        retracts expired panes) is ported with event time."""
-        raise NotImplementedError(
-            "DegreeDistribution.sliding is ported in ROADMAP Queue 1, "
-            "slice 8 (event time)"
-        )
+        """The EVENT-TIME shape of this workload: exact decremental degrees
+        and heavy hitters over a sliding window that retracts expired
+        panes, a :class:`~gelly_streaming_tpu_torch.eventtime.SlidingGraphAggregator`
+        restricted to the degree summary. ``size``/``slide`` are event-time
+        units; other keywords pass through."""
+        from ..eventtime import SlidingGraphAggregator
+
+        return SlidingGraphAggregator(size, slide, summaries=("degree",), **kwargs)
 
     def run(self, events: Iterable[Tuple]) -> Iterator["HistogramBatch"]:
         """Yields one lazy :class:`HistogramBatch` per window, list-like

@@ -35,8 +35,10 @@ What differs from the XLA reference, and why:
 - The K-window ``lax.scan`` of the group fold is a loop over the same
   one-window function (:func:`_window_step`), which both paths share.
 
-``superbatch="auto"``, the mesh and ``servable()`` come with ROADMAP
-Queue 1, slices 7, 6 and 9.
+``superbatch="auto"`` drives the group path under an ``AutoK`` controller
+like CC's; this carry's per-window cost is the fixpoint, which grouping
+cannot remove, so the controller's job here is to hold K = 1. The mesh
+and ``servable()`` come with ROADMAP Queue 1, slices 6 and 9.
 """
 
 from __future__ import annotations
@@ -167,19 +169,11 @@ class IncrementalPageRank(GroupFoldable):
             raise NotImplementedError(
                 "the sharded PageRank fixpoint is ported in ROADMAP Queue 1, "
                 "slice 6 (multiple devices)")
-        if superbatch == "auto":
-            raise NotImplementedError(
-                'superbatch="auto" is ported in ROADMAP Queue 1, slice 7b '
-                "(control and ingest)")
-        if isinstance(superbatch, str):
-            raise ValueError(f'superbatch must be an int >= 1 or "auto", got {superbatch!r}')
-        if superbatch < 1:
-            raise ValueError(f"superbatch must be >= 1, got {superbatch}")
+        self._set_superbatch(superbatch)
         self.damping = damping
         self.tol = tol
         self.chunk = chunk
         self.max_chunks = max(1, -(-max_iter // chunk))
-        self.superbatch = int(superbatch)
         self._device = torch.device("cpu")
         self._carry = None  # (src, dst, ranks) tensors
         self._n_edges = 0   # host mirror of the append position
@@ -220,13 +214,17 @@ class IncrementalPageRank(GroupFoldable):
             self._carry = tuple(t.to(self._device) for t in self._carry)
         self._vdict = stream.vertex_dict
         self._w = 0
-        if self.superbatch > 1:
+        if self.superbatch > 1 or self.superbatch_auto:
             from ..summaries.groupfold import drive_group_folded
 
-            yield from drive_group_folded(self, stream, self.superbatch)
+            yield from drive_group_folded(
+                self, stream, self.superbatch,
+                controller=self._attach_control(self.superbatch),
+            )
             return
         for block in stream.blocks():
             yield self._one_window(block)
+
 
     def _step(self, bsrc, bdst, n_new: int, n_seen: int, vcap: int):
         self._ensure_capacity(bsrc.shape[0], vcap)

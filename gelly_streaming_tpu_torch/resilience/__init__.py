@@ -13,7 +13,7 @@ recovery and deterministic fault injection.
   hook points (pipeline, sources, checkpoints).
 
 The distributed half (coordinated epoch barriers and the cluster
-supervisor) comes with ROADMAP Queue 1, slice 7b (control and ingest);
+supervisor) comes with ROADMAP Queue 1, slice 7b (ingest);
 the chaos sweep and the serving tier's retry and shed with slice 9.
 
 Telemetry rides the obs registry: ``resilience.restarts{kind=...}``,

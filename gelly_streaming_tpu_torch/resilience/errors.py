@@ -1,6 +1,6 @@
 """Resilience-layer exception taxonomy (the port's copy of
 ``gelly_streaming_tpu/resilience/errors.py``; the coordinated cluster
-errors come with ROADMAP Queue 1, slice 7b (control and ingest)).
+errors come with ROADMAP Queue 1, slice 7b (ingest)).
 
 One small module so every other layer (checkpointing, pipeline, sources,
 serving, supervision) can share failure types without import cycles:

@@ -42,8 +42,11 @@ from the XLA reference, and why:
   old root are one group of the local fixpoint, so they get one new root.
   Nothing else relies on the order of a scatter's writes.
 
-The host-side ``*_host`` fold, repair, merge and delta functions of the
-reference come with ROADMAP Queue 1, slices 8 and 9.
+The host-side fold and repair (:func:`fold_edges_host`,
+:func:`fold_into_forest_host`, :func:`repair_forest_host`) are the
+reference's numpy, unchanged: event-time retraction
+(``eventtime/retract.py``) runs them on the host. The cross-shard merge
+and delta functions come with ROADMAP Queue 1, slice 9 (serving).
 """
 
 from __future__ import annotations
@@ -434,6 +437,132 @@ def resolve_flat_host(canon_np: np.ndarray) -> np.ndarray:
             return lab
         lab = nxt
 
+
+
+def fold_edges_host(canon_np: np.ndarray, src: np.ndarray,
+                    dst: np.ndarray) -> np.ndarray:
+    """Fold ONE edge-column group into a host forest table, returning a
+    fully-canonical min-rooted flat table (``out[v] <= v``, depth 1).
+
+    Min-label hooking over the group's edges alternated with
+    :func:`resolve_flat_host` pointer jumping until fixpoint; every pass is
+    whole-array numpy. Monotone (labels only decrease), so it terminates;
+    the result's components are exactly the input table's components
+    unioned with the group's edges."""
+    lab = resolve_flat_host(np.asarray(canon_np))
+    src = np.asarray(src, np.int64)
+    dst = np.asarray(dst, np.int64)
+    if len(src) == 0:
+        return lab
+    lab = lab.copy()
+    while True:
+        lo = np.minimum(lab[src], lab[dst])
+        before = lab
+        lab = lab.copy()
+        # hook both endpoints' current ROOTS down to the edge minimum; the
+        # flat invariant between passes makes lab[src] the root
+        np.minimum.at(lab, before[src], lo)
+        np.minimum.at(lab, before[dst], lo)
+        lab = resolve_flat_host(lab)
+        if np.array_equal(lab, before):
+            return lab
+
+
+def fold_into_forest_host(canon_np: np.ndarray, src: np.ndarray,
+                          dst: np.ndarray) -> np.ndarray:
+    """Fold a SMALL edge group into a BIG flat table without paying the
+    whole-table fixpoint per pass (a pane of a few thousand edges against
+    a table of a million rows).
+
+    Union happens at ROOT granularity: the group's edges project to edges
+    between current component roots, those roots compact to a dense local
+    id space, the local forest folds with :func:`fold_edges_host`, and ONE
+    whole-table pass rewrites every vertex whose root merged. Roots are min
+    vertex ids and the local fold picks the min local index (the min root
+    under the sorted compaction), so the result is byte-identical to
+    ``fold_edges_host(canon_np, src, dst)``."""
+    lab = resolve_flat_host(np.asarray(canon_np))
+    src = np.asarray(src, np.int64)
+    dst = np.asarray(dst, np.int64)
+    if len(src) == 0:
+        return lab
+    rs, rd = lab[src], lab[dst]
+    roots = np.unique(np.concatenate([rs, rd]))
+    if len(roots) < 2:
+        return lab
+    local = fold_edges_host(
+        np.arange(len(roots), dtype=np.int64),
+        np.searchsorted(roots, rs),
+        np.searchsorted(roots, rd),
+    )
+    newroot = roots[local]
+    if np.array_equal(newroot, roots):
+        return lab  # the group united nothing new
+    # one table pass through a translation table (root -> merged root,
+    # identity elsewhere)
+    trans = np.arange(len(lab), dtype=np.int64)
+    trans[roots] = newroot
+    return trans[lab]
+
+
+def repair_forest_host(
+    lab: np.ndarray,
+    expired_src: np.ndarray,
+    expired_dst: np.ndarray,
+    surviving_src: np.ndarray,
+    surviving_dst: np.ndarray,
+):
+    """REPAIR a host forest after a batch of edges EXPIRED (event-time
+    retraction), rebuilding ONLY the affected components.
+
+    The components the expired edges touched (their roots in ``lab``) are
+    reset to singletons, and exactly the SURVIVING edges incident to those
+    components are re-folded through :func:`fold_into_forest_host`. An
+    edge's endpoints always share a component, so membership of ONE
+    endpoint in an affected component selects precisely the suspect edges.
+
+    ``surviving_src``/``surviving_dst`` are the live multiset AFTER the
+    expiry. Returns ``(new_lab, stats)``: ``new_lab`` is byte-identical to
+    a from-scratch :func:`fold_edges_host` over the surviving multiset, and
+    ``stats`` holds the affected ``roots``/``members``, the ``refolded``
+    edge count and the ``surviving`` count."""
+    lab = resolve_flat_host(np.asarray(lab))
+    expired_src = np.asarray(expired_src, np.int64)
+    expired_dst = np.asarray(expired_dst, np.int64)
+    surviving_src = np.asarray(surviving_src, np.int64)
+    surviving_dst = np.asarray(surviving_dst, np.int64)
+    if len(expired_src) != len(expired_dst):
+        raise ValueError(
+            f"expired columns disagree on length: "
+            f"{len(expired_src)} != {len(expired_dst)}"
+        )
+    if len(surviving_src) != len(surviving_dst):
+        raise ValueError(
+            f"surviving columns disagree on length: "
+            f"{len(surviving_src)} != {len(surviving_dst)}"
+        )
+    stats = {"roots": 0, "members": 0, "refolded": 0,
+             "surviving": int(len(surviving_src))}
+    if len(expired_src) == 0:
+        return lab, stats
+    roots = np.unique(np.concatenate([lab[expired_src], lab[expired_dst]]))
+    # membership via a table-sized bitmap: one gather instead of isin's sort
+    root_hit = np.zeros(len(lab), bool)
+    root_hit[roots] = True
+    affected = root_hit[lab]
+    members = np.nonzero(affected)[0]
+    out = lab.copy()
+    out[members] = members.astype(out.dtype)
+    if len(surviving_src):
+        suspect = affected[surviving_src]
+        s = surviving_src[suspect]
+        d = surviving_dst[suspect]
+        stats["refolded"] = int(len(s))
+        if len(s):
+            out = fold_into_forest_host(out, s, d)
+    stats["roots"] = int(len(roots))
+    stats["members"] = int(len(members))
+    return out, stats
 
 class TouchLog:
     """Append-only first-seen log of touched compact ids.

@@ -289,12 +289,15 @@ def test_cc_intermediate_emissions():
 def test_later_slices_raise():
     with pytest.raises(NotImplementedError, match="slice 6"):
         TorchCC(mesh=object())
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        TorchCC(superbatch="auto")
     with pytest.raises(NotImplementedError, match="slice 9"):
         TorchCC().servable()
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        TorchCC.sliding(10)
+    # ported since: superbatch="auto" (slice 7b's control half) and the
+    # event-time shape (slice 8); the sliding payload for serving stays
+    assert TorchCC(superbatch="auto").superbatch_auto
+    sliding = TorchCC.sliding(10)
+    assert sliding.summaries == ("cc",)
+    with pytest.raises(NotImplementedError, match="slice 9"):
+        sliding.servable_payload()
 
 
 # --------------------------------------------------------------------- #

@@ -18,7 +18,7 @@ import gelly_streaming_tpu
 
 _REF_ROOT = os.path.dirname(gelly_streaming_tpu.__file__)
 _PACKAGES = ["", "core", "ops", "summaries", "library", "utils", "models",
-             "aggregate", "obs", "resilience", "control"]
+             "aggregate", "obs", "resilience", "control", "eventtime"]
 
 
 def _reference_exports(package):
@@ -69,6 +69,13 @@ def test_ported_name_imports_from_the_package(package, name):
     ("resilience", "FaultPlan"), ("resilience", "RetryPolicy"), ("resilience", "exp_backoff"),
     ("resilience", "jittered"), ("obs", "FlightRecorder"), ("obs", "read_dump"),
     ("control", "SignalReader"),
+    # event time and the control half of slice 7b
+    ("control", "AutoK"), ("control", "PrefetchTuner"), ("control", "AdmissionTuner"),
+    ("control", "ControlPlane"), ("control", "default_plane"), ("control", "log_retune"),
+    ("eventtime", "SlidingGraphAggregator"), ("eventtime", "WindowResult"),
+    ("eventtime", "drive_sliding"), ("eventtime", "PaneAssembler"),
+    ("eventtime", "WatermarkTracker"), ("eventtime", "merge_watermarks"),
+    ("eventtime", "NO_WATERMARK"), ("eventtime", "DecForest"), ("", "ScheduledCountWindow"),
 ])
 def test_slice_names_are_cases(package, name):
     """The names the slices port, and the three imports that used to fail,

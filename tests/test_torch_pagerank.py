@@ -253,8 +253,10 @@ def test_state_dict_format_matches_jax():
 
 
 def test_later_slices_and_capacity_rule_raise():
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        TorchPR(superbatch="auto")
+    # superbatch="auto" is ported (slice 7b's control half)
+    assert TorchPR(superbatch="auto").superbatch_auto
+    with pytest.raises(ValueError, match='"auto"'):
+        TorchPR(superbatch="Auto")
     with pytest.raises(NotImplementedError, match="slice 6"):
         TorchPR(mesh=object())
     with pytest.raises(NotImplementedError, match="slice 9"):

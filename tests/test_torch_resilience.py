@@ -471,12 +471,23 @@ def test_generator_source_feeds_a_stream_like_the_reference():
 
 
 def test_event_time_records_name_their_slice():
+    """Event-time records are ported (slice 8): the generator stamps
+    ``ts_start + ordinal // ts_rate`` on both of its paths, as the JAX
+    package does, and the socket source takes its extractor."""
+    from gelly_streaming_tpu.core.sources import GeneratorSource as JaxGen
     from gelly_streaming_tpu_torch.core.sources import GeneratorSource, SocketEdgeSource
 
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        GeneratorSource(ts_rate=4)
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        SocketEdgeSource("127.0.0.1", 1, ts_extractor=lambda s, d, v: int(v))
+    gen = GeneratorSource(scale=6, chunk=64, limit=200, ts_rate=4, ts_start=7)
+    ref = JaxGen(scale=6, chunk=64, limit=200, ts_rate=4, ts_start=7)
+    got = [tuple(np.asarray(c).tolist() for c in t) for t in gen.iter_chunks_ts()]
+    want = [tuple(np.asarray(c).tolist() for c in t) for t in ref.iter_chunks_ts()]
+    assert got == want and got[0][2][:5] == [7, 7, 7, 7, 8]
+    assert list(gen) == list(ref)
+    with pytest.raises(ValueError, match="ts_rate"):
+        GeneratorSource(ts_rate=0)
+    with pytest.raises(RuntimeError, match="ts_rate"):
+        next(GeneratorSource(limit=8).iter_chunks_ts())
+    assert SocketEdgeSource("127.0.0.1", 1, ts_extractor=lambda s, d, v: int(v)).ts_extractor
 
 
 def _serve(payload, times):

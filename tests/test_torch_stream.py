@@ -192,19 +192,21 @@ def _meshed_slice_reduce(edges):
 @pytest.mark.parametrize(
     "make",
     [
-        # the window and neighborhood layer is ported (slice 4): what stays
-        # for later slices on its paths still raises
-        lambda e: DegreeDistribution.sliding(10, device="cpu"),
+        # the window and neighborhood layer is ported (slice 4) and the
+        # event-time shape (slice 8): what stays for later slices on their
+        # paths still raises (the sliding payload for serving)
+        lambda e: DegreeDistribution.sliding(10).servable_payload(),
         # the exact counter is ported (slice 5); the triangle path's
         # edge-sharded count stays for slice 6
         lambda e: [ttri.window_triangle_count_sharded(e)],
         _meshed_slice_reduce,
-        # streaming CC is ported (slice 2): what stays for later slices on
-        # the aggregate, superbatch and file paths still raises
+        # streaming CC is ported (slice 2) and superbatch="auto" (slice 7b's
+        # control half): what stays for later slices on the aggregate and
+        # superbatch paths still raises (the mesh)
         lambda e: gt.SimpleEdgeStream(e, device="cpu").aggregate(
-            ConnectedComponents.sliding(10)
+            ConnectedComponents(mesh=object())
         ),
-        lambda e: gt.SimpleEdgeStream(e, device="cpu").superbatches_dynamic(lambda: 4),
+        lambda e: ConnectedComponents(superbatch="auto", mesh=object()),
         # the device vertex dictionary and iterative CC are ported (slice
         # 5b); iterative CC over a sharded mesh stays for slice 6
         lambda e: IterativeConnectedComponents(mesh=object()),

@@ -7,7 +7,9 @@ incremental PageRank, bipartiteness, exact triangles, the device
 spanner, the device vertex dictionary, the sampling triangle estimators
 and iterative CC end to end, kill and resume the headline cell under the
 supervisor, run CC under the auto-K controller and the event-time sliding
-windows, and print the results.
+windows, run sharded socket ingest into CC and event time, kill and
+relaunch a 2-process coordinated cluster on the card, and print the
+results.
 
     python3 chip_smoke.py
 
@@ -176,7 +178,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``bench.py:764 bench_autotune_pair``, phase 5's corpus prefix of 2^23
    edges (its binary cache) in ``CountWindow(1024)`` over
    ``IdentityDict(1 << 21)``: the hand K of ``auto_superbatch_k`` (256)
-   and auto (from K = 1) alternate, a warm pass each and 3 pairs; edges/s
+   and auto (from K = 1) alternate, a warm pass each and 2 pairs; edges/s
    of each and their ratio, the controller's ``k_path``, its retunes and
    final K, and the host reads a window of a pass pinned at that K; the
    last window's labels equal to scipy's. (b) the shift cell of
@@ -193,7 +195,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``AutoCheckpoint(every=4)`` must resume to the uninterrupted labels.
 18. eventtime — ``bench.py:2089 bench_eventtime`` at full size: 96 panes of
    8192 edges over a drifting key span of 2^15, a window of 8 panes: the
-   sliding aggregator's edges/s (one warm pass, the median of 3), a pass
+   sliding aggregator's edges/s (one warm pass, the median of 2), a pass
    with ``verify=True`` (every window against the from-scratch oracles),
    and every expiry's retraction against a rebuild of the three summaries
    (0 mismatches, the cycles, the median refolded edges, the
@@ -205,7 +207,39 @@ Phases, in order; any failure raises and the script exits non-zero:
    that path and of the aggregator alone.
    Phases 17 and 18 print their ``fused_sage_matmul`` launches (0: their
    paths have no hand-written kernel).
-19. a ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
+19. ingest — slice 7b on the card. (a) ``bench.py:1895 bench_ingest`` at its
+   full size: 2^22 R-MAT edges (scale 20, seed 7) served by the port's
+   ``python -m gelly_streaming_tpu_torch.core.ingest --serve`` peer
+   subprocesses (started together, no card visible to them), per-shard
+   windows of 2^14, ``superbatches(8)``, frames of 8192 edges, 8 queued
+   windows; cells ``c1_text`` (one ``SocketEdgeSource``), ``c2_text``,
+   ``c4_text``, ``c1_binary``, ``c2_binary``, ``c4_binary``
+   (``ShardedEdgeSource``): edges/s as the median of 3 passes with the
+   reference's endpoint (groups assembled and encoded), each pass's
+   ``source.backpressure_s`` and malformed frames and lines (0), and every
+   pass must consume exactly 2^22 edges. (b) The ``c4_binary`` and
+   ``c1_text`` streams into ``ConnectedComponents(superbatch=8)`` on the
+   card, ``sync()`` timed, a warm pass and the median of 3: edges/s, the
+   emission interval's p50 (and a group's), host reads a window, the carry
+   (must be "forest"); the final components decoded to raw ids must equal
+   scipy's of the R-MAT edges regenerated here; then the busy share and top
+   kernels of one profiled ``c4_binary`` pass. (c) Phase 18's drifting
+   stream partitioned with ``ts`` over 2 shards, served by ``serve_blobs``
+   as GSEW v2 frames, through ``ShardedEdgeSource(timestamps=True)
+   .windows_ts()`` into ``drive_sliding(SlidingGraphAggregator(8, 1,
+   nshards=2, verify=True))``: edges/s, the pane closes, 0 mismatches and 0
+   late drops. (d) ``run_mp_sweep(processes=2, windows=6, window_edges=128,
+   superbatch=2, every=2, corrupt=True)`` with every worker's CC on the card
+   (the reference's 12 windows cut to 6, the least with a corrupt point),
+   then one kill point against an ``ExchangeDaemon`` (``transport=
+   "socket"``): every point oracle-identical with byte-identical
+   dictionaries and a flight dump, the corrupt epoch skipped with its
+   rejection in the merged event log; the time from each kill to the
+   relaunch's first emission and how many points' workers agreed on one
+   epoch. (e) The locally runnable legs of ``bench.py:run_transport_bench``
+   for shared-dir and socket: p50/p99 of a 4 KiB put plus get, a 2-rank
+   allgather and an election. Prints its ``fused_sage_matmul`` launches (0).
+20. a ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
 Each phase's wall seconds are printed after it.
 
 TF32 is off for float32 matmuls (``torch.backends.cuda.matmul.allow_tf32 =
@@ -218,6 +252,7 @@ import os
 import shutil
 import statistics
 import subprocess
+import sys
 import time
 import warnings
 
@@ -372,7 +407,7 @@ ICC_STEPS = ("icc.incremental", "icc.diff", "dict.encode", "engine.dispatch", "c
 AK_WINDOW = 1024
 AK_EDGES = 1 << 23
 AK_HAND_K = 256  # bench.py:auto_superbatch_k(1024), BENCH_AUTOTUNE_CPU.json
-AK_PAIRS = 3
+AK_PAIRS = 2  # 3 until phase 19 joined the script (PERF.md section 4)
 AK_SHIFT_EDGES = 1 << 22
 AK_SHIFT_FOLD = 1 << 16
 AK_SHIFT_SCHEDULE = ((0, 1024), (512, 8192))
@@ -394,6 +429,7 @@ ET_SKEW_RECORDS = 1 << 15  # tests/test_eventtime.py:513
 ET_SKEW_VMAX = 4096
 ET_SKEW = 3
 ET_SKEW_WINDOW = 256
+ET_STEADY_PASSES = 2  # 3 until phase 19 joined the script (PERF.md section 4)
 
 # phase 16: durability on the headline cell. The supervised run keeps 3
 # barriers, one every 4 windows, and is killed as prefetch item 9 is
@@ -406,6 +442,30 @@ DUR_RESUME_AT = 8
 DUR_PAIRS = 3
 DUR_DD_EVERY = 2
 DUR_DD_KILL_AFTER = 5
+
+# phase 19: sharded ingest (bench.py:1895 bench_ingest at its full size),
+# the slice's CC path on the card, event time over sharded sockets, the
+# multi-process kill sweep and the fabric legs of bench.py:run_transport_bench
+IG_EDGES = 1 << 22
+IG_SCALE = 20
+IG_SEED = 7
+IG_WINDOW = 1 << 14  # per shard
+IG_SUPERBATCH = 8
+IG_FRAME_EDGES = 8192
+IG_QUEUE_WINDOWS = 8
+IG_CELLS = ((1, "text"), (2, "text"), (4, "text"), (1, "binary"), (2, "binary"),
+            (4, "binary"))
+IG_REPS = 3
+IG_CC_CELLS = ((4, "binary"), (1, "text"))  # (b): the streams into CC
+IG_ET_SHARDS = 2
+IG_MP_WINDOWS = 6  # the reference's 12 cut to fit about 90 s; 6 is the
+# least at which the corrupt point (window max(2 * every + 2, windows // 2))
+# exists
+IG_MP_SOCKET_WINDOWS = 1  # one kill point against the exchange daemon
+IG_MP_DEVICE = "cuda"  # where the sweep's workers run their CC
+IG_STORE_ROUNDS = 200
+IG_AG_ROUNDS = 30
+IG_ELECTIONS = 40
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate and dense bf16 tensor rate;
 # float32 work counts against the CUDA cores' f32 rate
@@ -785,15 +845,16 @@ def profile_pass(torch, one_pass, wall, prof=None):
 
 
 @functools.lru_cache(maxsize=1)
-def rmat_oracle_edges(n_edges, scale, chunk=1 << 22, a=0.57, b=0.19, c=0.19):
+def rmat_oracle_edges(n_edges, scale, chunk=1 << 22, a=0.57, b=0.19, c=0.19, seed=0):
     """The surrogate's edge columns regenerated from the seeds the corpus
-    writer uses (chunk ``start`` takes seed ``start``), by an R-MAT written
-    out here: the oracle needs neither the port nor the file. Kept for
-    phase 6, which checks the same edges; callers only read them."""
+    writer uses (chunk ``start`` takes seed ``seed + start``), by an R-MAT
+    written out here: the oracle needs neither the port nor the file. Kept
+    for phase 6, which checks the same edges; callers only read them. One
+    chunk with ``seed`` is the serve peer's stream (phase 19)."""
     srcs, dsts = [], []
     for start in range(0, n_edges, chunk):
         n = min(chunk, n_edges - start)
-        rng = np.random.default_rng(start)
+        rng = np.random.default_rng(seed + start)
         src = np.zeros(n, np.int64)
         dst = np.zeros(n, np.int64)
         for _ in range(scale):
@@ -2976,7 +3037,7 @@ def phase_eventtime(torch):
         return time.perf_counter() - t0, res
 
     one_pass()
-    secs = [one_pass()[0] for _ in range(STEADY_PASSES)]
+    secs = [one_pass()[0] for _ in range(ET_STEADY_PASSES)]
     sec_v, res_v = one_pass(verify=True)  # raises on any mismatch
     sliding = {"edges": n_edges, "panes": ET_PANES, "per_pane": ET_PER_PANE,
                "vspan": ET_VSPAN, "window_panes": ET_WINDOW_PANES,
@@ -3118,6 +3179,311 @@ def phase_eventtime(torch):
     return cell
 
 
+
+# ---------------------------------------------------------------------- #
+# Phase 19: sharded ingest, the fabric and multi-process recovery
+# ---------------------------------------------------------------------- #
+def _start_peer(conns, fmt, accepts):
+    """The port's serve-from-memory peer (``python -m
+    gelly_streaming_tpu_torch.core.ingest --serve``) as a subprocess that
+    sees no card (it must never touch one)."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "gelly_streaming_tpu_torch.core.ingest", "--serve",
+         "--shards", str(conns), "--edges", str(IG_EDGES), "--scale", str(IG_SCALE),
+         "--seed", str(IG_SEED), "--format", fmt, "--frame-edges", str(IG_FRAME_EDGES),
+         "--accepts", str(accepts)],
+        stdout=subprocess.PIPE, cwd=os.path.dirname(os.path.abspath(__file__)),
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
+    )
+
+
+def _ingest_stream(conns, fmt, ports, device="cuda"):
+    from gelly_streaming_tpu_torch import CountWindow, SimpleEdgeStream
+    from gelly_streaming_tpu_torch.core.ingest import ShardedEdgeSource
+    from gelly_streaming_tpu_torch.core.sources import SocketEdgeSource
+
+    if conns == 1 and fmt == "text":
+        # the baseline: the one socket reader every edge used to enter by
+        return SimpleEdgeStream(SocketEdgeSource("127.0.0.1", ports[0], tick_s=0.05),
+                                window=CountWindow(IG_WINDOW), device=device)
+    return ShardedEdgeSource([("127.0.0.1", p) for p in ports], window=IG_WINDOW, fmt=fmt,
+                             queue_windows=IG_QUEUE_WINDOWS).stream(device=device)
+
+
+def _counter_sum(reg, name):
+    return float(sum(inst.value for _, inst in reg.find(name)))
+
+
+def phase_ingest(torch):
+    import tempfile
+    import threading
+
+    from gelly_streaming_tpu_torch import obs
+    from gelly_streaming_tpu_torch.core.ingest import (
+        ShardedEdgeSource,
+        encode_shard_frames,
+        partition_edges,
+        serve_blobs,
+    )
+    from gelly_streaming_tpu_torch.eventtime import (
+        SlidingGraphAggregator,
+        drive_sliding,
+        oracle_bipartite,
+        oracle_degrees,
+    )
+    from gelly_streaming_tpu_torch.eventtime import oracle_labels as et_oracle_labels
+    from gelly_streaming_tpu_torch.library import ConnectedComponents
+    from gelly_streaming_tpu_torch.obs.registry import nearest_rank
+    from gelly_streaming_tpu_torch.ops import sage_kernels as sk
+    from gelly_streaming_tpu_torch.summaries import labels
+
+    cell = {}
+    # every peer starts now and pre-encodes in parallel; each serves its
+    # connections in turn (a re-accept replays the whole stream)
+    extra = {(4, "binary"): 1 + STEADY_PASSES + 1, (1, "text"): 1 + STEADY_PASSES}
+    t0 = time.perf_counter()
+    peers = {key: _start_peer(key[0], key[1], IG_REPS + extra.get(key, 0)) for key in IG_CELLS}
+    try:
+        ready = {key: json.loads(p.stdout.readline()) for key, p in peers.items()}
+        say(f"ingest peers ready in {time.perf_counter() - t0:.1f} s (no card visible to them): "
+            + json.dumps({f"c{k[0]}_{k[1]}": r["per_shard"] for k, r in ready.items()}))
+        if any(r["edges"] != IG_EDGES for r in ready.values()):
+            raise AssertionError("a peer serves another edge count")
+
+        # (a) the ingest cells: superbatch groups assembled and encoded
+        def group_edges(g):
+            if g.cols is not None:
+                return sum(len(c[0]) for c in g.cols)
+            return sum(len(b._host_cache[0]) for b in g._blocks)
+
+        cells = {}
+        for conns, fmt in IG_CELLS:
+            runs = []
+            for _ in range(IG_REPS):
+                reg = obs.set_registry(None)
+                stream = _ingest_stream(conns, fmt, ready[(conns, fmt)]["ports"])
+                t1 = time.perf_counter()
+                consumed = sum(group_edges(g) for g in stream.superbatches(IG_SUPERBATCH))
+                dt = time.perf_counter() - t1
+                runs.append({"seconds": dt, "eps": IG_EDGES / dt, "consumed": consumed,
+                             "backpressure_s": _counter_sum(reg, "source.backpressure_s"),
+                             "malformed_frames": _counter_sum(reg, "source.malformed_frames"),
+                             "malformed_lines": _counter_sum(reg, "source.malformed_lines"),
+                             "reconnects": _counter_sum(reg, "source.reconnects")})
+            key = f"c{conns}_{fmt}"
+            mid = sorted(runs, key=lambda r: r["eps"])[len(runs) // 2]
+            cells[key] = {"connections": conns, "format": fmt, "edges_per_s": mid["eps"],
+                          "seconds": mid["seconds"], "edges_per_s_all": [r["eps"] for r in runs],
+                          "consumed": [r["consumed"] for r in runs],
+                          "backpressure_s": [r["backpressure_s"] for r in runs],
+                          "malformed_frames": [r["malformed_frames"] for r in runs],
+                          "malformed_lines": [r["malformed_lines"] for r in runs],
+                          "reconnects": [r["reconnects"] for r in runs]}
+            say(f"ingest {key} " + json.dumps(cells[key]))
+            if (any(c != IG_EDGES for c in cells[key]["consumed"])
+                    or any(cells[key]["malformed_frames"]) or any(cells[key]["malformed_lines"])):
+                raise AssertionError(f"ingest {key} lost edges or saw malformed input")
+        cell["cells"] = cells
+        cell["ratio_c4_binary_vs_c1_text"] = (cells["c4_binary"]["edges_per_s"]
+                                              / cells["c1_text"]["edges_per_s"])
+        say(f"ingest c4_binary / c1_text: {cell['ratio_c4_binary_vs_c1_text']:.3f} "
+            f"(host cores {os.cpu_count()})")
+
+        # (b) the slice's main path: the same streams into streaming CC on
+        # the card, sync() inside the timed region
+        src, dst = rmat_oracle_edges(IG_EDGES, IG_SCALE, chunk=IG_EDGES, seed=IG_SEED)
+        seen = np.unique(np.concatenate([src, dst]))
+        want = oracle_labels(src, dst, 1 << IG_SCALE)
+
+        def cc_pass(key):
+            stream = _ingest_stream(key[0], key[1], ready[key]["ports"])
+            agg = ConnectedComponents(superbatch=IG_SUPERBATCH)
+            labels.HOST_READS = 0
+            lat, last = [], None
+            t1 = last_t = time.perf_counter()
+            for last in stream.aggregate(agg):
+                now = time.perf_counter()
+                lat.append(now - last_t)
+                last_t = now
+            agg.sync()
+            dt = time.perf_counter() - t1
+            per_group = np.add.reduceat(np.asarray(lat), np.arange(0, len(lat), IG_SUPERBATCH))
+            return {"seconds": dt, "windows": len(lat),
+                    "p50_ms": float(np.percentile(np.asarray(lat) * 1e3, 50)),
+                    "group_p50_ms": float(np.percentile(per_group * 1e3, 50)),
+                    "host_reads_per_window": labels.HOST_READS / len(lat),
+                    "carry": agg._cc_mode}, last, stream
+
+        sk.LAUNCHES = 0
+        main = {}
+        for key in IG_CC_CELLS:
+            cc_pass(key)  # warm
+            runs = [cc_pass(key) for _ in range(STEADY_PASSES)]
+            res, last, stream = sorted(runs, key=lambda r: r[0]["seconds"])[len(runs) // 2]
+            ok, n_seen, n_comp = _raw_partition_ok(last, stream.vertex_dict, want, seen)
+            name = f"c{key[0]}_{key[1]}"
+            main[name] = dict(res, edges_per_s=IG_EDGES / res["seconds"],
+                              edges_per_s_all=[IG_EDGES / r[0]["seconds"] for r in runs],
+                              vertices=n_seen, components=n_comp, equal_to_scipy=bool(ok))
+            say(f"ingest cc {name} " + json.dumps(main[name]))
+            if not ok or res["carry"] != "forest":
+                raise AssertionError(f"sharded CC over {name} differs from scipy or did not "
+                                     f"pick the forest carry ({res['carry']})")
+        cell["cc"] = main
+        say(f"ingest fused_sage_matmul launches in phase 19's CC path: {sk.LAUNCHES} (the path "
+            "has no hand-written kernel; the forest carry's steps are PyTorch operations)")
+        cell["fused_sage_matmul_launches"] = sk.LAUNCHES
+
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            cc_pass(IG_CC_CELLS[0])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+        cell["cc_busy_share"] = profile_pass(torch, lambda: None, wall, prof=prof)
+        for key, p in peers.items():
+            if p.wait(timeout=60) != 0:
+                raise AssertionError(f"ingest peer c{key[0]}_{key[1]} exited {p.returncode}")
+    finally:
+        for p in peers.values():
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+            p.stdout.close()
+
+    # (c) event time from sharded sockets: phase 18's drifting stream,
+    # partitioned with ts, served as GSEW v2 frames
+    e_src, e_dst, e_ts = _drifting_ts_stream(ET_PANES, ET_PER_PANE, ET_VSPAN)
+    blobs = [encode_shard_frames(s, d, ts=t, frame_edges=IG_FRAME_EDGES)
+             for s, d, _v, t in partition_edges(e_src, e_dst, None, IG_ET_SHARDS, ts=e_ts)]
+    reg = obs.set_registry(None)
+    ports, threads, stop = serve_blobs(blobs)
+    source = ShardedEdgeSource([("127.0.0.1", p) for p in ports], window=ET_PER_PANE,
+                               timestamps=True)
+    agg = SlidingGraphAggregator(ET_WINDOW_PANES, 1, nshards=IG_ET_SHARDS, verify=True)
+    t1 = time.perf_counter()
+    results = drive_sliding(source.windows_ts(), agg)  # verify=True raises on a mismatch
+    dt = time.perf_counter() - t1
+    stop.set()
+    for t in threads:
+        t.join(10)
+    final = results[-1]
+    m = (e_ts >= final.start) & (e_ts < final.end)
+    final_ok = (np.array_equal(final.labels, et_oracle_labels(len(final.labels), e_src[m], e_dst[m]))
+                and np.array_equal(final.degrees, oracle_degrees(len(final.degrees), e_src[m],
+                                                                 e_dst[m]))
+                and final.bipartite == oracle_bipartite(len(final.degrees), e_src[m], e_dst[m]))
+    et = {"edges": int(len(e_src)), "shards": IG_ET_SHARDS, "seconds": dt,
+          "edges_per_s": len(e_src) / dt, "windows": len(results),
+          "pane_closes": _counter_sum(reg, "eventtime.pane_close"),
+          "late_dropped": _counter_sum(reg, "eventtime.late_dropped"),
+          "verify_mismatches": 0, "final_equal_to_oracles": bool(final_ok)}
+    say("ingest eventtime over sharded sockets " + json.dumps(et))
+    if not final_ok or et["late_dropped"] or len(results) != ET_PANES:  # one per pane close
+        raise AssertionError("event time over sharded sockets differs from the oracles")
+    cell["eventtime"] = et
+
+    # (d) real process kills on the card: the 2-process coordinated sweep
+    from gelly_streaming_tpu_torch.resilience import chaos
+
+    sweeps = {}
+    for transport, windows in (("shared_dir", IG_MP_WINDOWS), ("socket", IG_MP_SOCKET_WINDOWS)):
+        work = tempfile.mkdtemp(prefix=f"smoke_mp_{transport}_", dir=_cache_dir())
+        obs_log = os.path.join(work, "obs.jsonl")
+        t1 = time.perf_counter()
+        doc = chaos.run_mp_sweep(
+            processes=2, windows=windows, window_edges=128, superbatch=2, every=2,
+            corrupt=transport == "shared_dir", failover=False, rpc=False, transport=transport,
+            workdir=work, obs_log=obs_log, log=lambda s: None, device=IG_MP_DEVICE)
+        wall = time.perf_counter() - t1
+        merged = chaos._read_jsonl(obs_log)
+        corrupt = [p for p in doc["points"] if p.get("corrupted_epoch") is not None]
+        rejected = [e for e in merged if e.get("name") == "resilience.ckpt_rejected"
+                    and corrupt and e.get("point") == f"kill_{corrupt[0]['kill_after']:03d}"]
+        sweeps[transport] = {
+            "ok": doc["ok"], "windows": windows, "kill_points": doc["kill_points"],
+            "wall_s": wall, "oracle_s": doc["oracle_s"],
+            "cluster_restarts": doc["cluster_restarts_total"],
+            "epoch_agreed_points": sum(1 for p in doc["points"] if p.get("epoch_agreed")),
+            "resumed_epochs": [p.get("resumed_epochs") for p in doc["points"]],
+            "kill_to_first_emission_s": [p.get("kill_to_first_emission_s")
+                                         for p in doc["points"]],
+            "kill_to_first_emission_p50_s": doc["kill_to_first_emission_s"]["p50"],
+            "recovery_s": doc["recovery_s"], "corrupted_epoch": (
+                corrupt[0]["corrupted_epoch"] if corrupt else None),
+            "rejections_in_merged_log": len(rejected), "merged_events": len(merged),
+            "flight_dumps": doc["flight_dumps_total"], "device": doc["config"]["device"]}
+        say(f"ingest kill sweep [{transport}] " + json.dumps(sweeps[transport]))
+        bad = [p for p in doc["points"] if not p["ok"]]
+        if not doc["ok"] or bad:
+            raise AssertionError(f"kill sweep [{transport}] failed: {bad}")
+        if transport == "shared_dir" and (not corrupt or not rejected):
+            raise AssertionError("the corrupt epoch was not skipped with its rejection logged")
+        shutil.rmtree(work, ignore_errors=True)
+    cell["kill_sweep"] = sweeps
+
+    # (e) fabric latencies, both locally runnable backends
+    from gelly_streaming_tpu_torch.fabric import (
+        ExchangeDaemon,
+        SharedDirTransport,
+        SocketTransport,
+    )
+
+    def pcts(ms):
+        xs = sorted(ms)
+        return {"p50_ms": nearest_rank(xs, 50), "p99_ms": nearest_rank(xs, 99)}
+
+    fabric = {}
+    payload = b"x" * 4096
+    for backend in ("shared_dir", "socket"):
+        root = tempfile.mkdtemp(prefix="smoke_fabric_", dir=_cache_dir())
+        daemon = ExchangeDaemon().start() if backend == "socket" else None
+
+        def make(pid=0, n=1):
+            if daemon is not None:
+                return SocketTransport(daemon.address, pid, n, timeout_s=60)
+            return SharedDirTransport(root, pid, n, timeout_s=60)
+
+        try:
+            tr = make()
+            lat = []
+            for i in range(IG_STORE_ROUNDS):
+                t1 = time.perf_counter()
+                tr.put(f"pg.{i}", payload, overwrite=True)
+                got = tr.get(f"pg.{i}")
+                lat.append((time.perf_counter() - t1) * 1e3)
+                assert got == payload
+            a, b = make(0, 2), make(1, 2)
+            arr = np.arange(1024, dtype=np.int64)
+            ag = []
+            peer = threading.Thread(target=lambda: [b.allgather(f"ag.{r}", arr * 10)
+                                                    for r in range(IG_AG_ROUNDS)])
+            peer.start()
+            for r in range(IG_AG_ROUNDS):
+                t1 = time.perf_counter()
+                out = a.allgather(f"ag.{r}", arr)
+                ag.append((time.perf_counter() - t1) * 1e3)
+                assert len(out) == 2 and np.array_equal(out[1], arr * 10)
+            peer.join(120)
+            el = []
+            for r in range(IG_ELECTIONS):
+                t1 = time.perf_counter()
+                won = make(0, 2).elect(f"lead.{r}", r)
+                el.append((time.perf_counter() - t1) * 1e3)
+                assert won == r
+        finally:
+            if daemon is not None:
+                daemon.stop()
+            shutil.rmtree(root, ignore_errors=True)
+        fabric[backend] = {"put_get_4k": pcts(lat), "allgather_2_ranks": pcts(ag),
+                           "elect": pcts(el)}
+        say(f"ingest fabric [{backend}] " + json.dumps(fabric[backend]))
+    cell["fabric"] = fabric
+    obs.set_registry(None)
+    return cell
+
+
 def timed(name, fn, *args):
     """Run one phase and print its wall seconds."""
     t0 = time.perf_counter()
@@ -3148,6 +3514,7 @@ def main():
     timed("durability", phase_durability, torch, cc_oracle)
     timed("autok", phase_autok, torch)
     timed("eventtime", phase_eventtime, torch)
+    timed("ingest", phase_ingest, torch)
     say(f"all phases: {time.perf_counter() - t_start:.1f} s")
     kernel = {
         "name": "fused_sage_matmul",

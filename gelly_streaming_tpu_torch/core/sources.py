@@ -20,8 +20,11 @@ to each record as a fourth field; ``GeneratorSource(ts_rate=r)`` stamps
 ``ts_start + ordinal // r`` (:meth:`GeneratorSource.iter_chunks_ts` yields
 ``(src, dst, ts)`` columns for a
 :class:`~gelly_streaming_tpu_torch.eventtime.SlidingGraphAggregator`).
-The sharded scale-out path (``ShardedEdgeSource``, the binary wire
-format) comes with ROADMAP Queue 1, slice 7b (ingest).
+These are the SINGLE-connection sources. The scale-out path — N
+connections partitioned by edge-endpoint hash, the GSEW binary wire
+format decoded natively, per-shard windowers with explicit backpressure —
+lives in :mod:`gelly_streaming_tpu_torch.core.ingest`
+(``ShardedEdgeSource``).
 
 Both yield ``None`` ticks while idle so a ``ProcessingTimeWindow`` can
 close an open window on schedule even when no records arrive.

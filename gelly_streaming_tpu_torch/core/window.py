@@ -748,30 +748,46 @@ def iter_time_slot_runs(chunks, policy: EventTimeWindow, val_dtype=VAL_DTYPE):
 
 def take_cols(pend: list, take: int, val_dtype=VAL_DTYPE):
     """Slice ``take`` edges off a pending list of ``(src, dst, val|None)``
-    column chunks, mutating ``pend`` in place. A take from one chunk hands
-    out slice views; a take across chunks concatenates once, filling
-    ``None`` value chunks with zeros when any chunk carries values. (The
-    event-time ``ts`` column of the reference's wire frames comes with the
-    sharded ingest, ROADMAP Queue 1, slice 7b (ingest).)"""
-    s_parts, d_parts, v_parts = [], [], []
+    column chunks, mutating ``pend`` in place: the take-N-across-chunk
+    rule shared by the windower's chunked count windows and the sharded
+    ingest's per-shard window assembly (``core/ingest.py``). A take from
+    one chunk hands out slice views; a take across chunks concatenates
+    once, filling ``None`` value chunks with zeros when any chunk carries
+    values.
+
+    Chunks may carry a fourth element, the i64 event-time ``ts`` column
+    of a GSEW v2 frame; the take then returns a matching 4-tuple, slicing
+    ``ts`` in lockstep. A pending list whose chunks disagree on carrying
+    ``ts`` raises: a window half of whose records lost their timestamps
+    cannot be assigned to event-time panes honestly."""
+    with_ts = len(pend[0]) == 4
+    s_parts, d_parts, v_parts, t_parts = [], [], [], []
     got = 0
     while got < take:
-        s, d, v = pend[0][:3]
+        chunk = pend[0]
+        if (len(chunk) == 4) != with_ts:
+            raise ValueError("pending column chunks disagree on carrying a ts column")
+        s, d, v = chunk[0], chunk[1], chunk[2]
+        t = chunk[3] if with_ts else None
         need = take - got
         if len(s) <= need:
             s_parts.append(s)
             d_parts.append(d)
             v_parts.append(v)
+            t_parts.append(t)
             pend.pop(0)
             got += len(s)
         else:
             s_parts.append(s[:need])
             d_parts.append(d[:need])
             v_parts.append(None if v is None else v[:need])
-            pend[0] = (s[need:], d[need:], None if v is None else v[need:])
+            t_parts.append(None if t is None else t[:need])
+            rest = (s[need:], d[need:], None if v is None else v[need:])
+            pend[0] = rest + (t[need:],) if with_ts else rest
             got = take
     if len(s_parts) == 1:
-        return s_parts[0], d_parts[0], v_parts[0]
+        out = (s_parts[0], d_parts[0], v_parts[0])
+        return out + (t_parts[0],) if with_ts else out
     src = np.concatenate(s_parts)
     dst = np.concatenate(d_parts)
     if any(v is not None for v in v_parts):
@@ -781,6 +797,8 @@ def take_cols(pend: list, take: int, val_dtype=VAL_DTYPE):
         ])
     else:
         val = None
+    if with_ts:
+        return src, dst, val, np.concatenate([np.asarray(t, np.int64) for t in t_parts])
     return src, dst, val
 
 

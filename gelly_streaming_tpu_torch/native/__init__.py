@@ -137,6 +137,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         "vbitmap_novel2": (i64, [vp, pi32a, pi32a, i64]),
         "parse_edge_lines": (i64, [ctypes.c_char_p, i64, p64, p64, pf64, i64, pi32,
                                    ctypes.POINTER(i64)]),
+        "decode_edge_frame": (i64, [ctypes.c_char_p, i64, i64, i32, i32, p64, p64, pf64]),
     }
     for name, (restype, argtypes) in sigs.items():
         fn = getattr(lib, name)
@@ -450,6 +451,41 @@ def parse_edge_lines(data: bytes) -> Tuple[np.ndarray, np.ndarray, Optional[np.n
                                ctypes.byref(has_val), ctypes.byref(malformed))
     return (src[:got].copy(), dst[:got].copy(),
             val[:got].copy() if has_val.value else None, int(malformed.value))
+
+
+def decode_edge_frame(
+    payload: bytes, n_edges: int, wide: bool, has_val: bool
+) -> Tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]:
+    """Decode one GSEW frame payload (``core/ingest.py``) into ``(src i64,
+    dst i64, val f64|None)``: one native call per frame (geometry check,
+    int32 widen, copy into fresh buffers). The numpy ``frombuffer``
+    fallback runs only where the library could not be built. Raises
+    ``ValueError`` when the payload size disagrees with the declared
+    geometry (the caller counts a malformed frame)."""
+    n = int(n_edges)
+    isz = 8 if wide else 4
+    want = n * isz * 2 + (8 * n if has_val else 0)
+    lib = _load()
+    if lib is None or n == 0:
+        if len(payload) != want:
+            raise ValueError(
+                f"frame payload is {len(payload)} bytes; declared geometry "
+                f"(n={n}, wide={bool(wide)}, val={bool(has_val)}) wants {want}")
+        dt = np.int64 if wide else np.int32
+        src = np.frombuffer(payload, dt, n, 0).astype(np.int64)
+        dst = np.frombuffer(payload, dt, n, n * isz).astype(np.int64)
+        val = np.frombuffer(payload, np.float64, n, 2 * n * isz).copy() if has_val else None
+        return src, dst, val
+    src = np.empty(n, np.int64)
+    dst = np.empty(n, np.int64)
+    val = np.empty(n if has_val else 0, np.float64)
+    rc = lib.decode_edge_frame(payload, len(payload), n, 1 if wide else 0,
+                               1 if has_val else 0, src, dst, val)
+    if rc != 0:
+        raise ValueError(
+            f"frame payload is {len(payload)} bytes; declared geometry "
+            f"(n={n}, wide={bool(wide)}, val={bool(has_val)}) wants {want}")
+    return src, dst, (val if has_val else None)
 
 
 class _Handle:

@@ -12,8 +12,8 @@ failure report carries the last seconds of telemetry that led up to it.
 Wiring mirrors ``resilience/faults.py``: construct a
 :class:`FlightRecorder` and :func:`install` it; installation attaches it as
 a sink on BOTH event sources (tracer + global registry), and the crash
-sites (``Supervisor``, ``faults.fire``'s kill path; the serving worker and
-the cluster supervisor come with later slices) call
+sites (``Supervisor``, ``faults.fire``'s kill path, ``ClusterSupervisor``
+via its workers' dump files; the serving worker comes with slice 9) call
 :func:`dump_installed` — a no-op costing one module attribute check when
 nothing is installed.
 
@@ -71,6 +71,16 @@ class FlightRecorder:
         if _trace.on():
             with self._lock:
                 self._ring.append(event)
+
+    def note(self, name: str, **attrs) -> None:
+        """Record a marker event directly (bypasses the registry; still
+        gated — markers are telemetry, not operational state)."""
+        if _trace.on():
+            e = {"kind": "note", "name": name, "ts": time.time()}
+            if attrs:
+                e["attrs"] = attrs
+            with self._lock:
+                self._ring.append(e)
 
     def snapshot(self) -> List[dict]:
         with self._lock:
@@ -201,3 +211,21 @@ def dump_installed(reason: str, path: Optional[str] = None,
     if rec is None:
         return None
     return rec.dump(reason, path=path, **extra)
+
+
+def find_dumps(directory: str) -> List[str]:
+    """Every flight dump under ``directory`` (non-recursive), oldest first
+    — the collection pass ``ClusterSupervisor`` runs over its workers'
+    black boxes."""
+    try:
+        names = os.listdir(directory)
+    except OSError:
+        return []
+    hits = [
+        os.path.join(directory, n)
+        for n in names
+        if "flight" in n and not n.endswith(".tmp")
+        and os.path.isfile(os.path.join(directory, n))
+    ]
+    hits.sort(key=lambda p: (os.path.getmtime(p), p))
+    return hits

@@ -11,10 +11,17 @@ recovery and deterministic fault injection.
   deduplicate replayed emissions.
 - ``faults`` — a seeded deterministic :class:`FaultPlan` behind test-only
   hook points (pipeline, sources, checkpoints).
+- ``coordinated`` — the distributed half: per-shard epoch barriers
+  aligned across processes with a restore-side rendezvous (the newest
+  epoch valid across ALL shards; mixed-epoch restores impossible by
+  construction) and :class:`ClusterSupervisor` restart-all process
+  supervision. ``chaos.run_mp_sweep`` kills one worker of N at every
+  window ordinal and demands oracle-identical recovery with
+  byte-identical vertex dictionaries; its workers run their CC on the
+  card unless told ``device="cpu"``.
 
-The distributed half (coordinated epoch barriers and the cluster
-supervisor) comes with ROADMAP Queue 1, slice 7b (ingest);
-the chaos sweep and the serving tier's retry and shed with slice 9.
+The single-process chaos sweep, the serving scenarios and the serving
+tier's retry and shed come with ROADMAP Queue 1, slice 9.
 
 Telemetry rides the obs registry: ``resilience.restarts{kind=...}``,
 ``resilience.ckpt_rejected``, ``resilience.recovery_seconds``,
@@ -39,8 +46,26 @@ from .faults import FaultPlan
 from .retry import RetryPolicy, exp_backoff, jittered
 from .supervisor import Supervisor
 
+#: the coordinated layer's names, loaded on first use: ``coordinated``
+#: builds on ``aggregate.autockpt``, whose imports reach ``core.device``,
+#: which imports this package's ``errors`` (an eager import would cycle)
+_COORDINATED = ("ClusterError", "ClusterSupervisor", "CoordinatedCheckpoint",
+                "select_epoch")
+
+
+def __getattr__(name: str):
+    if name in _COORDINATED:
+        from . import coordinated
+
+        return getattr(coordinated, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 __all__ = [
     "CheckpointCorrupt",
+    "ClusterError",
+    "ClusterSupervisor",
+    "CoordinatedCheckpoint",
     "DeadlineExceeded",
     "DeviceUnavailable",
     "FaultPlan",
@@ -55,4 +80,5 @@ __all__ = [
     "exp_backoff",
     "faults",
     "jittered",
+    "select_epoch",
 ]

@@ -1,6 +1,7 @@
 """Resilience-layer exception taxonomy (the port's copy of
-``gelly_streaming_tpu/resilience/errors.py``; the coordinated cluster
-errors come with ROADMAP Queue 1, slice 7b (ingest)).
+``gelly_streaming_tpu/resilience/errors.py``; the coordinated layer's
+``ClusterError`` lives beside the cluster supervisor in
+``resilience/coordinated.py``, as in the reference).
 
 One small module so every other layer (checkpointing, pipeline, sources,
 serving, supervision) can share failure types without import cycles:

@@ -16,7 +16,10 @@ window forms against the CPU fed the same uniforms, and iterative CC's
 diff path against its incremental path, and slice 7a: an ``AutoCheckpoint``
 barrier (CC's forest carry, and a workload) written on the card restores on
 the CPU and the reverse, and a supervised run killed at ``pipeline.item``
-on the card resumes to the uninterrupted labels.
+on the card resumes to the uninterrupted labels, and slice 7b (ingest):
+sharded binary ingest into CC on the card equals the same run on the CPU
+(the forest carry picked on the card), and one ``mp_worker_main`` on the
+card resumes from the epoch a CPU worker committed.
 
 Every test here is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is false. The file imports only torch, numpy
@@ -700,3 +703,77 @@ def test_supervised_pipeline_item_kill_on_card(card, tmp_path):
     assert len(got) == 8
     for a, b in zip(got[-1], want):
         np.testing.assert_array_equal(a, b)
+
+
+def _sharded_cc(device, superbatch, seed=51):
+    from gelly_streaming_tpu_torch.core.ingest import (
+        ShardedEdgeSource,
+        encode_shard_frames,
+        partition_edges,
+        serve_blobs,
+    )
+
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, 60000, 20000).astype(np.int64)
+    dst = rng.integers(0, 60000, 20000).astype(np.int64)
+    blobs = [encode_shard_frames(s, d, frame_edges=512)
+             for s, d, _ in partition_edges(src, dst, None, 4)]
+    ports, threads, _stop = serve_blobs(blobs)
+    stream = ShardedEdgeSource([("127.0.0.1", p) for p in ports], window=1024).stream(
+        device=device)
+    from gelly_streaming_tpu_torch.library import ConnectedComponents
+
+    agg = ConnectedComponents(superbatch=superbatch)
+    last = None
+    for last in stream.aggregate(agg):
+        pass
+    agg.sync()
+    for t in threads:
+        t.join(10)
+    return last, agg._cc_mode
+
+
+@pytest.mark.parametrize("superbatch", [1, 4])
+def test_sharded_binary_ingest_cc_on_card_matches_cpu(card, superbatch):
+    """The merged window order interleaves shards nondeterministically, so
+    the final components are compared (they do not depend on the order)."""
+    got, mode = _sharded_cc(card, superbatch)
+    want, _ = _sharded_cc("cpu", superbatch)
+    assert mode == "forest"
+    assert {frozenset(c) for c in got.component_sets()} == \
+        {frozenset(c) for c in want.component_sets()}
+
+
+def test_mp_worker_on_card_resumes_from_a_cpu_workers_epoch(card, tmp_path):
+    """A one-shard cluster: the CPU worker runs the first half of the
+    corpus and commits its epochs; the card worker, over the same
+    directory and the whole corpus, resumes from that epoch and emits the
+    rest, each window's digest equal to an uninterrupted CPU run's."""
+    import json
+    import os
+
+    from gelly_streaming_tpu_torch import obs
+    from gelly_streaming_tpu_torch.obs.cluster import shard_events_path
+    from gelly_streaming_tpu_torch.resilience import chaos
+
+    def run(root, device, windows, tag):
+        cfg = dict(chaos.MP_DEFAULTS, processes=1, windows=windows, window_edges=64,
+                   root=root, process=0, victim=-1, kill_after=-1, device=device,
+                   digests=os.path.join(root, f"digests.{tag}.jsonl"),
+                   events=shard_events_path(root, 0),
+                   meta=os.path.join(root, f"meta.{tag}.json"), flight=None)
+        try:
+            chaos.mp_worker_main(cfg)
+        finally:
+            obs.reset()
+        with open(cfg["meta"]) as f:
+            return chaos._read_jsonl(cfg["digests"]), json.load(f)
+
+    oracle, _ = run(str(tmp_path / "oracle"), "cpu", 8, "o")
+    shared = str(tmp_path / "shared")
+    first, _ = run(shared, "cpu", 4, "cpu")
+    rest, meta = run(shared, str(card), 8, "card")
+    assert [ln["o"] for ln in first] == [0, 1, 2, 3]
+    assert meta["resumed_epoch"] == 4 and meta["device"] == str(card)
+    assert [ln["o"] for ln in rest] == [4, 5, 6, 7]
+    assert [ln["d"] for ln in first + rest] == [ln["d"] for ln in oracle]

@@ -8,8 +8,9 @@ spanner, the device vertex dictionary, the sampling triangle estimators
 and iterative CC end to end, kill and resume the headline cell under the
 supervisor, run CC under the auto-K controller and the event-time sliding
 windows, run sharded socket ingest into CC and event time, kill and
-relaunch a 2-process coordinated cluster on the card, and print the
-results.
+relaunch a 2-process coordinated cluster on the card, serve live queries
+from streaming summaries on the card (in process and over the RPC wire
+with a replica failover), and print the results.
 
     python3 chip_smoke.py
 
@@ -239,7 +240,34 @@ Phases, in order; any failure raises and the script exits non-zero:
    epoch. (e) The locally runnable legs of ``bench.py:run_transport_bench``
    for shared-dir and socket: p50/p99 of a 4 KiB put plus get, a 2-rank
    allgather and an election. Prints its ``fused_sage_matmul`` launches (0).
-20. a ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
+20. serving — slice 9a on the card. (a) ``bench.py:1704 bench_serving`` at
+   its defaults: ``make_stream(1 << 17, 8 << 18, seed=23)`` in
+   ``CountWindow(1 << 18)`` over ``IdentityDict(1 << 17)``, CC on the card;
+   plain and served passes alternate (a warm pass each, then 2 pairs), the
+   served one behind ``StreamServer(max_pending=1 << 15)`` with a paced
+   client (bursts of 256 ``ConnectedQuery`` every 10 ms): edges/s of each,
+   the ingest overhead, query p50/p99, staleness, answered and rejected,
+   host reads a query batch; the served pass's obs log must replay to its
+   ``ServingStats`` snapshot and every answer equal scipy's labels of the
+   edge prefix at its snapshot's window. (b) Phase 5's cell (the surrogate,
+   16 windows of 2^20, ``prefetch_depth=2``) unserved, then served with
+   bursts of ``ConnectedQuery`` + ``ComponentSizeQuery`` on the query
+   engine's device path (``"auto"``) and on its host path
+   (``prefer_host=True``): edges/s, query p50/p99, host reads a batch; after
+   the stream ends 4096 answers at staleness 0 equal to scipy's components
+   and sizes, and the first published snapshot's labels unchanged; the busy
+   share of a profiled served pass; the four query steps on the final
+   forest (ms a call between CUDA events over 20 calls, host reads,
+   launches) against ``query_step_bytes``; then the degree, rank and bipartiteness servables
+   on their cells (phases 6, 9, 10) at 4 windows, each answering equal to
+   its stream's own final view. (c) ``resilience/chaos.py:
+   run_rpc_scenario`` at the config of ``BENCH_SERVING_RPC_CPU.json`` (4
+   clients, batches of 16, 5 ms pace, the primary killed at sweep 1500,
+   lease 0.4 s, seed 4321, autotune) with both replicas' tables on the
+   card: 0 client-visible failures, promotion by lease lapse, the primary's
+   flight dump, every trace completed; the outage, steady and promotion
+   window p50/p99. Prints its ``fused_sage_matmul`` launches (0).
+21. a ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
 Each phase's wall seconds are printed after it.
 
 TF32 is off for float32 matmuls (``torch.backends.cuda.matmul.allow_tf32 =
@@ -466,6 +494,27 @@ IG_MP_DEVICE = "cuda"  # where the sweep's workers run their CC
 IG_STORE_ROUNDS = 200
 IG_AG_ROUNDS = 30
 IG_ELECTIONS = 40
+
+# phase 20 (serving): (a) bench.py:1704 bench_serving at its defaults
+SV_VERTICES = 1 << 17
+SV_WINDOW = 1 << 18
+SV_WINDOWS = 8
+SV_SEED = 23
+SV_BURST = 256  # queries a burst (half ConnectedQuery, half ComponentSizeQuery in (b))
+SV_PACE_S = 0.01
+SV_MAX_PENDING = 1 << 15
+SV_PAIRS = 2  # plain/served pairs after a warm pass of each (the reference's 3 cut)
+# (a) at the defaults serves 0.1-0.8 s, 5-7 batches: its overhead and p99
+# weigh the server's start. The steady run is the same bench over 32x the
+# windows (2^26 edges), long enough to hold hundreds of batches
+SV_STEADY_WINDOWS = 256
+SV_SHORT_WINDOWS = 4  # (b) the degree, rank and bipartiteness servables' windows
+SV_DEVICE = "cuda"  # where the served tables live (and both replicas' in (c))
+SV_STEP_REPS = 20  # calls of each query step between two CUDA events
+SV_HOST_REPS = 5  # calls of each host-path form, numpy and torch on the CPU
+# (c) run_rpc_scenario at the config of BENCH_SERVING_RPC_CPU.json
+SV_RPC = dict(clients=4, batch=16, pace_s=0.005, kill_at_sweep=1500, lease_s=0.4,
+              seed=4321, autotune=True)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate and dense bf16 tensor rate;
 # float32 work counts against the CUDA cores' f32 rate
@@ -3484,6 +3533,464 @@ def phase_ingest(torch):
     return cell
 
 
+# --------------------------------------------------------------------- #
+# Serving (phase 20, slice 9a)
+# --------------------------------------------------------------------- #
+def query_step_bytes(b, v, turns):
+    """Bytes each query step must move: ``b`` query ids (int32) over a
+    ``v``-entry forest, the root chase taking ``turns`` turns (one host
+    read each, and each gathers ``b`` forest entries); every input read once, every output
+    written once; a gather reads only the entries it needs."""
+    return {
+        # the ids; the first gather and one gather of b entries a turn;
+        # the roots written
+        "serving.batch_roots": 4 * b * (turns + 3),
+        # the forest read; the flat labels and the member counts written
+        "serving.size_table": 12 * v,
+        # the ids, b labels, b sizes; the answers written
+        "serving.gather_sizes": 16 * b,
+        # the ids, b table entries; the answers written
+        "serving.gather": 12 * b,
+    }
+
+
+class _PacedClient:
+    """The serving benches' client: a burst of queries every ``pace_s``
+    for the whole ingest, each burst's answers collected before the next
+    (``bench.py:bench_serving``'s closed loop). Every (query, answer) is
+    kept for the oracle check; an answer-path error is recorded, never
+    swallowed."""
+
+    def __init__(self, server, make_burst, pace_s=SV_PACE_S):
+        import threading
+
+        self.server, self.make_burst, self.pace_s = server, make_burst, pace_s
+        self.pairs, self.rejected, self.errors = [], 0, []
+        self.thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        from gelly_streaming_tpu_torch.serving import Overloaded
+
+        try:
+            while not self.server.ingest_finished():
+                sent = []
+                for q in self.make_burst():
+                    try:
+                        sent.append((q, self.server.submit(q)))
+                    except Overloaded:
+                        self.rejected += 1
+                self.pairs.extend((q, f.result(120)) for q, f in sent)
+                time.sleep(self.pace_s)
+        except BaseException as e:
+            self.errors.append(e)
+
+    def join(self):
+        self.thread.join(300)
+        if self.thread.is_alive() or self.errors:
+            raise AssertionError(f"the serving client failed: {self.errors[:1]}")
+
+
+def _query_pcts(stats, cls):
+    q = stats["queries"].get(cls, {})
+    return {"p50_ms": q.get("p50_ms"), "p99_ms": q.get("p99_ms"), "count": q.get("count", 0),
+            "staleness_mean": q.get("staleness_mean"), "staleness_max": q.get("staleness_max")}
+
+
+def _prefix_oracles(src, dst, n, window):
+    """``oracle_labels`` of every window's edge prefix, built window by
+    window: each step joins the window's edges to edges from every vertex
+    to its label so far, so it costs a window, not the prefix."""
+    ident = np.arange(n, dtype=np.int32)
+    labels = ident
+    out = []
+    for w in range(0, len(src), window):
+        labels = oracle_labels(np.concatenate([ident, src[w:w + window]]),
+                               np.concatenate([labels.astype(np.int32), dst[w:w + window]]),
+                               n).astype(np.int32)
+        out.append(labels)
+    return out
+
+
+def _serving_bench(torch, windows=SV_WINDOWS, warm=True):
+    """(a) ``bench.py:1704 bench_serving``, CC on the card: at its defaults
+    (``windows=SV_WINDOWS``, a warm pass of each kind first), or over
+    ``SV_STEADY_WINDOWS`` windows for the steady numbers."""
+    from gelly_streaming_tpu_torch import CountWindow, SimpleEdgeStream
+    from gelly_streaming_tpu_torch.datasets import IdentityDict
+    from gelly_streaming_tpu_torch.library import ConnectedComponents
+    from gelly_streaming_tpu_torch.obs.export import JsonlSink
+    from gelly_streaming_tpu_torch.serving import ConnectedQuery, ServingStats, StreamServer
+    from gelly_streaming_tpu_torch.serving import query as tq
+
+    n_edges = SV_WINDOW * windows
+    src, dst = make_stream(SV_VERTICES, n_edges, seed=SV_SEED)
+    # the oracle: each window's prefix labels by scipy
+    prefix = _prefix_oracles(src, dst, SV_VERTICES, SV_WINDOW)
+
+    def stream():
+        return SimpleEdgeStream((src, dst), window=CountWindow(SV_WINDOW),
+                                vertex_dict=IdentityDict(SV_VERTICES), device=SV_DEVICE)
+
+    def plain_pass():
+        agg = ConnectedComponents()
+        t0 = time.perf_counter()
+        for _ in stream().aggregate(agg):
+            pass
+        agg.sync()
+        return {"eps": n_edges / (time.perf_counter() - t0)}
+
+    def served_pass():
+        agg = ConnectedComponents()
+        server = StreamServer(agg.servable(), stream(), max_pending=SV_MAX_PENDING)
+        sink = JsonlSink()
+        server.stats.attach_sink(sink)
+        rng = np.random.default_rng(29)
+
+        def burst():
+            qu = rng.integers(0, SV_VERTICES, SV_BURST).tolist()
+            qv = rng.integers(0, SV_VERTICES, SV_BURST).tolist()
+            return [ConnectedQuery(a, b) for a, b in zip(qu, qv)]
+
+        client = _PacedClient(server, burst)
+        tq.HOST_READS = 0
+        t0 = time.perf_counter()
+        server.start()
+        client.thread.start()
+        server.join(600)
+        agg.sync()
+        dt = time.perf_counter() - t0
+        client.join()
+        server.close()
+        stats = server.stats.snapshot()
+        if ServingStats.from_events(sink.events).snapshot() != stats:
+            raise AssertionError("the served pass's obs log does not replay to its stats")
+        bad = sum(1 for q, a in client.pairs
+                  if a.value != bool(prefix[a.window][q.u] == prefix[a.window][q.v]))
+        if bad or not client.pairs:
+            raise AssertionError(f"{bad} of {len(client.pairs)} served answers disagree with "
+                                 "the DSU oracle at their snapshot's watermark")
+        return {"eps": n_edges / dt, "answered": len(client.pairs),
+                "rejected": client.rejected, "batches": stats["batches"],
+                "host_reads_per_batch": tq.HOST_READS / max(1, stats["batches"]),
+                "windows_answered": len({a.window for _q, a in client.pairs}),
+                **_query_pcts(stats, "ConnectedQuery")}
+
+    if warm:
+        plain_pass()
+        served_pass()  # warm both paths, then alternate
+    plain, served = [], []
+    for _ in range(SV_PAIRS):
+        plain.append(plain_pass())
+        served.append(served_pass())
+    eps_plain = statistics.median(p["eps"] for p in plain)
+    eps_served = statistics.median(s["eps"] for s in served)
+    cell = {"windows": windows, "eps_no_server_all": [p["eps"] for p in plain],
+            "eps_serving_all": [s["eps"] for s in served],
+            "ingest_overhead_pct": 100.0 * (eps_plain - eps_served) / eps_plain,
+            "served": served}
+    say(f"serving (a) bench_serving, {windows} windows " + json.dumps(cell))
+    return cell
+
+
+def _served_cc_pass(torch, path, prefer_host, oracle_ids, hold=False):
+    """One pass of the headline cell under a ``StreamServer`` with a paced
+    client of ConnectedQuery + ComponentSizeQuery bursts on seen ids."""
+    from gelly_streaming_tpu_torch import CountWindow, datasets
+    from gelly_streaming_tpu_torch.library import ConnectedComponents
+    from gelly_streaming_tpu_torch.serving import (
+        ComponentSizeQuery,
+        ConnectedQuery,
+        QueryEngine,
+        StreamServer,
+    )
+    from gelly_streaming_tpu_torch.serving import query as tq
+
+    stream = datasets.stream_file(
+        path, window=CountWindow(CC_WINDOW), vertex_dict=datasets.IdentityDict(CC_ID_BOUND),
+        prefetch_depth=2, device=SV_DEVICE,
+    )
+    agg = ConnectedComponents()
+    server = StreamServer(agg.servable(), stream, max_pending=SV_MAX_PENDING,
+                          engine=QueryEngine(prefer_host=prefer_host))
+    held = {}
+    if hold:
+        def keep_first(snap):
+            if not held:
+                held["snap"] = snap
+                held["bytes"] = snap.payload["labels"].cpu().numpy().copy()
+
+        server.store.add_listener(keep_first)
+    rng = np.random.default_rng(31)
+    half = SV_BURST // 2
+
+    def burst():
+        a, b, c = (oracle_ids[rng.integers(0, len(oracle_ids), half)].tolist() for _ in range(3))
+        return ([ConnectedQuery(u, v) for u, v in zip(a, b)]
+                + [ComponentSizeQuery(u) for u in c])
+
+    client = _PacedClient(server, burst)
+    tq.HOST_READS = 0
+    t0 = time.perf_counter()
+    server.start()
+    client.thread.start()
+    server.join(600)
+    agg.sync()
+    dt = time.perf_counter() - t0
+    client.join()
+    stats = server.stats.snapshot()
+    reads = tq.HOST_READS / max(1, stats["batches"])
+    return server, agg, held, {
+        "seconds": dt, "answered": len(client.pairs), "rejected": client.rejected,
+        "batches": stats["batches"], "host_reads_per_batch": reads,
+        "connected": _query_pcts(stats, "ConnectedQuery"),
+        "size": _query_pcts(stats, "ComponentSizeQuery"),
+        "carry": agg._cc_mode,
+    }
+
+
+def _short_servables(torch):
+    """(b) the other three servables, 4 windows each on their cells: the
+    served answers equal each stream's own final view."""
+    from gelly_streaming_tpu_torch import CountWindow
+    from gelly_streaming_tpu_torch.library import DegreeDistribution, IncrementalPageRank
+    from gelly_streaming_tpu_torch.library import BipartitenessCheck
+    from gelly_streaming_tpu_torch.serving import (
+        BipartiteQuery,
+        DegreeQuery,
+        RankQuery,
+        StreamServer,
+    )
+
+    out = {}
+    rng = np.random.default_rng(37)
+    # DegreeServable on phase 6's event cell
+    dd = DegreeDistribution(CountWindow(DD_WINDOW), device=SV_DEVICE)
+    t0 = time.perf_counter()
+    with StreamServer(dd.servable(), _dd_events()[:SV_SHORT_WINDOWS * DD_WINDOW]) as server:
+        server.join(300)
+        vs = rng.integers(0, DD_VERTICES, 512).tolist()
+        got = [a.value for a in (server.ask(DegreeQuery(v), 60) for v in vs)]
+        deg = dd.degrees()
+        vd = dd._windower.vertex_dict
+        want = [int(deg[c]) if c is not None and c < len(deg) else 0
+                for c in (vd.lookup(v) for v in vs)]
+    out["degrees"] = {"seconds": time.perf_counter() - t0, "equal": got == want}
+    # RankServable on phase 9's cell (its 4 windows)
+    src, dst = make_stream(PR_VERTICES, PR_EDGES, seed=PR_SEED)
+    pr = IncrementalPageRank(tol=PR_TOL, max_iter=PR_MAX_ITER)
+    t0 = time.perf_counter()
+    with StreamServer(pr.servable(), _pr_stream(src, dst, device=SV_DEVICE)) as server:
+        server.join(300)
+        ranks = pr.ranks()
+        vs = list(ranks)[:: max(1, len(ranks) // 512)]
+        got = [server.ask(RankQuery(v), 60).value for v in vs]
+    out["ranks"] = {"seconds": time.perf_counter() - t0,
+                    "equal": got == [ranks[v] for v in vs]}
+    # BipartitenessServable on phase 10's cell, its first 4 windows
+    spec_edges = SV_SHORT_WINDOWS * CC_WINDOW
+    from gelly_streaming_tpu_torch import datasets
+
+    spec = datasets.CORPORA[CC_CORPUS]
+    bsrc, bdst = rmat_oracle_edges(spec.surrogate_edges,
+                                   int(spec.surrogate_vscale).bit_length() - 1)
+    cols = (bsrc[:spec_edges].astype(np.int32), bdst[:spec_edges].astype(np.int32))
+    t0 = time.perf_counter()
+    with StreamServer(BipartitenessCheck().servable(), _bip_stream(cols, device=SV_DEVICE)) \
+            as server:
+        server.join(300)
+        got = server.ask(BipartiteQuery(), 60).value
+    final = _bip_pass(cols, windows=SV_SHORT_WINDOWS)[0][-1].success
+    out["bipartiteness"] = {"seconds": time.perf_counter() - t0, "answer": got,
+                            "equal": got["bipartite"] == final}
+    say("serving (b) the other servables, 4 windows each " + json.dumps(out))
+    if not all(r["equal"] for r in out.values()):
+        raise AssertionError("a servable's answers disagree with its stream's final view")
+    return out
+
+
+def _query_steps(torch, canon):
+    """The four query steps on the headline cell's final forest, at the
+    shapes the served pass gives them: each step's ms a call between CUDA
+    events over ``SV_STEP_REPS`` calls (the device timeline: a step that
+    reads to the host includes its round trips), its host reads, its
+    launches and kernel ms from a profile of one call (None where the
+    profile shows no device event), its byte bound."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gelly_streaming_tpu_torch.serving import query as tq
+
+    rng = np.random.default_rng(41)
+    b = SV_BURST
+    ids = torch.as_tensor(rng.integers(0, canon.shape[0], 2 * b).astype(np.int32),
+                          device=canon.device)
+    lab, sizes = tq._component_size_table(canon)
+    steps = (("serving.batch_roots", lambda: tq._batch_roots(canon, ids)),
+             ("serving.size_table", lambda: tq._component_size_table(canon)),
+             ("serving.gather_sizes", lambda: tq._gather_sizes(lab, sizes, ids[:b])),
+             ("serving.gather", lambda: tq._gather(canon, ids[:b])))
+    table = {}
+    for name, fn in steps:
+        fn()  # warm
+        torch.cuda.synchronize()
+        before = tq.HOST_READS
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(SV_STEP_REPS):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        reads = (tq.HOST_READS - before) / SV_STEP_REPS
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [ev for ev in prof.events() if ev.device_type.name == "CUDA"]
+        table[name] = {"ms": start.elapsed_time(end) / SV_STEP_REPS, "host_reads": reads,
+                       "launches": len(events) or None,
+                       "kernel_ms": sum(ev.time_range.elapsed_us() for ev in events) / 1e3
+                       if events else None}
+    turns = int(table["serving.batch_roots"]["host_reads"])
+    nbytes = query_step_bytes(2 * b, int(canon.shape[0]), turns)
+    nbytes["serving.gather_sizes"] = query_step_bytes(b, 0, 0)["serving.gather_sizes"]
+    nbytes["serving.gather"] = query_step_bytes(b, 0, 0)["serving.gather"]
+    for name, row in table.items():
+        row["bytes"] = nbytes[name]
+        row["bound_ms"] = nbytes[name] / HBM_BYTES_PER_S * 1e3
+        row["bound_share"] = row["bound_ms"] / row["ms"] if row["ms"] else None
+    say("serving query steps (per call, on the final 2^21 forest; roots over 512 ids, the "
+        f"gathers over 256; ms between CUDA events over {SV_STEP_REPS} calls, launches and "
+        "kernel ms from a profile of one call; bound by bytes) " + json.dumps(table))
+    table["host_forms"] = _host_query_forms(torch, canon, ids)
+    return table
+
+
+def _host_query_forms(torch, canon, ids):
+    """The host path's two forms on the same forest and ids, on this
+    machine's CPU: the engine's numpy steps against the torch steps on CPU
+    tensors (median ms of ``SV_HOST_REPS`` calls each). Equal answers."""
+    from gelly_streaming_tpu_torch.serving import query as tq
+    from gelly_streaming_tpu_torch.summaries.forest import resolve_flat_host
+
+    lab_np, ids_np = canon.cpu().numpy(), ids.cpu().numpy().astype(np.int64)
+    lab_t, ids_t = torch.from_numpy(lab_np), torch.from_numpy(ids_np)
+
+    def ms(fn):
+        fn()
+        times = []
+        for _ in range(SV_HOST_REPS):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    def size_np():
+        flat = resolve_flat_host(lab_np)
+        return flat, np.bincount(flat, minlength=len(lab_np))
+
+    if not (np.array_equal(tq._host_batch_roots(lab_np, ids_np),
+                           tq._batch_roots(lab_t, ids_t).numpy())
+            and np.array_equal(size_np()[1], tq._component_size_table(lab_t)[1].numpy())):
+        raise AssertionError("the host path's numpy and torch forms disagree")
+    forms = {"batch_roots": {"numpy_ms": ms(lambda: tq._host_batch_roots(lab_np, ids_np)),
+                             "torch_cpu_ms": ms(lambda: tq._batch_roots(lab_t, ids_t))},
+             "size_table": {"numpy_ms": ms(size_np),
+                            "torch_cpu_ms": ms(lambda: tq._component_size_table(lab_t))}}
+    say(f"serving host path forms (this machine's CPU, {torch.get_num_threads()} torch "
+        f"threads; median of {SV_HOST_REPS} calls) " + json.dumps(forms))
+    return forms
+
+
+def phase_serving(torch, oracle):
+    """Phase 20: the serving tier on the card."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from gelly_streaming_tpu_torch import datasets
+    from gelly_streaming_tpu_torch.ops import sage_kernels as sk
+    from gelly_streaming_tpu_torch.resilience import chaos
+    from gelly_streaming_tpu_torch.serving import ComponentSizeQuery, ConnectedQuery
+
+    sk.LAUNCHES = 0
+    cell = {"bench_serving": _serving_bench(torch),
+            "bench_serving_steady": _serving_bench(torch, SV_STEADY_WINDOWS, warm=False)}
+
+    # (b) the headline cell under a server, both query paths
+    path, _ = datasets.ensure_corpus(CC_CORPUS)
+    n_edges = datasets.CORPORA[CC_CORPUS].surrogate_edges
+    ids = oracle["ids"]
+    full = np.full(CC_ID_BOUND, -1, np.int64)
+    full[ids] = oracle["labels"]
+    size_of = np.bincount(oracle["labels"], minlength=CC_ID_BOUND)
+    unserved, _, _ = _cc_pass(torch, path)
+    b = {"eps_unserved": n_edges / unserved["seconds"]}
+    for prefer_host in ("auto", True):
+        server, agg, held, r = _served_cc_pass(torch, path, prefer_host, ids,
+                                               hold=prefer_host == "auto")
+        try:
+            rng = np.random.default_rng(43)
+            us, vs = (ids[rng.integers(0, len(ids), 2048)].tolist() for _ in range(2))
+            conn = [server.ask(ConnectedQuery(u, v), 60) for u, v in zip(us, vs)]
+            size = [server.ask(ComponentSizeQuery(u), 60) for u in us]
+            ok = (all(a.staleness == 0 for a in conn + size)
+                  and [a.value for a in conn] == [bool(full[u] == full[v]) for u, v in zip(us, vs)]
+                  and [a.value for a in size] == [int(size_of[full[u]]) for u in us])
+            if held:
+                snap = held["snap"]
+                ok = ok and np.array_equal(snap.payload["labels"].cpu().numpy(), held["bytes"])
+                r["held_snapshot_version"] = snap.version
+            if prefer_host == "auto":
+                canon = server.snapshot().payload["labels"]
+        finally:
+            server.close()
+        r["eps"] = n_edges / r["seconds"]
+        r["final_equal_scipy"] = ok
+        b["device_path" if prefer_host == "auto" else "host_path"] = r
+        if not ok or r["carry"] != "forest":
+            raise AssertionError(f"the served headline cell (prefer_host={prefer_host}) "
+                                 f"disagrees with scipy or its held snapshot changed: {r}")
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        server, _, _, r = _served_cc_pass(torch, path, "auto", ids)
+        server.close()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    share = profile_pass(torch, lambda: None, wall, prof=prof)
+    # the profiler stretches the pass many times over: the device time it
+    # saw is also set against the unprofiled served pass's wall
+    b["profiled_busy_share"] = share
+    b["profiled_pass_s"] = wall
+    if share is not None:
+        b["device_busy_ms"] = share * wall * 1e3
+        b["device_busy_over_unprofiled_pass"] = share * wall / b["device_path"]["seconds"]
+    say("serving (b) headline cell served " + json.dumps(b))
+    cell["headline"] = b
+    cell["query_steps"] = _query_steps(torch, canon)
+    cell["servables"] = _short_servables(torch)
+
+    # (c) the RPC failover scenario, both replicas' tables on the card
+    root = tempfile.mkdtemp(prefix="smoke_rpc_", dir=_cache_dir())
+    try:
+        doc = chaos.run_rpc_scenario(root, device=SV_DEVICE, log=say, **SV_RPC)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    att = doc["attribution"]
+    c = {k: doc.get(k) for k in ("ok", "batches", "queries", "failures", "deadline_expired",
+                                 "primary_rc", "outage_s", "promoted", "flight_dumps",
+                                 "steady", "promotion_window", "serving_promotion_seconds")}
+    c["traces_completed"] = att["traces_completed"]
+    c["kill_crossing_traces"] = att["kill_crossing_traces"]
+    c["coverage_p50"] = att["steady"]["coverage_p50"]
+    say("serving (c) run_rpc_scenario " + json.dumps(c))
+    if not (doc["ok"] and doc["failures"] == 0 and doc["promoted"] and doc["flight_dumps"]
+            and att["traces_completed"] == doc["batches"]):
+        raise AssertionError(f"the RPC failover scenario failed: {doc.get('reason')}")
+    cell["rpc"] = c
+    say(f"serving fused_sage_matmul launches in phase 20: {sk.LAUNCHES} (the serving path "
+        "has no hand-written kernel; its query steps are PyTorch operations)")
+    return cell
+
+
 def timed(name, fn, *args):
     """Run one phase and print its wall seconds."""
     t0 = time.perf_counter()
@@ -3515,6 +4022,7 @@ def main():
     timed("autok", phase_autok, torch)
     timed("eventtime", phase_eventtime, torch)
     timed("ingest", phase_ingest, torch)
+    timed("serving", phase_serving, torch, cc_oracle)
     say(f"all phases: {time.perf_counter() - t_start:.1f} s")
     kernel = {
         "name": "fused_sage_matmul",

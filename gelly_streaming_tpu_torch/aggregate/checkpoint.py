@@ -412,9 +412,41 @@ def restore_workload(path: str, workload) -> Optional[VertexDict]:
     return load_vertex_dict(path) if os.path.exists(vd_path) else None
 
 
-def restore_server(path: str, workload, source, **kwargs):
-    """Booting a live query server from a checkpoint comes with the
-    serving tier."""
-    raise NotImplementedError(
-        "restore_server is ported in ROADMAP Queue 1, slice 9 (serving)"
-    )
+def restore_server(
+    path: str,
+    workload,
+    source,
+    *,
+    template: Any = None,
+    start: bool = True,
+    **server_kwargs,
+):
+    """Boot a live query server from a checkpoint: restore ``workload``'s
+    carried state (aggregation or ``state_dict`` workload checkpoints are
+    both recognized by their sidecar files, written by either package),
+    publish the restored summary as the server's BOOT snapshot (window
+    ``-1``), then serve while the ``source`` stream catches up — queries
+    answer from the restored state immediately, before the first live
+    window folds.
+
+    ``source`` must be built against the same compact-id space as the
+    checkpoint (pass the restored VertexDict into the stream, the
+    existing resume contract); the boot payload resolves raw ids through
+    the restored dict when one was saved alongside, else the source's.
+    Returns the (started, unless ``start=False``) ``StreamServer``.
+    """
+    from ..serving import StreamServer
+
+    if os.path.exists(path + ".workload.pkl"):
+        vdict = restore_workload(path, workload)
+    else:
+        vdict = restore_aggregation(path, workload, template)
+    if vdict is None:
+        vdict = getattr(source, "vertex_dict", None)
+    servable = workload.servable(vdict=vdict)
+    server = StreamServer(servable, source, **server_kwargs)
+    boot = servable.boot_payload()
+    if boot is not None:
+        payload, watermark = boot
+        server.publish_boot(payload, watermark)
+    return server.start() if start else server

@@ -10,9 +10,9 @@ one decision discipline.
   (:func:`~gelly_streaming_tpu_torch.core.pipeline.prefetch`) from the
   producer-blocked and consumer-idle shares of each decision window.
 - :class:`AdmissionTuner`: serving admission + shed watermarks from
-  measured queue wait against the deadline budgets queries carry (a host
-  class; wiring it into the server and the router comes with ROADMAP
-  Queue 1, slice 9).
+  measured queue wait against the deadline budgets queries carry
+  (``StreamServer(autotune=True)``; the router's comes with ROADMAP
+  Queue 1, slice 9b).
 
 The shared discipline:
 

@@ -15,10 +15,8 @@ tunes from the same two kinds of evidence:
    Instruments are lifetime-cumulative; a retune decision needs "since my
    last decision", so the reader keeps per-name marks and hands back
    deltas. These reads gate on the trace flag: with obs off they return
-   zeros without touching the registry. (The port's spans are not
-   mirrored into ``trace.span_seconds`` until the serving slice brings the
-   mirror, ROADMAP Queue 1, slice 9; until then only what a caller records
-   there directly is read.)
+   zeros without touching the registry. Every finished span is mirrored
+   there (``obs/trace.py``), as in the reference.
 """
 
 from __future__ import annotations

@@ -379,12 +379,19 @@ class SlidingGraphAggregator:
         return True
 
     def servable_payload(self) -> dict:
-        """The serving-shape snapshot payload (with its ``event_ts``
-        stamp) comes with the serving tier."""
-        raise NotImplementedError(
-            "the servable payload of event-time windows is ported in "
-            "ROADMAP Queue 1, slice 9 (serving)"
-        )
+        """The serving-shape snapshot payload: the summaries (host numpy
+        copies, so a later pane never writes a published one) plus the
+        ``event_ts`` watermark stamp the snapshot store publishes and
+        :class:`~gelly_streaming_tpu_torch.serving.query.Answer`
+        reports."""
+        payload: dict = {"event_ts": int(self.tracker.current())}
+        if self._cc is not None:
+            payload["labels"] = self._cc.labels().copy()
+        if self._deg is not None:
+            payload["deg"] = self._deg.deg.copy()
+        if self._bip is not None:
+            payload["bipartite"] = self._bip.is_bipartite()
+        return payload
 
 
 def drive_sliding(

@@ -6,9 +6,9 @@ Length-prefixed binary frames (magic | version | type | payload length):
 a reader always knows where one message ends, a torn read is a
 DETECTABLE ``MalformedFrame("truncated")`` instead of a parser wedged
 mid-garbage, and an oversized length field is rejected before it can
-allocate. The fabric's socket backend speaks them, and so will the
-serving RPC (ROADMAP Queue 1, slice 9): one frame grammar for every
-socket.
+allocate. The fabric's socket backend and the serving RPC
+(``serving/rpc.py`` re-exports this module) speak them: one frame
+grammar for every socket.
 
 The constants (:data:`MAGIC`, :data:`VERSION`, :data:`HEADER`,
 :data:`DEFAULT_MAX_FRAME`), the exception taxonomy (:class:`Disconnect`

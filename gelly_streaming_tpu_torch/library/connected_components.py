@@ -40,8 +40,9 @@ boundaries under an ``AutoK`` controller; any K folds on the stream's
 device. :meth:`ConnectedComponents.sliding` is the event-time shape
 (``eventtime/``, host numpy, as in the reference).
 
-The reference's mesh and ``servable()`` come with ROADMAP Queue 1,
-slices 6 and 9.
+:meth:`servable` maps the carry to serving snapshots
+(:class:`CCServable`, ``serving/``). The reference's mesh comes with
+ROADMAP Queue 1, slice 6.
 
 Usage parity with the reference::
 
@@ -356,11 +357,112 @@ class _CCMixin:
         self._uf = None
         self._prep = None
 
+    # ---- serving surface (serving/server.py Servable contract) ------- #
+    def servable(self, vdict=None) -> "CCServable":
+        """Adapter mapping this aggregation's carry to per-window serving
+        snapshots: ``labels`` is the live pointer forest (forest/host
+        carries: each window's commit allocates a fresh tensor, so the
+        published one is never written again) or the dense flat-label
+        table (the dense step is functional too); the
+        :class:`~gelly_streaming_tpu_torch.serving.query.QueryEngine`
+        chases either. Serves ``ConnectedQuery``, ``ComponentSizeQuery``
+        and ``SummaryPullQuery``. ``vdict`` seeds the boot payload when
+        restoring from a checkpoint before any stream is attached."""
+        return CCServable(self, vdict)
 
-    def servable(self, vdict=None):
-        raise NotImplementedError(
-            "the serving adapter is ported in ROADMAP Queue 1, slice 9"
+
+def _counted_blocks(blocks, total):
+    """Pass blocks through, accumulating the edge watermark into
+    ``total[0]``: exact from host caches, the padded capacity (an upper
+    bound) for device-transformed blocks — never a mid-stream D2H."""
+    for b in blocks:
+        cache = getattr(b, "_host_cache", None)
+        total[0] += len(cache[0]) if cache is not None else int(b.capacity)
+        yield b
+
+
+class CCServable:
+    """:class:`~gelly_streaming_tpu_torch.serving.server.Servable` adapter
+    for the CC aggregation. Every carry publishes one ``labels`` tensor
+    per window — the live pointer forest for the forest/host carries or
+    the dense flat table, each a buffer no later window writes (torch
+    tensors can be written in place, so this is the carries' rule, pinned
+    by the serving tests for every carry) — plus the stream's vertex dict
+    for raw-id resolution and the TouchLog's append-only ``tids`` prefix.
+
+    SUPERBATCH GRANULARITY: with ``superbatch=K`` the aggregation yields a
+    group's K emissions after its fused fold, so the live carry read here
+    is the END-of-group state for all K publishes. That is safe — the CC
+    carry is monotone, so a query sees a FRESHER snapshot, never a wrong
+    one — but snapshots and their watermark advance at group granularity:
+    deployments that need per-window snapshot pinning run
+    ``superbatch=1``."""
+
+    def __init__(self, agg, vdict=None):
+        from ..serving import (
+            ComponentSizeQuery,
+            ConnectedQuery,
+            SummaryPullQuery,
         )
+
+        # SummaryPullQuery makes the servable ROUTABLE: a shard router
+        # pulls the forest as a raw-id mergeable summary through the same
+        # query wire
+        self.query_classes = (
+            ConnectedQuery, ComponentSizeQuery, SummaryPullQuery,
+        )
+        self._agg = agg
+        self._vdict = vdict
+
+    def _payload(self, vdict) -> Optional[dict]:
+        agg = self._agg
+        if agg._cc_mode in ("forest", "host") and agg._canon is not None:
+            labels = agg._canon
+        elif agg._summary is not None and "labels" in agg._summary:
+            labels = agg._summary["labels"]
+        else:
+            return None
+        payload = {"labels": labels, "vdict": vdict}
+        log = getattr(agg, "_log", None)
+        if log is not None:
+            # the TouchLog novelty shadow rides every snapshot
+            # (count-snapshotted: the first tcount entries of an
+            # append-only log never change) — the delta-pull diff's
+            # candidate bound
+            payload["tids"] = log.ids
+            payload["tcount"] = log.count
+        return payload
+
+    def payloads(self, stream):
+        vdict = stream.vertex_dict
+        self._vdict = vdict
+        total = [0]
+        derive = getattr(stream, "_derive", None)
+        counted = (
+            stream if derive is None
+            else derive(lambda blocks: _counted_blocks(blocks, total))
+        )
+        window = 0
+        for _ in self._agg.run(counted):
+            window += 1
+            payload = self._payload(vdict)
+            if payload is None:  # carry not inspectable this window
+                continue
+            yield payload, (total[0] or window)
+
+    def boot_payload(self):
+        """The restored summary as a servable payload (None when nothing
+        was restored yet, or no vdict is known). Validates the min-rooted
+        invariant: a corrupt checkpoint served as a boot snapshot would
+        otherwise spin the query worker's root chase forever on the first
+        query, long before the first live window could raise."""
+        if self._vdict is None:
+            return None
+        payload = self._payload(self._vdict)
+        if payload is None:
+            return None
+        _validate_min_rooted(to_numpy(payload["labels"]))
+        return payload, 0
 
 
 class ConnectedComponents(_CCMixin, SummaryBulkAggregation):

@@ -174,11 +174,12 @@ class DegreeDistribution:
                 "already diverged from the checkpoint"
             )
 
-    def servable(self, vdict=None):
-        raise NotImplementedError(
-            "DegreeDistribution.servable is ported in ROADMAP Queue 1, "
-            "slice 9 (serving)"
-        )
+    # ---- serving surface (serving/server.py Servable contract) ------- #
+    def servable(self, vdict=None) -> "DegreeServable":
+        """Adapter publishing the carried degree vector per window for
+        ``DegreeQuery`` point lookups (``vdict`` is only consulted for the
+        checkpoint boot payload; live windows use the windower's dict)."""
+        return DegreeServable(self, vdict)
 
     def histogram(self) -> dict:
         """Current (degree -> count) map, degree >= 1 entries only. A sync
@@ -237,6 +238,35 @@ class HistogramBatch(LazyListBatch):
             true_max = int(nz[-1]) if len(nz) else 0
             w._max_deg_ub = min(w._max_deg_ub, true_max + (w._inc_total - self._inc))
         return items
+
+
+
+class DegreeServable:
+    """:class:`~gelly_streaming_tpu_torch.serving.server.Servable` adapter
+    for :class:`DegreeDistribution`: one ``deg`` table per window (the
+    degree step returns a new tensor, so a published table is never
+    written again), watermark = cumulative events folded."""
+
+    def __init__(self, workload: DegreeDistribution, vdict=None):
+        from ..serving import DegreeQuery
+
+        self.query_classes = (DegreeQuery,)
+        self._workload = workload
+        self._vdict = vdict
+
+    def payloads(self, events):
+        w = self._workload
+        vdict = w._windower.vertex_dict
+        self._vdict = vdict
+        for _ in w.run(events):
+            yield {"deg": w._deg, "vdict": vdict}, w._events_total
+
+    def boot_payload(self):
+        w = self._workload
+        if w._deg is None:
+            return None
+        vdict = self._vdict or w._windower.vertex_dict
+        return {"deg": w._deg, "vdict": vdict}, w._events_total
 
 
 def _delta(change) -> int:

@@ -328,9 +328,13 @@ class IncrementalPageRank(GroupFoldable):
             torch.as_tensor(ranks.copy(), device=dev),
         )
 
-    def servable(self, vdict=None):
-        raise NotImplementedError(
-            "the serving adapter is ported in ROADMAP Queue 1, slice 9")
+    # ---- serving surface (serving/server.py Servable contract) ------- #
+    def servable(self, vdict=None) -> "RankServable":
+        """Adapter publishing the rank vector per window for ``RankQuery``
+        point lookups. The window step writes its edge columns in place,
+        but its rank vector is a new tensor every window, so a published
+        one is never written again."""
+        return RankServable(self, vdict)
 
     def ranks(self) -> dict:
         """Current (raw vertex id -> rank), seen vertices only."""
@@ -340,3 +344,34 @@ class IncrementalPageRank(GroupFoldable):
         r = self._carry[2][:n].cpu().numpy()
         raw = self._vdict.decode(np.arange(n))
         return {int(v): float(x) for v, x in zip(raw, r)}
+
+
+class RankServable:
+    """:class:`~gelly_streaming_tpu_torch.serving.server.Servable` adapter
+    for :class:`IncrementalPageRank`: each published snapshot is the
+    window's rank vector (a tensor the step allocated, never written
+    again; the reference copies its DONATED buffer instead). With
+    ``superbatch=K`` a group's K emissions surface together, so all K
+    publishes carry the END-of-group ranks and snapshots advance at group
+    granularity (the ``CCServable`` caveat; run ``superbatch=1`` for
+    per-window snapshot pinning)."""
+
+    def __init__(self, workload: IncrementalPageRank, vdict=None):
+        from ..serving import RankQuery
+
+        self.query_classes = (RankQuery,)
+        self._workload = workload
+        self._vdict = vdict
+
+    def payloads(self, stream):
+        pr = self._workload
+        vdict = stream.vertex_dict
+        self._vdict = vdict
+        for _ in pr.run(stream):
+            yield {"ranks": pr._carry[2], "vdict": vdict}, pr._n_edges
+
+    def boot_payload(self):
+        pr = self._workload
+        if pr._carry is None or self._vdict is None:
+            return None
+        return {"ranks": pr._carry[2], "vdict": self._vdict}, pr._n_edges

@@ -2,10 +2,9 @@
 pipeline spans, the exporters (the JSONL event log, ``replay``, the
 Prometheus text), the cluster plane (per-shard event shipping merged into
 one registry), the crash flight recorder and the causal timeline
-(``python -m gelly_streaming_tpu_torch.obs.timeline <dir>``).
-
-The cross-process ``TraceContext``, the registry mirror of spans and the
-scrape endpoint come with ROADMAP Queue 1, slice 9 (serving)."""
+(``python -m gelly_streaming_tpu_torch.obs.timeline <dir>``), the
+cross-process ``TraceContext`` and the scrape endpoint
+(:class:`MetricsEndpoint`: ``/metrics``, ``/healthz``, ``/events``)."""
 
 from .registry import (
     Counter,
@@ -17,7 +16,22 @@ from .registry import (
     nearest_rank,
     set_registry,
 )
-from .trace import NOOP_SPAN, Span, disable, enable, on, span
+from .trace import (
+    NOOP_SPAN,
+    Span,
+    TraceContext,
+    activate,
+    current_context,
+    current_span,
+    disable,
+    enable,
+    enabled,
+    new_trace_id,
+    next_sid,
+    on,
+    record_span,
+    span,
+)
 from . import trace as _trace
 from .export import (
     JsonlSink,
@@ -36,6 +50,17 @@ from .cluster import (
 )
 from .flight import FlightRecorder, read_dump
 from . import flight as _flight
+
+
+def __getattr__(name: str):
+    # MetricsEndpoint is lazy: hot-path modules import this package for
+    # get_registry/trace, and the endpoint's http.server chain is startup
+    # cost no run pays for a scrape surface it never starts
+    if name == "MetricsEndpoint":
+        from .endpoint import MetricsEndpoint
+
+        return MetricsEndpoint
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def attach_sink(sink) -> None:
@@ -69,21 +94,30 @@ __all__ = [
     "Histogram",
     "JsonlSink",
     "MetricRegistry",
+    "MetricsEndpoint",
     "ShardSink",
     "Span",
+    "TraceContext",
+    "activate",
     "attach_sink",
+    "current_context",
+    "current_span",
     "detach_sink",
     "disable",
     "enable",
+    "enabled",
     "format_key",
     "get_registry",
     "iter_shard_events",
     "iter_trace_events",
     "nearest_rank",
+    "new_trace_id",
+    "next_sid",
     "on",
     "prometheus_text",
     "read_dump",
     "read_jsonl",
+    "record_span",
     "replay",
     "reset",
     "set_registry",

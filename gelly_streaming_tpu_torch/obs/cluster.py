@@ -28,8 +28,8 @@ distributed summaries, the framework merges them):
   merged obs log and the timeline tool
   (:mod:`~gelly_streaming_tpu_torch.obs.timeline`) both consume.
 
-The merged registry is what a scrape endpoint renders for a cluster (the
-endpoint comes with ROADMAP Queue 1, slice 9).
+The merged registry is what the scrape endpoint
+(:mod:`~gelly_streaming_tpu_torch.obs.endpoint`) renders for a cluster.
 """
 
 from __future__ import annotations

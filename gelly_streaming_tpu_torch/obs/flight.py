@@ -12,8 +12,8 @@ failure report carries the last seconds of telemetry that led up to it.
 Wiring mirrors ``resilience/faults.py``: construct a
 :class:`FlightRecorder` and :func:`install` it; installation attaches it as
 a sink on BOTH event sources (tracer + global registry), and the crash
-sites (``Supervisor``, ``faults.fire``'s kill path, ``ClusterSupervisor``
-via its workers' dump files; the serving worker comes with slice 9) call
+sites (``Supervisor``, ``faults.fire``'s kill path, ``StreamServer``'s
+worker, ``ClusterSupervisor`` via its workers' dump files) call
 :func:`dump_installed` — a no-op costing one module attribute check when
 nothing is installed.
 

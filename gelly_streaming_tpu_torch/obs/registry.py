@@ -1,7 +1,6 @@
 """Process-wide metric registry: counters, gauges, bounded histograms.
 
-The port's copy of ``gelly_streaming_tpu/obs/registry.py`` (host-only);
-the exporters it names come with ROADMAP Queue 1, slice 9.
+The port's copy of ``gelly_streaming_tpu/obs/registry.py`` (host-only).
 
 The reference's design stance is that metrics are ordinary output
 streams (``README.md:26-32``; ``utils/profiling.py`` docstring); this

@@ -1,20 +1,37 @@
-"""Lightweight structured spans over the pipeline's host-side stages.
+"""Structured, low-overhead pipeline tracing (the port's copy of
+``gelly_streaming_tpu/obs/trace.py``).
 
-The counterpart of ``gelly_streaming_tpu/obs/trace.py``, as far as the
-windowing path uses it. ``span("window.pack")`` wraps a stage; nested
-spans form a tree via a thread-local stack. A finished span becomes ONE
-event dict pushed to the attached sinks. Optionally
+``span("window.pack")`` wraps a stage; nested spans form a tree via a
+thread-local stack (each pipeline thread: windower, prefetch producer,
+serving worker, gets its own lineage). A finished span becomes ONE event
+dict pushed to the attached sinks and one observation in the global
+registry's ``trace.span_seconds{span=...}`` histogram, so span timing shows
+up in the same snapshot/Prometheus surface as every other metric (and
+``AutoK``'s span hint reads it there). Optionally
 (``enable(torch_annotations=True)``) each span also opens a
 ``torch.profiler.record_function`` range, so host stages line up against
 device kernels in a ``torch.profiler`` trace.
 
-The registry mirror (``trace.span_seconds``) and the cross-process
-:class:`TraceContext` of the reference module come with the serving slice
-(ROADMAP Queue 1, slice 9).
+CROSS-PROCESS TRACES: a :class:`TraceContext` carries a trace id + a parent
+span id across threads, futures, and the RPC wire. The query client mints
+one per batch (``TraceContext()``), injects it into the frame body
+(:meth:`TraceContext.to_wire`), and the serving path extracts it
+(:meth:`TraceContext.from_wire`) and stamps every stage span with the trace
+id, so one query's causal path across client, primary, and promoted standby
+joins on ``trace`` in the merged shard event stream. Propagation is
+EXPLICIT where threads change hands: the context is thread-local only for
+same-thread nesting (:func:`activate`); code that hops threads (future
+callbacks, the serving worker's drained entries) carries the context object
+itself and emits via :func:`record_span`, which synthesizes a finished-span
+event without touching any thread's span stack. Span ids are process-local
+(the merged stream disambiguates by ``shard``); the trace id is the one
+globally meaningful join key. The wire form is the reference's, so a trace
+crosses between the two packages' clients and servers.
 
 DISABLED COST IS THE DESIGN CONSTRAINT: ``span()`` with tracing off is one
-attribute check returning a SHARED no-op singleton. Hot sites that would
-pay even for building an attrs dict guard on :func:`on` first.
+attribute check returning a SHARED no-op singleton (no object, no dict, no
+clock read). Hot sites that would pay even for building an attrs dict guard
+on :func:`on` first.
 
 Timing semantics: spans measure HOST wall time between ``__enter__`` and
 ``__exit__``. Around asynchronous CUDA work that is enqueue time, not
@@ -24,17 +41,19 @@ device time.
 from __future__ import annotations
 
 import itertools
+import os
 import threading
 import time
 from typing import Optional
 
 
 class _Config:
-    __slots__ = ("enabled", "annotate_torch")
+    __slots__ = ("enabled", "annotate_torch", "registry_spans")
 
     def __init__(self):
         self.enabled = False
         self.annotate_torch = False
+        self.registry_spans = True
 
 
 _CFG = _Config()
@@ -48,10 +67,22 @@ def on() -> bool:
     return _CFG.enabled
 
 
-def enable(*, torch_annotations: bool = False) -> None:
-    """Turn span recording on. ``torch_annotations`` additionally opens a
-    ``torch.profiler.record_function`` range per span."""
+enabled = on  # alias; both read naturally at call sites
+
+
+def enable(*, torch_annotations: bool = False,
+           registry_spans: bool = True) -> None:
+    """Turn span recording on.
+
+    ``torch_annotations`` additionally opens a
+    ``torch.profiler.record_function`` range per span (device-trace
+    alignment). ``registry_spans`` mirrors span durations into the global
+    registry's ``trace.span_seconds`` histogram (on by default: it is what
+    makes span timing visible to the Prometheus/snapshot exporters and to
+    ``AutoK``'s span hint).
+    """
     _CFG.annotate_torch = bool(torch_annotations)
+    _CFG.registry_spans = bool(registry_spans)
     _CFG.enabled = True
 
 
@@ -71,8 +102,158 @@ def remove_sink(sink) -> None:
         _SINKS.remove(sink)
 
 
+def sinks() -> list:
+    return list(_SINKS)
+
+
+# --------------------------------------------------------------------- #
+# Trace context (cross-thread / cross-process propagation)
+# --------------------------------------------------------------------- #
+def new_trace_id() -> str:
+    """A fresh 16-hex-char trace id (random, so ids minted by many
+    client processes never collide — the property the merged cluster
+    stream depends on; span SIDS stay per-process counters)."""
+    return os.urandom(8).hex()
+
+
+def next_sid() -> int:
+    """Reserve one span id from the process counter — for call sites
+    that must name a span's id BEFORE the span's event is emitted (the
+    RPC client advertises its batch-root sid on the wire so server-side
+    spans can parent to it)."""
+    return next(_IDS)
+
+
+class TraceContext:
+    """One query batch's identity across threads and processes.
+
+    ``trace_id`` is the global join key (minted once, client-side);
+    ``parent_sid`` is the span id server/child spans parent to —
+    typically the minting side's root span, whose id is reserved with
+    :func:`next_sid` so it can travel before the root span finishes.
+
+    The context is a plain carryable object: store it on a batch, a
+    future, or a pending-queue entry and every hop keeps the trace —
+    that explicit handoff is the design (thread-locals silently drop
+    context at thread boundaries; queues and executors cross them
+    constantly in the serving tier).
+    """
+
+    __slots__ = ("trace_id", "parent_sid")
+
+    def __init__(self, trace_id: Optional[str] = None,
+                 parent_sid: Optional[int] = None):
+        self.trace_id = trace_id if trace_id else new_trace_id()
+        self.parent_sid = parent_sid
+
+    def __repr__(self) -> str:
+        return f"TraceContext({self.trace_id!r}, {self.parent_sid!r})"
+
+    # -- wire codec ---------------------------------------------------- #
+    def to_wire(self) -> dict:
+        """The compact frame-body form (``{"t": ..., "s": ...}``)."""
+        doc = {"t": self.trace_id}
+        if self.parent_sid is not None:
+            doc["s"] = int(self.parent_sid)
+        return doc
+
+    @classmethod
+    def from_wire(cls, doc) -> Optional["TraceContext"]:
+        """Rebuild a context from a frame body. TOLERANT by contract:
+        a missing/garbage ``tc`` field is an untraced batch, never a
+        request error — tracing must not change the wire's accept set."""
+        if not isinstance(doc, dict):
+            return None
+        tid = doc.get("t")
+        if not isinstance(tid, str) or not tid:
+            return None
+        sid = doc.get("s")
+        return cls(tid, int(sid) if isinstance(sid, int) else None)
+
+
+def current_context() -> Optional[TraceContext]:
+    """The context active on THIS thread (None outside any activation)."""
+    return getattr(_LOCAL, "ctx", None)
+
+
+class _Activation:
+    """``with activate(ctx):`` — scoped thread-local context install."""
+
+    __slots__ = ("ctx", "prev")
+
+    def __init__(self, ctx: Optional[TraceContext]):
+        self.ctx = ctx
+        self.prev = None
+
+    def __enter__(self) -> Optional[TraceContext]:
+        self.prev = getattr(_LOCAL, "ctx", None)
+        _LOCAL.ctx = self.ctx
+        return self.ctx
+
+    def __exit__(self, *exc) -> bool:
+        _LOCAL.ctx = self.prev
+        return False
+
+
+def activate(ctx: Optional[TraceContext]) -> _Activation:
+    """Install ``ctx`` as this thread's current context for the block:
+    spans opened inside are stamped with its trace id (and root spans
+    parent to its ``parent_sid``). This is the explicit cross-thread
+    handoff — a worker thread activates the context it was HANDED, it
+    never inherits one implicitly."""
+    return _Activation(ctx)
+
+
+def record_span(
+    name: str,
+    dur_s: float,
+    *,
+    trace_id: Optional[str] = None,
+    parent: Optional[int] = None,
+    sid: Optional[int] = None,
+    attrs: Optional[dict] = None,
+    ts: Optional[float] = None,
+) -> Optional[int]:
+    """Emit one already-finished span event without entering the
+    thread's span stack — the async/cross-thread form of ``span()``
+    (future callbacks and drained-queue settles know their duration
+    only after the fact, on a thread that never opened the span).
+
+    Returns the span's sid (pass ``sid=`` to emit under a pre-reserved
+    id from :func:`next_sid`), or None when tracing is disabled — the
+    disabled path is one flag check, nothing allocated."""
+    if not _CFG.enabled:
+        return None
+    span_id = next(_IDS) if sid is None else int(sid)
+    event = {
+        "kind": "span",
+        "name": name,
+        "ts": time.time() if ts is None else ts,
+        "dur_s": float(dur_s),
+        "sid": span_id,
+        "depth": 0,
+    }
+    if trace_id:
+        event["trace"] = trace_id
+    if parent is not None:
+        event["parent"] = parent
+    if attrs:
+        event["attrs"] = attrs
+    for s in _SINKS:
+        s.emit(event)
+    if _CFG.registry_spans:
+        from .registry import get_registry
+
+        get_registry().histogram(
+            "trace.span_seconds", span=name
+        ).observe(float(dur_s))
+    return span_id
+
+
 class _NoopSpan:
-    """The disabled-mode singleton: every method is a no-op."""
+    """The disabled-mode singleton: every method is a no-op, entering
+    returns the singleton itself. ``recording`` lets call sites skip
+    building expensive attributes."""
 
     __slots__ = ()
     recording = False
@@ -93,8 +274,8 @@ NOOP_SPAN = _NoopSpan()
 class Span:
     """One recorded stage. Use via ``with span("pack", {...}):``."""
 
-    __slots__ = ("name", "attrs", "sid", "parent", "depth", "t0", "dur_s",
-                 "_ann")
+    __slots__ = ("name", "attrs", "sid", "parent", "depth", "t0",
+                 "dur_s", "_ann", "ctx")
     recording = True
 
     def __init__(self, name: str, attrs: Optional[dict] = None):
@@ -106,10 +287,12 @@ class Span:
         self.t0 = 0.0
         self.dur_s = 0.0
         self._ann = None
+        self.ctx = None
 
     def set(self, **attrs) -> "Span":
-        """Attach attributes after entry (values computed inside the span;
-        call sites guard on ``.recording``)."""
+        """Attach attributes after entry (lets call sites add values
+        computed inside the span without paying for them when tracing
+        is off — guard on ``.recording``)."""
         if self.attrs is None:
             self.attrs = {}
         self.attrs.update(attrs)
@@ -121,7 +304,16 @@ class Span:
             stack = _LOCAL.stack = []
         self.sid = next(_IDS)
         self.depth = len(stack)
-        self.parent = stack[-1].sid if stack else None
+        self.ctx = getattr(_LOCAL, "ctx", None)
+        if stack:
+            self.parent = stack[-1].sid
+        elif self.ctx is not None:
+            # a root span under an activated context parents to the
+            # context's (possibly remote) span id — the cross-process
+            # link the timeline joins on
+            self.parent = self.ctx.parent_sid
+        else:
+            self.parent = None
         stack.append(self)
         if _CFG.annotate_torch:
             from torch.profiler import record_function
@@ -150,15 +342,35 @@ class Span:
         }
         if self.parent is not None:
             event["parent"] = self.parent
+        if self.ctx is not None:
+            event["trace"] = self.ctx.trace_id
         if self.attrs:
             event["attrs"] = self.attrs
         for s in _SINKS:
             s.emit(event)
+        if _CFG.registry_spans:
+            from .registry import get_registry
+
+            get_registry().histogram(
+                "trace.span_seconds", span=self.name
+            ).observe(self.dur_s)
         return False
 
 
 def span(name: str, attrs: Optional[dict] = None):
-    """A context manager timing one named stage (no-op when disabled)."""
+    """A context manager timing one named stage (no-op when disabled).
+
+    ``attrs`` is an optional plain dict of span attributes (window
+    index, superbatch K, block edges, ...). Truly hot call sites guard
+    with :func:`on` before building the dict; everywhere else the dict
+    literal's cost is negligible next to the stage it measures.
+    """
     if not _CFG.enabled:
         return NOOP_SPAN
     return Span(name, attrs)
+
+
+def current_span() -> Optional[Span]:
+    """The innermost open span on this thread (None outside any span)."""
+    stack = getattr(_LOCAL, "stack", None)
+    return stack[-1] if stack else None

@@ -20,8 +20,10 @@ recovery and deterministic fault injection.
   byte-identical vertex dictionaries; its workers run their CC on the
   card unless told ``device="cpu"``.
 
-The single-process chaos sweep, the serving scenarios and the serving
-tier's retry and shed come with ROADMAP Queue 1, slice 9.
+``chaos.run_sweep`` is the single-process kill sweep; the serving
+scenarios (``failover_main``, ``run_rpc_scenario``) kill a serving worker
+or a whole serving binary under live query traffic. The sharded and storm
+scenarios come with ROADMAP Queue 1, slice 9b (the routing tier).
 
 Telemetry rides the obs registry: ``resilience.restarts{kind=...}``,
 ``resilience.ckpt_rejected``, ``resilience.recovery_seconds``,

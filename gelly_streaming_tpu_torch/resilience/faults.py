@@ -8,9 +8,8 @@ repo's kill switchboard: a :class:`FaultPlan` describes exactly which
 fault fires where — kill after window k, corrupt the barrier committed
 at window b, disconnect the socket at record n, drop/duplicate/swap
 specific source records, stall a consumer — and hook points threaded
-through ``core/pipeline.py``, ``core/sources.py`` and
-``aggregate/autockpt.py`` consult it (the serving tier's RPC wire faults
-come with ROADMAP Queue 1, slice 9).
+through ``core/pipeline.py``, ``core/sources.py``,
+``aggregate/autockpt.py`` and ``serving/server.py`` consult it.
 
 Everything is deterministic: faults fire on exact indices (window
 ordinal, record ordinal, barrier watermark), and the only randomness —
@@ -62,6 +61,13 @@ class FaultPlan:
     (the real process kill the chaos workers use). Kills are ONE-SHOT:
     after restart the replayed ordinal passes the hook again, and
     re-firing would turn every kill test into a poison-window loop.
+
+    ``kill_at_or_after`` (the port's addition) fires the kill at the
+    first ordinal at or after ``kill_at_window`` that reaches the site,
+    for a site that is not passed at every ordinal: the serving worker's
+    ``serving.worker.busy`` fires only on a sweep that finds a batch
+    pending, so a replica's ``kill_at_sweep`` always lands with a batch
+    in flight.
     """
 
     seed: int = 0
@@ -69,9 +75,13 @@ class FaultPlan:
     kill_at_window: Optional[int] = None
     kill_site: str = "chaos.window"
     kill_exit_code: Optional[int] = None
+    kill_at_or_after: bool = False
     stall_site: Optional[str] = None       # e.g. "serving.worker"
     stall_at_index: int = 0
     stall_s: float = 0.0
+    # -- rpc wire faults (frame ordinals on the socket path) ------------ #
+    rpc_disconnect_at_frame: Optional[int] = None
+    rpc_truncate_at_frame: Optional[int] = None
     # -- source perturbation (record ordinals) ------------------------- #
     disconnect_at_record: Optional[int] = None
     drop_records: Tuple[int, ...] = ()
@@ -126,7 +136,10 @@ class FaultPlan:
         if site == self.kill_site:
             if (
                 self.kill_at_window is not None
-                and index == self.kill_at_window
+                and index is not None
+                and (index == self.kill_at_window
+                     or (self.kill_at_or_after
+                         and index > self.kill_at_window))
                 and self._once(("kill", self.kill_at_window))
             ):
                 self._count(site)
@@ -154,6 +167,21 @@ class FaultPlan:
                 raise ConnectionResetError(
                     f"injected disconnect at record {index}"
                 )
+        elif site == "rpc.frame":
+            # the serving RPC read paths (server handler + client reader)
+            # consult this after every complete frame: a mid-stream
+            # disconnect is the wire analog of disconnect_at_record,
+            # counted at the same one-shot discipline (frame ordinals are
+            # per-connection)
+            if (
+                self.rpc_disconnect_at_frame is not None
+                and index == self.rpc_disconnect_at_frame
+                and self._once(("rpc_disconnect", index))
+            ):
+                self._count(site)
+                raise ConnectionResetError(
+                    f"injected disconnect at frame {index}"
+                )
         elif site == "checkpoint.committed":
             if (
                 self.corrupt_at_barrier is not None
@@ -163,6 +191,21 @@ class FaultPlan:
             ):
                 self._count(site)
                 corrupt_file(path, self.corrupt_mode, seed=self.seed)
+
+    def truncate_frame(self, index: Optional[int]) -> bool:
+        """True when the RPC send path should commit only HALF of frame
+        ``index`` and drop the connection — the torn-write shape on the
+        wire (the socket analog of ``corrupt_mode="truncate"``).
+        One-shot, counted as site ``rpc.send``; a pure query, so the
+        send path stays in charge of its own socket teardown."""
+        if (
+            self.rpc_truncate_at_frame is not None
+            and index == self.rpc_truncate_at_frame
+            and self._once(("rpc_truncate", index))
+        ):
+            self._count("rpc.send")
+            return True
+        return False
 
     # ------------------------------------------------------------------ #
     def perturb_records(self, records: Iterator) -> Iterator:
@@ -313,3 +356,10 @@ class injected:
 
     def __exit__(self, *exc) -> None:
         clear()
+
+
+def rpc_truncate(index: Optional[int]) -> bool:
+    """Module-level dispatch for :meth:`FaultPlan.truncate_frame`;
+    False when no plan is installed (the production-path answer)."""
+    p = _PLAN
+    return p is not None and p.truncate_frame(index)

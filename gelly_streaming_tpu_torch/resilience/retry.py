@@ -1,6 +1,5 @@
 """Bounded exponential backoff + the serving tier's retry policy (the
-port's copy of ``gelly_streaming_tpu/resilience/retry.py``; the serving
-tier itself comes with ROADMAP Queue 1, slice 9).
+port's copy of ``gelly_streaming_tpu/resilience/retry.py``).
 
 One shared delay rule (:func:`exp_backoff`) feeds every retry loop in
 the resilience layer — supervisor restarts, socket reconnects, and
@@ -37,11 +36,11 @@ def jittered(delay_s: float, jitter: float, seed: int, attempt: int) -> float:
 
 @dataclass(frozen=True)
 class RetryPolicy:
-    """Client-side retry budget for the serving tier's ``Overloaded``.
+    """Client-side retry budget for :class:`~gelly_streaming_tpu_torch.serving.server.Overloaded`.
 
     ``attempts`` is the number of RETRIES after the first try; each
     waits ``exp_backoff(i, base_s, max_s)`` (jittered) before re-asking
-    admission. Shed rejections (``Shed``)
+    admission. Shed rejections (:class:`~gelly_streaming_tpu_torch.serving.server.Shed`)
     are never retried — shedding exists to LOSE that traffic, and a
     retrying client would defeat it.
     """
@@ -61,3 +60,21 @@ class RetryPolicy:
             exp_backoff(attempt, self.base_s, self.max_s),
             self.jitter, self.seed, attempt,
         )
+
+    def delay_before(
+        self, attempt: int, remaining_s: Optional[float] = None
+    ) -> Optional[float]:
+        """:meth:`delay_s` clamped to a remaining deadline budget.
+
+        The RPC client retries ``Overloaded`` wire rejections under a
+        per-query deadline; sleeping past the budget would turn a
+        would-be answer into a guaranteed ``DeadlineExceeded``, so the
+        delay is capped at ``remaining_s`` and a spent budget returns
+        None (give up NOW, fail the deadline cleanly) — same contract
+        shape as :meth:`delay_s`."""
+        d = self.delay_s(attempt)
+        if d is None or remaining_s is None:
+            return d
+        if remaining_s <= 0:
+            return None
+        return min(d, float(remaining_s))

@@ -46,7 +46,7 @@ The host-side fold and repair (:func:`fold_edges_host`,
 :func:`fold_into_forest_host`, :func:`repair_forest_host`) are the
 reference's numpy, unchanged: event-time retraction
 (``eventtime/retract.py``) runs them on the host. The cross-shard merge
-and delta functions come with ROADMAP Queue 1, slice 9 (serving).
+and delta functions come with ROADMAP Queue 1, slice 9b (the routing tier).
 """
 
 from __future__ import annotations
@@ -415,15 +415,18 @@ def mirror_update(
         return new
 
 
-def resolve_flat(canon: torch.Tensor) -> torch.Tensor:
+def resolve_flat(canon: torch.Tensor, read_flags=any_on_host) -> torch.Tensor:
     """Canonicalize the forest to flat labels ON THE DEVICE (checkpoint /
     mode-switch point): pointer jumping doubles chain shortcuts per turn,
-    so the depth is log2 of the longest chain."""
+    so the depth is log2 of the longest chain. ``read_flags`` reads each
+    turn's loop condition to the host; a caller outside the fold (the
+    serving engine) passes its own, so the turns count in its counter and
+    not in the fold's."""
     with _trace.span("cc.resolve_flat"):
         lab = canon
         while True:
             nxt = lab[lab.long()]
-            if not any_on_host(nxt != lab):
+            if not read_flags(nxt != lab):
                 return lab
             lab = nxt
 

@@ -296,13 +296,18 @@ def test_coloring_is_a_proper_two_coloring():
 
 
 def test_later_slices_raise():
-    # the event-time shape is ported (slice 8); its serving payload stays
-    sliding = TorchBC.sliding(10)
-    assert sliding.summaries == ("bipartite",)
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        sliding.servable_payload()
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        TorchBC().servable()
+    # the event-time shape (slice 8) and the serving adapter with the
+    # sliding payload (slice 9a) are ported and equal the JAX package's
+    sliding, jsliding = TorchBC.sliding(10), JaxBC.sliding(10)
+    assert sliding.summaries == jsliding.summaries == ("bipartite",)
+    rng = np.random.default_rng(31)
+    src, dst = rng.integers(0, 20, (2, 40))
+    ts = np.sort(rng.integers(0, 35, 40)).astype(np.int64)
+    for agg in (sliding, jsliding):
+        agg.push(src, dst, ts)
+    assert sliding.servable_payload() == jsliding.servable_payload()
+    names = [c.__name__ for c in TorchBC().servable().query_classes]
+    assert names == [c.__name__ for c in JaxBC().servable().query_classes]
     with pytest.raises(NotImplementedError, match="slice 6"):
         TorchBC(mesh=object())
 

@@ -289,15 +289,22 @@ def test_cc_intermediate_emissions():
 def test_later_slices_raise():
     with pytest.raises(NotImplementedError, match="slice 6"):
         TorchCC(mesh=object())
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        TorchCC().servable()
-    # ported since: superbatch="auto" (slice 7b's control half) and the
-    # event-time shape (slice 8); the sliding payload for serving stays
+    # ported since: superbatch="auto" (slice 7b's control half), the
+    # event-time shape (slice 8) and the serving adapter with the sliding
+    # payload (slice 9a), which equal the JAX package's
     assert TorchCC(superbatch="auto").superbatch_auto
-    sliding = TorchCC.sliding(10)
-    assert sliding.summaries == ("cc",)
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        sliding.servable_payload()
+    names = [c.__name__ for c in TorchCC().servable().query_classes]
+    assert names == [c.__name__ for c in JaxCC().servable().query_classes]
+    sliding, jsliding = TorchCC.sliding(10), JaxCC.sliding(10)
+    assert sliding.summaries == jsliding.summaries == ("cc",)
+    rng = np.random.default_rng(30)
+    src, dst = rng.integers(0, 20, (2, 40))
+    ts = np.sort(rng.integers(0, 35, 40)).astype(np.int64)
+    for agg in (sliding, jsliding):
+        agg.push(src, dst, ts)
+    got, want = sliding.servable_payload(), jsliding.servable_payload()
+    assert got.keys() == want.keys() and got["event_ts"] == want["event_ts"]
+    np.testing.assert_array_equal(got["labels"], want["labels"])
 
 
 # --------------------------------------------------------------------- #

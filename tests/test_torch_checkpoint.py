@@ -433,6 +433,37 @@ def test_device_vertex_dict_saves_like_the_host_dict(tmp_path):
         assert host.encode(np.array([dev.raw_ids()[5], 99999], np.int64))[0] == 5
 
 
-def test_restore_server_names_its_slice():
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        tck.restore_server("x", None, None)
+def test_restore_server_names_its_slice(tmp_path):
+    """``restore_server`` is ported (slice 9a): a port-written CC
+    checkpoint boots servers of both packages that answer alike from the
+    boot snapshot; only the routing tier still raises, naming slice 9b."""
+    from gelly_streaming_tpu.serving import ConnectedQuery as JQ
+    from gelly_streaming_tpu_torch.serving import ConnectedQuery as TQ
+    from gelly_streaming_tpu_torch.serving import ShardRouter
+
+    edges = [(1, 2, 0.0), (2, 3, 0.0), (7, 8, 0.0)]
+    s = gt.SimpleEdgeStream(edges, window=gt.CountWindow(2), device="cpu")
+    agg = tlib.ConnectedComponents(carry="forest")
+    for _ in s.aggregate(agg):
+        pass
+    path = str(tmp_path / "cc")
+    tck.save_aggregation(path, agg, vdict=s.vertex_dict)
+    # empty catch-up streams: every answer comes from the boot snapshot
+    src = gt.SimpleEdgeStream([], window=gt.CountWindow(2),
+                              vertex_dict=tck.load_vertex_dict(path), device="cpu")
+    jsrc = gj.SimpleEdgeStream([], window=gj.CountWindow(2),
+                               vertex_dict=jck.load_vertex_dict(path))
+    srv = tck.restore_server(path, tlib.ConnectedComponents(carry="forest"),
+                             src, start=False)
+    jsrv = jck.restore_server(path, jlib.ConnectedComponents(), jsrc, start=False)
+    try:
+        for server, q in ((srv, TQ), (jsrv, JQ)):
+            server.start()
+            got = [server.ask(q(u, v), 30) for u, v in ((1, 3), (1, 7), (7, 8))]
+            assert [a.value for a in got] == [True, False, True]
+            assert {a.window for a in got} == {-1}
+    finally:
+        srv.close()
+        jsrv.close()
+    with pytest.raises(NotImplementedError, match="slice 9b"):
+        ShardRouter()

@@ -17,8 +17,10 @@ thread cluster of each package emits the same digests. Last, a reduced
 port ``run_mp_sweep`` (two worker processes, kill and relaunch at each of
 two windows) on ``device="cpu"``.
 
-Mirrors ``tests/test_coordinated.py:61-500`` (the serving failover cases
-at ``:522-627`` come with slice 9) and ``:629``'s reduced sweep.
+Mirrors ``tests/test_coordinated.py:61-500`` and ``:629``'s reduced sweep
+(the serving failover cases at ``:522-627`` are mirrored in
+``tests/test_torch_serving.py``); the in-process serving failover worker
+of the sweep's failover point runs here too.
 """
 
 import json
@@ -611,20 +613,31 @@ def test_mp_worker_main_in_process_single_shard(tmp_path):
     assert chaos._count_events(cfg["events"], "resilience.coord_commits") == 2
 
 
-def test_chaos_serving_points_and_single_process_sweep_raise_naming_slice_9():
+def test_chaos_serving_points_and_single_process_sweep_raise_naming_slice_9(tmp_path):
+    """The serving points are ported (slice 9a): the sweep's failover
+    worker, run in-process here, meets the sweep's own pass conditions,
+    and the attribution table of an untraced directory equals the JAX
+    package's. The routing tier's scenarios still raise, naming slice 9b."""
+    from gelly_streaming_tpu.resilience import chaos as jchaos
     from gelly_streaming_tpu_torch.resilience import chaos
 
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        chaos.run_mp_sweep()  # failover=True, rpc=True by default
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        chaos.run_mp_sweep(failover=False)
-    for fn in (chaos.run_sweep, chaos.run_rpc_scenario, chaos.run_sharded_scenario,
-               chaos.run_storm_scenario, chaos.trace_attribution):
-        with pytest.raises(NotImplementedError, match="slice 9"):
+    for fn in (chaos.run_sharded_scenario, chaos.run_storm_scenario):
+        with pytest.raises(NotImplementedError, match="slice 9b"):
             fn()
-    for fn in (chaos.worker_main, chaos.failover_main):
-        with pytest.raises(NotImplementedError, match="slice 9"):
-            fn({})
+    cfg = {"events": str(tmp_path / "events.jsonl"), "meta": str(tmp_path / "meta.json"),
+           "flight": str(tmp_path / "flight.json"), "seed": 4321, "device": "cpu"}
+    try:
+        chaos.failover_main(cfg)
+    finally:
+        obs.reset()
+    with open(cfg["meta"]) as f:
+        meta = json.load(f)
+    assert meta["promoted"] and meta["reanswered"] == 2 and meta["expired"] == 1
+    assert meta["post"] == 1 and meta["pre"] is True and meta["failover_events"] >= 1
+    assert meta["promotion_seconds_count"] >= 1 and len(meta["flight_dumps"]) >= 1
+    assert chaos._count_events(cfg["events"], "serving.failover") >= 1
+    assert chaos.trace_attribution(str(tmp_path)) == jchaos.trace_attribution(str(tmp_path))
+    assert chaos.ATTRIBUTION_STAGES == jchaos.ATTRIBUTION_STAGES
 
 
 def test_chaos_corpus_and_digest_equal_the_jax_packages():

@@ -19,7 +19,12 @@ the CPU and the reverse, and a supervised run killed at ``pipeline.item``
 on the card resumes to the uninterrupted labels, and slice 7b (ingest):
 sharded binary ingest into CC on the card equals the same run on the CPU
 (the forest carry picked on the card), and one ``mp_worker_main`` on the
-card resumes from the epoch a CPU worker committed.
+card resumes from the epoch a CPU worker committed, and slice 9a (serving):
+a held snapshot's bytes stay unchanged on the card for every carry at
+superbatch 1 and 4, the query engine's torch steps on the card answer
+equal to its host path and to the CPU, a live ``StreamServer`` answers on
+the card from a CUDA-event-ready snapshot, and a standby given the card
+uploads the primary's mirrored snapshots.
 
 Every test here is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is false. The file imports only torch, numpy
@@ -777,3 +782,168 @@ def test_mp_worker_on_card_resumes_from_a_cpu_workers_epoch(card, tmp_path):
     assert meta["resumed_epoch"] == 4 and meta["device"] == str(card)
     assert [ln["o"] for ln in rest] == [4, 5, 6, 7]
     assert [ln["d"] for ln in first + rest] == [ln["d"] for ln in oracle]
+
+
+# --------------------------------------------------------------------- #
+# Slice 9a: serving
+# --------------------------------------------------------------------- #
+def _serving_edges(n=8 * 512, vmax=3000, seed=40):
+    rng = np.random.default_rng(seed)
+    return [(int(a), int(b), 0.0) for a, b in rng.integers(0, vmax, (n, 2))]
+
+
+def _frozen_payload(payload):
+    out = {}
+    for k, v in payload.items():
+        if k == "tids":
+            out[k] = np.array(v[: payload["tcount"]], copy=True)
+        elif isinstance(v, torch.Tensor):
+            out[k] = v.detach().cpu().numpy().copy()
+    return out
+
+
+@pytest.mark.parametrize("superbatch", [1, 4])
+@pytest.mark.parametrize("workload", ["cc-forest", "cc-host", "cc-dense", "bip-forest",
+                                      "bip-host", "bip-dense", "pagerank"])
+def test_held_snapshot_stays_unchanged_on_card(card, workload, superbatch):
+    from gelly_streaming_tpu_torch.library import BipartitenessCheck, ConnectedComponents
+    from gelly_streaming_tpu_torch.library.pagerank import IncrementalPageRank
+
+    kind, _, carry = workload.partition("-")
+    if kind == "cc":
+        work = ConnectedComponents(carry=carry, superbatch=superbatch)
+    elif kind == "bip":
+        work = BipartitenessCheck(carry=carry, superbatch=superbatch)
+    else:
+        work = IncrementalPageRank(tol=1e-4, superbatch=superbatch)
+    stream = gt.SimpleEdgeStream(_serving_edges(), window=gt.CountWindow(512), device=card)
+    it = work.servable().payloads(stream)
+    first, _wm = next(it)
+    assert any(isinstance(v, torch.Tensor) and v.is_cuda for v in first.values())
+    held = _frozen_payload(first)
+    assert sum(1 for _ in it) >= 6
+    torch.cuda.synchronize()
+    for k, v in _frozen_payload(first).items():
+        np.testing.assert_array_equal(v, held[k], err_msg=k)
+
+
+def test_held_degree_snapshot_stays_unchanged_on_card(card):
+    from gelly_streaming_tpu_torch.library.degrees import DegreeDistribution
+
+    rng = np.random.default_rng(41)
+    events = [(int(a), int(b), "+" if rng.random() < 0.8 else "-")
+              for a, b in rng.integers(0, 500, (4096, 2))]
+    it = DegreeDistribution(gt.CountWindow(512), device=card).servable().payloads(events)
+    first, _wm = next(it)
+    held = _frozen_payload(first)
+    assert sum(1 for _ in it) == 7
+    np.testing.assert_array_equal(_frozen_payload(first)["deg"], held["deg"])
+
+
+@pytest.mark.parametrize("prefer_host", [False, True, "auto"])
+def test_query_engine_on_card_equals_host_path_and_cpu(card, prefer_host):
+    from gelly_streaming_tpu_torch.library import ConnectedComponents
+    from gelly_streaming_tpu_torch.serving import (
+        ComponentSizeQuery,
+        ConnectedQuery,
+        PublishedSnapshot,
+        QueryEngine,
+        SummaryPullQuery,
+    )
+    from gelly_streaming_tpu_torch.serving import query as tq
+
+    edges = _serving_edges()
+    snaps = []
+    for dev in (card, torch.device("cpu")):
+        stream = gt.SimpleEdgeStream(edges, window=gt.CountWindow(512), device=dev)
+        payload = None
+        for payload, _wm in ConnectedComponents(carry="forest").servable().payloads(stream):
+            pass
+        snaps.append(PublishedSnapshot(payload=payload, window=7, watermark=0, version=1))
+    rng = np.random.default_rng(42)
+    qs = [ConnectedQuery(int(a), int(b)) for a, b in rng.integers(0, 3100, (512, 2))]
+    qs += [ComponentSizeQuery(int(a)) for a in rng.integers(0, 3100, 256)]
+    qs.append(SummaryPullQuery())
+    before = tq.HOST_READS
+    got = QueryEngine(prefer_host=prefer_host).answer_batch(snaps[0], qs)
+    reads = tq.HOST_READS - before
+    want = QueryEngine(prefer_host=True).answer_batch(snaps[1], qs)
+    assert [a.value for a in got] == [a.value for a in want]
+    if prefer_host is True:
+        assert reads == 1  # one download of the table for the version
+    else:
+        assert reads >= 3  # the chase's turns + the downloads of the answers
+
+
+def test_live_server_answers_on_card(card):
+    from gelly_streaming_tpu_torch.library import ConnectedComponents
+    from gelly_streaming_tpu_torch.serving import ConnectedQuery, StreamServer
+
+    edges = _serving_edges()
+    stream = gt.SimpleEdgeStream(edges, window=gt.CountWindow(512), device=card)
+    with StreamServer(ConnectedComponents().servable(), stream) as server:
+        futs = [server.submit(ConnectedQuery(a, b)) for a, b, _ in edges[:256]]
+        assert all(f.result(60).value is True for f in futs)
+        server.join(120)
+        snap = server.snapshot()
+        assert snap.payload["labels"].is_cuda and snap.ready is not None
+        torch.cuda.synchronize()
+        assert snap.ready.query()
+        assert server.store.latest(prefer_ready=True) is snap
+        ans = server.ask(ConnectedQuery(*edges[-1][:2]), 30)
+        assert ans.value is True and ans.staleness == 0
+
+
+def test_standby_default_device_holds_cuda_tensors(card, tmp_path):
+    from gelly_streaming_tpu_torch.serving import ReplicaServer
+    from gelly_streaming_tpu_torch.serving.rpc import demo_payloads
+
+    shared = str(tmp_path / "shared")
+    primary = ReplicaServer(demo_payloads(windows=3, pace_s=0.0, device=card), None,
+                            dirpath=shared, role="primary", lease_s=5.0)
+    standby = ReplicaServer(dirpath=shared, role="standby", lease_s=5.0, monitor=False)
+    primary.start()
+    standby.start()
+    try:
+        primary.server.join(30)
+        primary.mirror.flush(primary.store)
+        import time
+
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline and standby.store.latest() is None:
+            time.sleep(0.01)
+        assert standby.store.latest().payload["labels"].is_cuda
+    finally:
+        standby.close()
+        primary.close()
+
+
+def test_standby_on_card_uploads_mirrored_snapshots(card, tmp_path):
+    from gelly_streaming_tpu_torch.serving import ComponentSizeQuery, ReplicaServer
+    from gelly_streaming_tpu_torch.serving.rpc import demo_payloads
+
+    shared = str(tmp_path / "shared")
+    primary = ReplicaServer(demo_payloads(windows=6, pace_s=0.0, device=card), None,
+                            dirpath=shared, role="primary", lease_s=5.0)
+    standby = ReplicaServer(dirpath=shared, role="standby", lease_s=5.0, device=card,
+                            monitor=False)
+    primary.start()
+    standby.start()
+    try:
+        primary.server.join(30)
+        primary.mirror.flush(primary.store)
+        import time
+
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline and (
+                standby.store.latest() is None
+                or standby.store.latest().version < primary.store.latest().version):
+            time.sleep(0.01)
+        assert standby.store.latest().payload["labels"].is_cuda
+        standby.promote(reason="manual")
+        a = primary.ask(ComponentSizeQuery(0), timeout=30)
+        b = standby.ask(ComponentSizeQuery(0), timeout=30)
+        assert (a.value, a.version) == (b.value, b.version) == (7, 6)
+    finally:
+        standby.close()
+        primary.close()

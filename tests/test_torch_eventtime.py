@@ -383,8 +383,18 @@ def test_commit_artifact_crosses_the_packages(tmp_path, writer):
 
 
 def test_servable_payload_names_the_serving_slice():
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        SlidingGraphAggregator(10).servable_payload()
+    """The serving payload is ported (slice 9a): equal to the JAX
+    package's, with its ``event_ts`` stamp, for every summary."""
+    src, dst, ts = make_ts_stream(60, 24, 50, seed=32)
+    agg = SlidingGraphAggregator(10, 5)
+    jagg = jet.SlidingGraphAggregator(10, 5)
+    for a in (agg, jagg):
+        a.push(src, dst, ts)
+    got, want = agg.servable_payload(), jagg.servable_payload()
+    assert sorted(got) == sorted(want) and got["event_ts"] == want["event_ts"] >= 0
+    np.testing.assert_array_equal(got["labels"], want["labels"])
+    np.testing.assert_array_equal(got["deg"], want["deg"])
+    assert got["bipartite"] == want["bipartite"]
 
 
 # --------------------------------------------------------------------- #

@@ -19,7 +19,7 @@ import gelly_streaming_tpu
 _REF_ROOT = os.path.dirname(gelly_streaming_tpu.__file__)
 _PACKAGES = ["", "core", "ops", "summaries", "library", "utils", "models",
              "aggregate", "obs", "resilience", "control", "eventtime", "fabric",
-             "parallel"]
+             "parallel", "serving"]
 
 
 def _reference_exports(package):
@@ -47,7 +47,12 @@ def _ported(package, submodule, name):
 _CASES = sorted(
     {(pkg, name) for pkg in _PACKAGES for sub, name in _reference_exports(pkg)
      if _ported(pkg, sub, name)}
-) + [("ops", "DeviceVertexDict"), ("resilience", "DeviceUnavailable")]
+) + [("ops", "DeviceVertexDict"), ("resilience", "DeviceUnavailable")] + [
+    # the reference's PEP 562 lazy exports (serving's RPC names, obs's
+    # endpoint), which no relative import lists; the router's two
+    # (ShardRouter, ReshardWatcher) are slice 9b
+    ("serving", n) for n in ("HeartbeatLease", "ReplicaServer", "RpcServer",
+                             "RpcClient", "RpcError")] + [("obs", "MetricsEndpoint")]
 
 
 @pytest.mark.parametrize("package,name", _CASES,
@@ -84,6 +89,13 @@ def test_ported_name_imports_from_the_package(package, name):
     ("resilience", "ClusterError"), ("resilience", "select_epoch"), ("obs", "ShardSink"),
     ("obs", "ClusterAggregator"), ("obs", "JsonlSink"), ("obs", "replay"),
     ("obs", "prometheus_text"),
+    # slice 9a (the single-process serving tier and its wire); the lazy
+    # names of serving/__init__ and obs/__init__ are pinned here
+    ("serving", "StreamServer"), ("serving", "QueryEngine"), ("serving", "Servable"),
+    ("serving", "FailoverServer"), ("serving", "SnapshotStore"), ("serving", "TxnContext"),
+    ("serving", "RpcServer"), ("serving", "RpcClient"), ("serving", "RpcError"),
+    ("serving", "ReplicaServer"), ("serving", "HeartbeatLease"), ("obs", "MetricsEndpoint"),
+    ("obs", "TraceContext"), ("obs", "record_span"), ("obs", "activate"),
 ])
 
 def test_slice_names_are_cases(package, name):
@@ -92,12 +104,18 @@ def test_slice_names_are_cases(package, name):
     assert (package, name) in _CASES
 
 
-#: modules of slice 7b (ingest) that the reference does not re-export from
-#: a package ``__init__``: their public top-level names are the exports
+#: modules of slices 7b (ingest) and 9a (serving) whose public top-level
+#: names are the exports (the reference does not re-export all of them from
+#: a package ``__init__``); the routing tier's modules (``serving.router``,
+#: ``serving.reshard``) are slice 9b
 _MODULES = ["core.ingest", "fabric.base", "fabric.wire", "fabric.shared_dir",
             "fabric.exchange", "fabric.agreement", "fabric.collective",
             "parallel.multihost", "resilience.coordinated", "resilience.chaos",
-            "obs.export", "obs.cluster", "obs.timeline", "obs.flight"]
+            "obs.export", "obs.cluster", "obs.timeline", "obs.flight",
+            "obs.trace", "obs.endpoint", "resilience.retry", "resilience.faults",
+            "serving.query", "serving.server", "serving.snapshot_store",
+            "serving.stats", "serving.txn", "serving.failover", "serving.rpc",
+            "serving.client"]
 
 
 def _module_names(module):
@@ -115,10 +133,11 @@ def _module_names(module):
     return sorted(n for n in out if not n.startswith("_"))
 
 
-#: the serving scenarios' constants of the chaos module (slice 9); the
-#: scenario functions themselves are defined and raise naming it
+#: the sharded and storm scenarios' constants of the chaos module (slice 9b,
+#: the routing tier); the scenario functions themselves are defined and
+#: raise naming it
 _LATER = {("resilience.chaos", n) for n in (
-    "ATTRIBUTION_STAGES", "CLIENT_SHARD", "ROUTER_SHARD", "SHARDED_DEFAULTS",
+    "CLIENT_SHARD", "ROUTER_SHARD", "SHARDED_DEFAULTS",
     "STORM_CHILD_SHARD", "STORM_DEFAULTS", "STORM_ROUTER2_SHARD")}
 
 _MODULE_CASES = [(m, n) for m in _MODULES for n in _module_names(m)

@@ -189,13 +189,23 @@ def _meshed_slice_reduce(edges):
     return stream.slice().reduce_on_edges("sum")
 
 
+def _shard_router_over(sliding):
+    """A router in front of a sliding aggregation's served payload: the
+    routing tier is ported in slice 9b."""
+    from gelly_streaming_tpu_torch.serving import ShardRouter
+
+    sliding.servable_payload()
+    return ShardRouter([["127.0.0.1:1"]])
+
+
 @pytest.mark.parametrize(
     "make",
     [
-        # the window and neighborhood layer is ported (slice 4) and the
-        # event-time shape (slice 8): what stays for later slices on their
-        # paths still raises (the sliding payload for serving)
-        lambda e: DegreeDistribution.sliding(10).servable_payload(),
+        # the window and neighborhood layer is ported (slice 4), the
+        # event-time shape (slice 8) and its serving payload (slice 9a,
+        # pinned in test_torch_eventtime.py): what stays on the serving
+        # path is the routing tier (slice 9b)
+        lambda e: _shard_router_over(DegreeDistribution.sliding(10)),
         # the exact counter is ported (slice 5); the triangle path's
         # edge-sharded count stays for slice 6
         lambda e: [ttri.window_triangle_count_sharded(e)],

@@ -267,7 +267,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    card: 0 client-visible failures, promotion by lease lapse, the primary's
    flight dump, every trace completed; the outage, steady and promotion
    window p50/p99. Prints its ``fused_sage_matmul`` launches (0).
-21. a ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
+21. routing — slice 9b on the card; every shard replica holds its tables
+   on the card (``device="cuda"``), no router touches it. (a)
+   ``example/sharded_ingest_serving.run`` at phase 19's per-shard window
+   and edge count over the headline's id bound (2 shards, windows of 2^14,
+   2^22 edges over 2^21 vertices, seed 23): edges/s and the final answers,
+   which must equal scipy's components of the regenerated edges. (b)
+   ``resilience/chaos.py:run_sharded_scenario`` (c1 direct, c2 cache off
+   and on with the oracle, the joined trace and the shard kill, c3 delta
+   against full pulls under churn, c4) with the reference's other defaults
+   and windows of 2^17, at 2^21 vertices and 2^22 edges halved together
+   while c3's full pull of its 4x keyspace would not fit one wire frame
+   (``fabric/wire.py:DEFAULT_MAX_FRAME``, the reference's 8 MiB), each cut
+   printed: 0 oracle mismatches, 0 load failures, 0 failures on either side
+   of the shard kill with the standby promoted, a joined trace, and the
+   churn cell's oracle identity; the hit rate, full merges and headline
+   ratios are printed, not gated. (c) ``run_storm_scenario`` at the
+   geometry of ``bench.py --storm --smoke`` (2^11 vertices, 2^12 edges,
+   phases of 1.2 s, 2 clients, 64 oracle checks): 0 client-visible
+   failures in every phase, promotion, the split adopted, 0 post-split
+   oracle mismatches, 0 transaction violations, a trace joining client,
+   surviving router and both post-split shards; the surviving router's
+   epoch (stamped on its reply frames). (d) A router's host work at 2^21
+   ids and 2^22 edges on the machine's CPU: the shards' host fold, one full
+   pull's encode and decode, the cross-shard merge and a 1 % delta apply,
+   each checked. Prints its ``fused_sage_matmul`` launches (0).
+22. a ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
 Each phase's wall seconds are printed after it.
 
 TF32 is off for float32 matmuls (``torch.backends.cuda.matmul.allow_tf32 =
@@ -518,6 +543,19 @@ SV_RPC = dict(clients=4, batch=16, pace_s=0.005, kill_at_sweep=1500, lease_s=0.4
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate and dense bf16 tensor rate;
 # float32 work counts against the CUDA cores' f32 rate
+# phase 21: the routing tier (slice 9b)
+RT_SEED = 23
+RT_SHARDS = 2
+RT_EX_WINDOW = 1 << 14  # per shard, phase 19's
+RT_EX_EDGES = 1 << 22
+RT_EX_VERTICES = 1 << 21  # the headline's id bound
+RT_SH_VERTICES = 1 << 21  # halved with RT_SH_EDGES until c3's full pull fits a frame
+RT_SH_EDGES = 1 << 22
+RT_SH_WINDOW = 1 << 17
+RT_STORM = dict(n_vertices=1 << 11, n_edges=1 << 12, phase_s=1.2, clients=2,
+                oracle_checks=64)  # bench.py:3259-3262, --storm --smoke
+RT_DEVICE = "cuda"  # where every shard replica's tables live
+
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 
@@ -3991,6 +4029,218 @@ def phase_serving(torch, oracle):
     return cell
 
 
+def _full_pull_frame_bytes(rows):
+    """Bytes of the reply frame's body that carries one full summary pull of
+    ``rows`` rows (the doc ``QueryEngine.summary_pull`` answers, inside the
+    wire's answer envelope)."""
+    from gelly_streaming_tpu_torch.serving.query import encode_pull_doc
+
+    col = np.zeros(rows, np.int64)
+    doc = encode_pull_doc(col, col, kind="full")
+    env = {"id": "0" * 32, "status": "ok",
+           "answers": [["ok", doc, 0, 0, 0, 0, -1, 0, "0" * 16]]}
+    return len(json.dumps(env))
+
+
+def _sharded_size():
+    """(n_vertices, n_edges, cuts) for cell (b): from 2^21 and 2^22, halved
+    together while the churn cell's full pull of its 4x keyspace (every slot
+    of the shard's table, 16 bytes a row in base64 twice over) would exceed
+    the one frame a client reads; such a pull fails, and the cell's
+    converge-and-oracle step with it."""
+    from gelly_streaming_tpu_torch.fabric.wire import DEFAULT_MAX_FRAME
+
+    nv, ne, cuts = RT_SH_VERTICES, RT_SH_EDGES, []
+    while True:
+        size = _full_pull_frame_bytes(4 * nv)
+        if size <= DEFAULT_MAX_FRAME:
+            return nv, ne, cuts
+        cuts.append(f"cut: n_vertices {nv} -> {nv // 2}, n_edges {ne} -> {ne // 2}: c3's "
+                    f"full pull of {4 * nv} rows is a {size}-byte frame, over the wire's "
+                    f"{DEFAULT_MAX_FRAME}-byte bound (fabric/wire.py:DEFAULT_MAX_FRAME)")
+        nv, ne = nv // 2, ne // 2
+
+
+def _router_host_work():
+    """(d) What one router's host work costs at the headline's 2^21 ids, on
+    this machine's CPU: the two shards' forests of 2^22 edges (the replicas'
+    host fold), one full pull's encode and decode, the cross-shard merge of
+    the two tables, and one delta apply of a 1 % churn bump (the sharded
+    scenario's churn rate), each timed once with the host clock."""
+    from gelly_streaming_tpu_torch.core.ingest import partition_edges_by_vertex
+    from gelly_streaming_tpu_torch.serving.query import encode_pull_doc
+    from gelly_streaming_tpu_torch.serving.router import decode_pull, demo_shard_edges
+    from gelly_streaming_tpu_torch.summaries.forest import (
+        apply_forest_delta_host,
+        fold_edges_host,
+        merge_forest_tables_host,
+        resolve_flat_host,
+    )
+
+    nv, ne = RT_SH_VERTICES, RT_SH_EDGES
+    src, dst = demo_shard_edges(nv, ne, RT_SEED)
+    t0 = time.perf_counter()
+    tables = [fold_edges_host(np.arange(nv, dtype=np.int32), s_, d_)
+              for s_, d_, _v in partition_edges_by_vertex(src, dst, None, RT_SHARDS)]
+    fold_s = time.perf_counter() - t0
+    ids = np.arange(nv, dtype=np.int64)
+    t0 = time.perf_counter()
+    doc = encode_pull_doc(ids, tables[0].astype(np.int64), kind="full")
+    encode_s = time.perf_counter() - t0
+    frame = len(json.dumps(doc))
+    t0 = time.perf_counter()
+    dec = decode_pull(doc)
+    decode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    merged = merge_forest_tables_host(tables)
+    merge_s = time.perf_counter() - t0
+    lab = merged.astype(np.int64)
+    sizes = np.bincount(merged, minlength=nv).astype(np.int64)
+    cs, cd = demo_shard_edges(nv, max(1, int(nv * 0.01) // 2), RT_SEED + 40)
+    t0 = time.perf_counter()
+    touched = apply_forest_delta_host(lab, sizes, cs, cd)
+    delta_s = time.perf_counter() - t0
+    whole = fold_edges_host(merged, cs, cd)
+    d = {"n_vertices": nv, "n_edges": ne, "shard_fold_s": fold_s,
+         "pull_encode_s": encode_s, "pull_decode_s": decode_s, "pull_doc_bytes": frame,
+         "merge_s": merge_s, "delta_edges": len(cs), "delta_apply_s": delta_s,
+         "delta_touched_roots": len(touched),
+         "decode_equal": bool(np.array_equal(dec["r"], tables[0])),
+         "delta_equal_fold": bool(np.array_equal(resolve_flat_host(lab), whole))}
+    say(f"routing (d) router host work at {nv} ids " + json.dumps(d))
+    if not (d["decode_equal"] and d["delta_equal_fold"]):
+        raise AssertionError(f"the router's host forms disagree at 2^21: {d}")
+    return d
+
+
+def phase_routing(torch):
+    """Phase 21: the routing tier on the card (slice 9b)."""
+    import tempfile
+
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import connected_components
+
+    from gelly_streaming_tpu_torch.example import sharded_ingest_serving
+    from gelly_streaming_tpu_torch.ops import sage_kernels as sk
+    from gelly_streaming_tpu_torch.resilience import chaos
+
+    sk.LAUNCHES = 0
+    cell = {}
+
+    # (a) the sharded example: sharded socket ingest -> CC on the card -> served
+    t0 = time.perf_counter()
+    lines = sharded_ingest_serving.run(RT_SHARDS, RT_EX_WINDOW, RT_EX_EDGES,
+                                       n_vertices=RT_EX_VERTICES, seed=RT_SEED,
+                                       device=RT_DEVICE)
+    wall = time.perf_counter() - t0
+    rng = np.random.default_rng(RT_SEED)  # the example's own draws, in its order
+    src = rng.integers(0, RT_EX_VERTICES, RT_EX_EDGES, dtype=np.int64)
+    dst = rng.integers(0, RT_EX_VERTICES, RT_EX_EDGES, dtype=np.int64)
+    pairs = rng.integers(0, RT_EX_VERTICES, (4, 2))
+    adj = sp.coo_matrix((np.ones(RT_EX_EDGES, np.int8), (src, dst)),
+                        shape=(RT_EX_VERTICES, RT_EX_VERTICES))
+    _, comp = connected_components(adj, directed=True, connection="weak")
+    finals = [ln for ln in lines if ln.startswith("final ")]
+    want = [f"final connected({int(u)},{int(v)}) = {bool(comp[u] == comp[v])}"
+            for u, v in pairs]
+    a = {"edges_per_s": RT_EX_EDGES / wall, "seconds": wall, "lines": lines,
+         "final_equal_scipy": [ln.split(" [")[0] for ln in finals] == want}
+    say("routing (a) sharded_ingest_serving " + json.dumps(a))
+    if not a["final_equal_scipy"]:
+        raise AssertionError(f"the sharded example's answers disagree with scipy: {finals} "
+                             f"!= {want}")
+    cell["example"] = a
+
+    # (b) the sharded-serving scenario, every shard replica on the card
+    nv, ne, cuts = _sharded_size()
+    for c in cuts:
+        say("routing (b) " + c)
+    root = tempfile.mkdtemp(prefix="smoke_sharded_", dir=_cache_dir())
+    t0 = time.perf_counter()
+    try:
+        doc = chaos.run_sharded_scenario(root, n_vertices=nv, n_edges=ne, window=RT_SH_WINDOW,
+                                         device=RT_DEVICE, log=say)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    sr, z, kill, churn = doc["single_replica"], doc["zipf"], doc["shard_kill"], doc["churn"]
+    stats = doc["router_cache_stats"] or {}
+    lookups = stats.get("cache_hits", 0) + stats.get("cache_misses", 0)
+    pick = ("qps", "p50_ms", "p99_ms", "failures", "deadline_expired")
+    b = {
+        "config": doc["config"], "cuts": len(cuts), "seconds": wall,
+        "c1_direct": {k: {f: sr[k][f] for f in pick} for k in ("uniform", "zipf")},
+        "c2_cache_off": {f: z["cache_off"][f] for f in pick},
+        "c2_cache_on": {f: z["cache_on"][f] for f in pick},
+        "c2_hot_set": {f: z["hot_set_cache_on"][f] for f in pick},
+        "oracle": doc["oracle"], "trace": doc["trace"]["joined_trace"],
+        "cache_hit_rate": stats.get("cache_hits", 0) / lookups if lookups else None,
+        "cache_stats": {k: stats.get(k) for k in ("cache_hits", "cache_misses", "pulls",
+                                                  "merges_full", "merge_s_full",
+                                                  "pull_bytes_full")},
+        "kill": {k: kill[k] for k in ("affected", "unaffected", "promoted", "primary_rc")},
+        "churn": {k: churn[k] for k in ("delta_bytes_per_refresh", "full_bytes_per_refresh",
+                                        "delta_merge_s_per_refresh", "full_merge_s_per_refresh",
+                                        "bytes_x", "merge_x", "oracle_mismatches",
+                                        "converged", "churn_ok")},
+        "scaling": doc["scaling"], "headline": doc["headline"], "ok": doc["ok"],
+        "host_cores": os.cpu_count(),
+    }
+    say("routing (b) run_sharded_scenario " + json.dumps(b))
+    load_fail = sum(d["failures"] + d["deadline_expired"] + len(d["errors"])
+                    for d in (sr["uniform"], sr["zipf"], z["cache_off"], z["cache_on"],
+                              z["hot_set_cache_on"]))
+    if not (doc["oracle"]["mismatches"] == 0 and load_fail == 0
+            and kill["affected"]["failures"] == 0 and kill["unaffected"]["failures"] == 0
+            and not kill["driver_errors"] and kill["promoted"]
+            and doc["trace"]["joined_trace"] is not None
+            and churn["oracle_mismatches"] == 0 and churn["converged"] == [True, True]
+            and not churn["driver_errors"]):
+        raise AssertionError(f"the sharded-serving scenario failed a gate: load failures "
+                             f"{load_fail}, {doc.get('reason')}")
+    cell["sharded"] = b
+
+    # (c) the storm at bench.py --storm --smoke's geometry, replicas on the card
+    root = tempfile.mkdtemp(prefix="smoke_storm_", dir=_cache_dir())
+    t0 = time.perf_counter()
+    try:
+        doc = chaos.run_storm_scenario(root, device=RT_DEVICE, log=say, **RT_STORM)
+        try:
+            with open(os.path.join(root, "router.b.meta.json")) as f:
+                survivor = json.load(f)
+        except (OSError, ValueError):
+            survivor = {}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    c = {"config": doc["config"], "seconds": wall,
+         "phases": {n: {k: v[k] for k in ("batches", "failures", "p50_ms", "p99_ms")}
+                    for n, v in doc["load"].items()},
+         "load_total": doc["load_total"], "oracle": doc["oracle"],
+         "txn": {k: doc["txn"][k] for k in ("txns", "committed", "expired", "violations",
+                                             "spanning", "zero_violations", "driver_errors")},
+         "trace": doc["trace"], "storm": {k: v for k, v in doc["storm"].items() if k != "phases"},
+         "surviving_router_epoch": survivor.get("epoch"),
+         "retune": {k: doc["retune"][k] for k in ("total_moves", "worst_reverts_per_phase")},
+         "ok": doc["ok"]}
+    say("routing (c) run_storm_scenario " + json.dumps(c))
+    st = doc["storm"]
+    if not (all(v["failures"] == 0 for v in doc["load"].values())
+            and doc["load_total"]["failures"] == 0 and not doc["load_total"]["driver_errors"]
+            and st["promoted"] and st["split_adopted"] and st["survivor_alive"]
+            and doc["oracle"]["mismatches"] == 0 and doc["txn"]["violations"] == 0
+            and not doc["txn"]["driver_errors"] and doc["trace"]["joined_trace"] is not None
+            and survivor.get("epoch") == 1):
+        raise AssertionError(f"the storm scenario failed a gate: {doc.get('reason')}")
+    cell["storm"] = c
+    cell["router_host_2p21"] = _router_host_work()
+    say(f"routing fused_sage_matmul launches in phase 21: {sk.LAUNCHES} (the routing tier "
+        "has no hand-written kernel; the replicas' query steps are PyTorch operations and "
+        "the routers' merges host numpy)")
+    cell["fused_sage_matmul_launches"] = sk.LAUNCHES
+    return cell
+
+
 def timed(name, fn, *args):
     """Run one phase and print its wall seconds."""
     t0 = time.perf_counter()
@@ -4023,6 +4273,7 @@ def main():
     timed("eventtime", phase_eventtime, torch)
     timed("ingest", phase_ingest, torch)
     timed("serving", phase_serving, torch, cc_oracle)
+    timed("routing", phase_routing, torch)
     say(f"all phases: {time.perf_counter() - t_start:.1f} s")
     kernel = {
         "name": "fused_sage_matmul",

@@ -11,8 +11,7 @@ one decision discipline.
   producer-blocked and consumer-idle shares of each decision window.
 - :class:`AdmissionTuner`: serving admission + shed watermarks from
   measured queue wait against the deadline budgets queries carry
-  (``StreamServer(autotune=True)``; the router's comes with ROADMAP
-  Queue 1, slice 9b).
+  (``StreamServer(autotune=True)`` / ``ShardRouter(autotune=True)``).
 
 The shared discipline:
 

@@ -25,8 +25,8 @@ across the two packages. Emission reproduces the reference's
 ``(true,{...})`` / ``(false,{})`` format.
 
 ``superbatch="auto"`` re-tiles the groups under an ``AutoK`` controller;
-``sliding()`` is the event-time shape (``eventtime/``). ``servable()`` and
-the mesh come with ROADMAP Queue 1, slices 9 and 6.
+``sliding()`` is the event-time shape (``eventtime/``) and ``servable()``
+the serving adapter; the mesh comes with ROADMAP Queue 1, slice 6.
 """
 
 from __future__ import annotations

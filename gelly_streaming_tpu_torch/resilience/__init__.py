@@ -22,8 +22,11 @@ recovery and deterministic fault injection.
 
 ``chaos.run_sweep`` is the single-process kill sweep; the serving
 scenarios (``failover_main``, ``run_rpc_scenario``) kill a serving worker
-or a whole serving binary under live query traffic. The sharded and storm
-scenarios come with ROADMAP Queue 1, slice 9b (the routing tier).
+or a whole serving binary under live query traffic; the sharded and storm
+scenarios (``run_sharded_scenario``, ``run_storm_scenario``) put the
+routing tier in front of shard replicas and kill, promote and split under
+load. Every replica runs its tables on the card unless told
+``device="cpu"``; the routers never touch it.
 
 Telemetry rides the obs registry: ``resilience.restarts{kind=...}``,
 ``resilience.ckpt_rejected``, ``resilience.recovery_seconds``,

@@ -31,6 +31,17 @@ bounded staleness, without stalling ingestion:
   shared snapshot directory with a heartbeat lease) and
   :class:`RpcClient` (retries, resubmit under the same batch id, deadline
   budgets, trace context). Frames are the reference's, byte for byte.
+- :mod:`router` — :class:`ShardRouter`: the sharded-serving tier —
+  vertex-ownership partition over N shard servers, scatter-gather
+  fan-out with per-class merges (cross-shard CC union via summary
+  pulls + the group-fold merge), a version-stamped hot-key answer
+  cache, and per-shard failover through each shard's address list. A
+  router holds no device state: its merges are host numpy.
+- :mod:`reshard` — elastic resharding: one-winner split plans elected
+  over the fabric, child-address publication, the dense
+  actionable-prefix rule that defines the live ownership epoch, and the
+  :class:`~.reshard.ReshardWatcher` replicas and routers adopt it
+  through.
 
 Workloads opt in via a small ``servable()`` adapter
 (``library/connected_components.py``, ``library/degrees.py``,
@@ -38,10 +49,6 @@ Workloads opt in via a small ``servable()`` adapter
 carry to a snapshot payload; ``aggregate/checkpoint.py:restore_server``
 boots a server from a checkpoint so it serves the restored summary while
 catching up.
-
-The routing tier (:mod:`router`'s ``ShardRouter``, :mod:`reshard`) comes
-with ROADMAP Queue 1, slice 9b: its names are defined and raise
-``NotImplementedError`` naming it.
 """
 
 from .query import (

@@ -120,9 +120,6 @@ ERROR = "error"                # terminal: server-side failure
 #: statuses a client may retry (everything else is terminal)
 RETRYABLE = frozenset({OVERLOADED, NOT_PRIMARY})
 
-#: where the routing tier's parts of this module are ported
-SLICE_9B = "ROADMAP Queue 1, slice 9b (the routing tier)"
-
 
 class Wire:
     """One framed socket endpoint: serialized sends, frame-counted
@@ -922,10 +919,23 @@ class ReplicaServer:
     serves its servable's own tensors and reads ``device`` only if it
     rejoins as standby.
 
-    ``role="split"`` (the child of a live shard split) and
-    ``reshard=`` (the ownership-epoch watcher) belong to the routing
-    tier: they raise ``NotImplementedError`` naming ROADMAP Queue 1,
-    slice 9b.
+    ``role="split"`` (elastic resharding): the CHILD of a live shard
+    split. Follows the PARENT's serving directory exactly like a
+    standby, uploading each followed snapshot to ``device`` — but its
+    gate is OPEN (it answers immediately from the followed state), it
+    never monitors or touches the parent's lease, and it never promotes.
+    The parent keeps every key, so the child serving the full followed
+    table is oracle-identical on the moved half of the keyspace —
+    routers send it only keys whose ``split_side`` bit moved
+    (``core.ingest.vertex_owner_epoch``).
+
+    ``reshard={"store": <dir>, "shard": <int>}`` attaches a
+    :class:`~gelly_streaming_tpu_torch.serving.reshard.ReshardWatcher`:
+    the replica learns the live ownership epoch and stamps it on every
+    reply frame (``RpcServer(epoch=...)``), which is how routers hear
+    about splits from ordinary traffic. An adopted plan whose parent is
+    THIS shard is counted ``reshard.split``; any other adoption is
+    ``reshard.adopt``.
     """
 
     def __init__(
@@ -947,13 +957,9 @@ class ReplicaServer:
         device="cuda",
         **server_kwargs,
     ):
-        if role == "split" or reshard is not None:
-            raise NotImplementedError(
-                "live resharding (role='split', reshard=) is ported in "
-                f"{SLICE_9B}")
-        if role not in ("primary", "standby"):
+        if role not in ("primary", "standby", "split"):
             raise ValueError(
-                f"role must be primary/standby, got {role!r}")
+                f"role must be primary/standby/split, got {role!r}")
         self.dirpath = dirpath
         self.rejoined = False
         if role == "primary":
@@ -987,9 +993,10 @@ class ReplicaServer:
         self._plock = threading.Lock()
         self._closed = False
         self.lease: Optional[HeartbeatLease] = None
-        # a replica's shard index comes with resharding (slice 9b): an
-        # unsharded replica stamps no shard
-        self.shard = None
+        self._reshard_cfg = reshard
+        self._reshard = None  # ReshardWatcher, created in start()
+        self._reshard_seen = 0  # adopted-plan prefix already counted
+        self.shard = None if reshard is None else reshard.get("shard")
         if role == "primary":
             if servable is None:
                 raise ValueError("a primary replica needs a servable")
@@ -1015,7 +1022,7 @@ class ReplicaServer:
             self.store = self.server.store
         self.rpc = RpcServer(
             self.server, host=host, port=port, gate=self._gate,
-            shard=self.shard,
+            epoch=self._epoch, shard=self.shard,
         )
 
     # ------------------------------------------------------------------ #
@@ -1041,9 +1048,44 @@ class ReplicaServer:
         return False  # fresh but silent: a dead predecessor's record
 
     def _gate(self) -> Optional[str]:
-        return None if self.role == "primary" else NOT_PRIMARY
+        # a split child answers from boot — its traffic is routed by
+        # ownership epoch, not by lease, so there is nothing to refuse
+        return None if self.role in ("primary", "split") else NOT_PRIMARY
+
+    def _epoch(self) -> int:
+        """Current ownership epoch for reply-frame stamping (0 before
+        any split is actionable, or with no reshard store attached)."""
+        w = self._reshard
+        return 0 if w is None else w.epoch()
+
+    def _on_reshard(self, plans: list) -> None:
+        """Watcher callback: count each NEWLY adopted plan — a split
+        of this shard's own keyspace (``reshard.split``) reads
+        differently in the storm timeline than a peer's split this
+        replica merely adopts (``reshard.adopt``)."""
+        reg = get_registry()
+        for p in plans[self._reshard_seen:]:
+            if self.shard is not None and p["parent"] == self.shard:
+                reg.counter(
+                    "reshard.split", epoch=str(p["epoch"]),
+                    parent=str(p["parent"]), child=str(p["child"]),
+                ).inc()
+            else:
+                reg.counter(
+                    "reshard.adopt", epoch=str(p["epoch"]),
+                    site="replica",
+                ).inc()
+        self._reshard_seen = len(plans)
 
     def start(self) -> "ReplicaServer":
+        if self._reshard_cfg is not None:
+            from .reshard import ReshardWatcher
+
+            self._reshard = ReshardWatcher(
+                self._reshard_cfg["store"],
+                poll_s=float(self._reshard_cfg.get("poll_s", 0.1)),
+                on_adopt=self._on_reshard,
+            )
         self.server.start()
         self.rpc.start()
         if self.role == "primary":
@@ -1182,9 +1224,7 @@ class ReplicaServer:
             "pending": len(self.server._pending),
             "heartbeat_age_s": self.heartbeat_age_s(),
             "rpc_port": self.rpc.port,
-            # the ownership epoch of a resharded deployment (slice 9b);
-            # an unsharded replica is always at epoch 0
-            "epoch": 0,
+            "epoch": self._epoch(),
             # the transaction probe surface: how deep the
             # pinned-readable ring is, the OLDEST version a pin can
             # still be answered at, and how many transactions touched
@@ -1229,6 +1269,8 @@ class ReplicaServer:
         # fresh copy each
         deadline = time.monotonic() + float(timeout)
         self._mon_stop.set()
+        if self._reshard is not None:
+            self._reshard.close(max(0.0, deadline - time.monotonic()))
         if self._mon_thread is not None:
             self._mon_thread.join(
                 max(0.0, deadline - time.monotonic()))
@@ -1307,8 +1349,15 @@ def replica_main(cfg: dict) -> None:
     to the snapshot mirror), ``adopt_boot`` (republish the newest
     mirrored snapshot under its ORIGINAL version before ingest,
     restoring the pull ring when present — the restarted-shard bridge).
-    The routing tier's keys (``cc_shard``, ``reshard``, ``role="split"``)
-    raise ``NotImplementedError`` naming ROADMAP Queue 1, slice 9b."""
+
+    The routing tier's keys: ``cc_shard`` (the primary serves one shard
+    of the partitioned deployment, :func:`~.router.shard_demo_payloads`,
+    its tables on ``device``), ``reshard`` (``{"store": dir, "shard":
+    k}`` — epoch stamping + adoption), ``role="split"`` + ``split_epoch``
+    (boot as a split child of ``dir``'s parent shard, uploading the
+    followed snapshots to ``device``, and publish this process's address
+    under the split epoch once servable; ``split_boot_timeout_s`` bounds
+    that wait)."""
     import signal
 
     from ..core.device import resolve_device
@@ -1317,10 +1366,6 @@ def replica_main(cfg: dict) -> None:
     from ..obs.cluster import ShardSink
     from ..resilience import faults
 
-    if (cfg.get("cc_shard") is not None or cfg.get("reshard") is not None
-            or cfg["role"] == "split"):
-        raise NotImplementedError(
-            f"sharded and resharding replicas are ported in {SLICE_9B}")
     device = resolve_device(cfg.get("device", "cuda"))
     role = cfg["role"]
     sink = None
@@ -1353,13 +1398,23 @@ def replica_main(cfg: dict) -> None:
         kw["autotune"] = True
         if cfg.get("target_wait_s") is not None:
             kw["target_wait_s"] = float(cfg["target_wait_s"])
+    if cfg.get("reshard"):
+        kw["reshard"] = cfg["reshard"]
     if role == "primary":
-        servable = demo_payloads(
-            windows=int(cfg.get("windows", 200)),
-            vcap=int(cfg.get("vcap", 64)),
-            pace_s=float(cfg.get("pace_s", 0.005)),
-            device=device,
-        )
+        if cfg.get("cc_shard"):
+            # one SHARD of the partitioned serving deployment: real CC
+            # forest + degree folds over the edges this shard owns
+            # (serving/router.py — the sharded scenarios' replica shape)
+            from .router import shard_demo_payloads
+
+            servable = shard_demo_payloads(**cfg["cc_shard"], device=device)
+        else:
+            servable = demo_payloads(
+                windows=int(cfg.get("windows", 200)),
+                vcap=int(cfg.get("vcap", 64)),
+                pace_s=float(cfg.get("pace_s", 0.005)),
+                device=device,
+            )
         rep = ReplicaServer(
             servable, None, dirpath=cfg["dir"], role="primary", **kw
         )
@@ -1401,6 +1456,21 @@ def replica_main(cfg: dict) -> None:
         rep = ReplicaServer(dirpath=cfg["dir"], role=role, device=device,
                             **kw)
     rep.start()
+    if role == "split" and cfg.get("reshard"):
+        # the child address is published ONLY once servable (first
+        # followed snapshot answered) — the actionable-prefix rule in
+        # serving/reshard.py is what keeps routers from adopting an
+        # epoch whose child would refuse traffic
+        from .reshard import publish_addr
+
+        rep.store.wait_for(
+            min_version=1,
+            timeout=float(cfg.get("split_boot_timeout_s", 60.0)),
+        )
+        publish_addr(
+            cfg["reshard"]["store"], int(cfg["split_epoch"]),
+            f"127.0.0.1:{rep.rpc.port}",
+        )
     if cfg.get("portfile"):
         from ..resilience import integrity
 

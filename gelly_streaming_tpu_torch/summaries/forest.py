@@ -42,11 +42,12 @@ from the XLA reference, and why:
   old root are one group of the local fixpoint, so they get one new root.
   Nothing else relies on the order of a scatter's writes.
 
-The host-side fold and repair (:func:`fold_edges_host`,
-:func:`fold_into_forest_host`, :func:`repair_forest_host`) are the
+The host-side fold, merge, delta and repair (:func:`fold_edges_host`,
+:func:`fold_into_forest_host`, :func:`merge_forest_tables_host`,
+:func:`apply_forest_delta_host`, :func:`repair_forest_host`) are the
 reference's numpy, unchanged: event-time retraction
-(``eventtime/retract.py``) runs them on the host. The cross-shard merge
-and delta functions come with ROADMAP Queue 1, slice 9b (the routing tier).
+(``eventtime/retract.py``) and the sharded router's cross-shard union
+(``serving/router.py``) run them on the host.
 """
 
 from __future__ import annotations
@@ -506,6 +507,88 @@ def fold_into_forest_host(canon_np: np.ndarray, src: np.ndarray,
     trans = np.arange(len(lab), dtype=np.int64)
     trans[roots] = newroot
     return trans[lab]
+
+
+def merge_forest_tables_host(tables) -> np.ndarray:
+    """Cross-shard union step: merge N same-length forest tables into
+    one canonical table whose components are the components of the
+    UNION of the inputs' edge sets.
+
+    Each input forest IS a spanning structure of its own components
+    (edges ``(i, t[i])`` where ``t[i] != i``), so concatenating every
+    table's non-trivial pointer edges into ONE group and folding them
+    with :func:`fold_edges_host` yields exactly the union connectivity
+    — the scatter-gather merge a sharded serving router performs, in
+    one group-fold call rather than N incremental ones."""
+    tables = [np.asarray(t) for t in tables]
+    if not tables:
+        raise ValueError("merge_forest_tables_host needs >= 1 table")
+    n = len(tables[0])
+    for t in tables:
+        if len(t) != n:
+            raise ValueError(
+                f"forest tables disagree on length: {len(t)} != {n}"
+            )
+    srcs, dsts = [], []
+    for t in tables:
+        i = np.nonzero(t != np.arange(len(t), dtype=t.dtype))[0]
+        srcs.append(i.astype(np.int64))
+        dsts.append(t[i].astype(np.int64))
+    return fold_edges_host(
+        np.arange(n, dtype=np.int32),
+        np.concatenate(srcs) if srcs else np.zeros(0, np.int64),
+        np.concatenate(dsts) if dsts else np.zeros(0, np.int64),
+    )
+
+
+def apply_forest_delta_host(lab: np.ndarray, sizes: np.ndarray,
+                            src: np.ndarray, dst: np.ndarray) -> np.ndarray:
+    """Incremental counterpart to :func:`merge_forest_tables_host`:
+    union a SMALL batch of delta edges into an existing canonical host
+    forest IN PLACE, O(changed rows * alpha) instead of O(forest).
+
+    ``lab`` is a min-rooted pointer table (``lab[v] <= v``; flat or the
+    output of earlier delta applications) and ``sizes`` the per-dense-id
+    member counts of its roots; both are mutated. Unions hook the LARGER
+    root under the smaller (min-label discipline), so the invariant —
+    and therefore agreement with a from-scratch
+    :func:`merge_forest_tables_host` rebuild after
+    :func:`resolve_flat_host` — is preserved exactly. Path-halving on
+    the find walks keeps amortized chains near-flat between full
+    rebuilds.
+
+    Returns the dense ids of every root that participated in an
+    EFFECTIVE union (winners and absorbed alike; empty when no edge
+    changed connectivity) — the selective cache-invalidation signal the
+    sharded router keys on: a cached answer whose roots are disjoint
+    from this set provably kept its components untouched."""
+    src = np.asarray(src, np.int64)
+    dst = np.asarray(dst, np.int64)
+    if len(src) != len(dst):
+        raise ValueError(
+            f"delta columns disagree on length: {len(src)} != {len(dst)}"
+        )
+    touched = set()
+    for a, b in zip(src.tolist(), dst.tolist()):
+        ra = a
+        while lab[ra] != ra:
+            lab[ra] = lab[lab[ra]]  # path halving
+            ra = int(lab[ra])
+        rb = b
+        while lab[rb] != rb:
+            lab[rb] = lab[lab[rb]]
+            rb = int(lab[rb])
+        if ra == rb:
+            continue
+        if rb < ra:
+            ra, rb = rb, ra
+        lab[rb] = ra
+        sizes[ra] += sizes[rb]
+        touched.add(ra)
+        touched.add(rb)
+    if not touched:
+        return np.zeros(0, np.int64)
+    return np.fromiter(touched, np.int64, len(touched))
 
 
 def repair_forest_host(

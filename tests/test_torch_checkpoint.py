@@ -436,9 +436,13 @@ def test_device_vertex_dict_saves_like_the_host_dict(tmp_path):
 def test_restore_server_names_its_slice(tmp_path):
     """``restore_server`` is ported (slice 9a): a port-written CC
     checkpoint boots servers of both packages that answer alike from the
-    boot snapshot; only the routing tier still raises, naming slice 9b."""
+    boot snapshot; and the routing tier (slice 9b) serves it: a router of
+    each package in front of each restored server answers the same."""
     from gelly_streaming_tpu.serving import ConnectedQuery as JQ
+    from gelly_streaming_tpu.serving import RpcServer as JRpc
+    from gelly_streaming_tpu.serving import ShardRouter as JRouter
     from gelly_streaming_tpu_torch.serving import ConnectedQuery as TQ
+    from gelly_streaming_tpu_torch.serving import RpcServer as TRpc
     from gelly_streaming_tpu_torch.serving import ShardRouter
 
     edges = [(1, 2, 0.0), (2, 3, 0.0), (7, 8, 0.0)]
@@ -462,8 +466,20 @@ def test_restore_server_names_its_slice(tmp_path):
             got = [server.ask(q(u, v), 30) for u, v in ((1, 3), (1, 7), (7, 8))]
             assert [a.value for a in got] == [True, False, True]
             assert {a.window for a in got} == {-1}
+        for server, rpc_cls in ((srv, TRpc), (jsrv, JRpc)):
+            rpc = rpc_cls(server).start()
+            try:
+                for router_cls, q in ((ShardRouter, TQ), (JRouter, JQ)):
+                    router = router_cls([[f"127.0.0.1:{rpc.port}"]])
+                    try:
+                        got = router.ask_batch(
+                            [q(u, v) for u, v in ((1, 3), (1, 7), (7, 8))],
+                            deadline_s=30, timeout=60)
+                        assert [bool(a.value) for a in got] == [True, False, True]
+                    finally:
+                        router.close()
+            finally:
+                rpc.close()
     finally:
         srv.close()
         jsrv.close()
-    with pytest.raises(NotImplementedError, match="slice 9b"):
-        ShardRouter()

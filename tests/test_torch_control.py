@@ -707,3 +707,35 @@ def test_superbatch_auto_window_size_shift_matches_pinned_k1_oracle(tick_clock):
                for a, b in zip(got, base))
     hist = agg.control.autok.history
     assert any(sig == "window-shift" for _o, _n, sig in hist), hist
+
+
+def test_router_autotune_surface():
+    """The router grows the same admission seam as ``StreamServer``
+    (applied in its sweep; the fan-out itself is exercised by
+    ``test_torch_router.py``): the knob plumbing pinned without sockets,
+    equal to the JAX package's router."""
+    from gelly_streaming_tpu.serving.router import ShardRouter as JRouter
+    from gelly_streaming_tpu_torch.serving.router import ShardRouter
+
+    class _Client:
+        def __init__(self, addrs, i):
+            pass
+
+        def close(self):
+            pass
+
+    for cls in (ShardRouter, JRouter):
+        r = cls([["a"]], client_factory=_Client, autotune=True,
+                max_pending=128, target_wait_s=0.5)
+        try:
+            assert r.admission is not None
+            assert r.admission.ceiling == 128
+            assert r.admission.target_wait_s == 0.5
+            assert r.admission.max_pending == r.max_pending == 128
+        finally:
+            r.close(timeout=2.0)
+    plain = ShardRouter([["a"]], client_factory=_Client)
+    try:
+        assert plain.admission is None
+    finally:
+        plain.close(timeout=2.0)

@@ -617,13 +617,31 @@ def test_chaos_serving_points_and_single_process_sweep_raise_naming_slice_9(tmp_
     """The serving points are ported (slice 9a): the sweep's failover
     worker, run in-process here, meets the sweep's own pass conditions,
     and the attribution table of an untraced directory equals the JAX
-    package's. The routing tier's scenarios still raise, naming slice 9b."""
-    from gelly_streaming_tpu.resilience import chaos as jchaos
-    from gelly_streaming_tpu_torch.resilience import chaos
+    package's. The routing tier's scenarios (slice 9b) are ported: their
+    parameters are the JAX package's plus ``device``, their geometry
+    constants equal the JAX package's, and without a card their default
+    device raises before any replica is spawned."""
+    import inspect
 
-    for fn in (chaos.run_sharded_scenario, chaos.run_storm_scenario):
-        with pytest.raises(NotImplementedError, match="slice 9b"):
-            fn()
+    import torch
+
+    from gelly_streaming_tpu.resilience import chaos as jchaos
+    from gelly_streaming_tpu_torch.resilience import DeviceUnavailable, chaos
+
+    for name in ("run_sharded_scenario", "run_storm_scenario"):
+        fn, jfn = getattr(chaos, name), getattr(jchaos, name)
+        params = inspect.signature(fn).parameters
+        jparams = inspect.signature(jfn).parameters
+        assert list(params) == list(jparams) + ["device"]
+        assert params["device"].default == "cuda"
+        assert all(params[k].default == jparams[k].default for k in jparams)
+        if not torch.cuda.is_available():
+            with pytest.raises(DeviceUnavailable):
+                fn(str(tmp_path / name))
+            assert not (tmp_path / name).exists()  # nothing was spawned
+    for const in ("SHARDED_DEFAULTS", "STORM_DEFAULTS", "ROUTER_SHARD",
+                  "CLIENT_SHARD", "STORM_ROUTER2_SHARD", "STORM_CHILD_SHARD"):
+        assert getattr(chaos, const) == getattr(jchaos, const), const
     cfg = {"events": str(tmp_path / "events.jsonl"), "meta": str(tmp_path / "meta.json"),
            "flight": str(tmp_path / "flight.json"), "seed": 4321, "device": "cpu"}
     try:

@@ -24,7 +24,11 @@ a held snapshot's bytes stay unchanged on the card for every carry at
 superbatch 1 and 4, the query engine's torch steps on the card answer
 equal to its host path and to the CPU, a live ``StreamServer`` answers on
 the card from a CUDA-event-ready snapshot, and a standby given the card
-uploads the primary's mirrored snapshots.
+uploads the primary's mirrored snapshots, and slice 9b (routing): a
+2-shard router over servers whose tables are CUDA tensors answers equal to
+the host fold of the whole stream, a split child given the card holds its
+followed snapshots there, and a process that ran a ``ShardRouter`` alone
+never made a CUDA context.
 
 Every test here is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is false. The file imports only torch, numpy
@@ -947,3 +951,127 @@ def test_standby_on_card_uploads_mirrored_snapshots(card, tmp_path):
     finally:
         standby.close()
         primary.close()
+
+
+def _shard_stack_on(device, nshards=2, nv=512, ne=3000, seed=7, window=512):
+    """``nshards`` shard servers whose tables live on ``device``, each
+    behind an ``RpcServer``. Returns ``(addrs, close)``."""
+    from gelly_streaming_tpu_torch.serving import RpcServer, StreamServer
+    from gelly_streaming_tpu_torch.serving.router import shard_demo_payloads
+
+    servers, rpcs = [], []
+    for k in range(nshards):
+        srv = StreamServer(shard_demo_payloads(
+            n_vertices=nv, n_edges=ne, seed=seed, window=window, shard=k,
+            nshards=nshards, device=device), None).start()
+        srv.join(60)
+        assert srv.snapshot().payload["labels"].device.type == torch.device(device).type
+        servers.append(srv)
+        rpcs.append(RpcServer(srv, shard=k).start())
+
+    def close():
+        for r in rpcs:
+            r.close()
+        for s_ in servers:
+            s_.close()
+
+    return [[f"127.0.0.1:{r.port}"] for r in rpcs], close
+
+
+def test_router_over_card_shards_equals_the_host_fold(card):
+    from gelly_streaming_tpu_torch.serving import (
+        ComponentSizeQuery,
+        ConnectedQuery,
+        DegreeQuery,
+        ShardRouter,
+    )
+    from gelly_streaming_tpu_torch.serving.router import demo_shard_edges
+    from gelly_streaming_tpu_torch.summaries.forest import fold_edges_host
+
+    nv, ne, seed = 512, 3000, 7
+    addrs, close = _shard_stack_on(card, nv=nv, ne=ne, seed=seed)
+    router = ShardRouter(addrs)
+    try:
+        src, dst = demo_shard_edges(nv, ne, seed)
+        lab = fold_edges_host(np.arange(nv, dtype=np.int32), src, dst)
+        sizes = np.bincount(lab, minlength=nv)
+        deg = np.bincount(src, minlength=nv) + np.bincount(dst, minlength=nv)
+        rng = np.random.default_rng(3)
+        us, vs = rng.integers(0, nv, 200), rng.integers(0, nv, 200)
+        qs = ([ConnectedQuery(int(u), int(v)) for u, v in zip(us, vs)]
+              + [ComponentSizeQuery(int(u)) for u in us[:100]]
+              + [DegreeQuery(int(u)) for u in us[:100]])
+        got = [a.value for a in router.ask_batch(qs, deadline_s=60, timeout=120)]
+        want = ([bool(lab[u] == lab[v]) for u, v in zip(us, vs)]
+                + [int(sizes[lab[u]]) for u in us[:100]]
+                + [int(deg[u]) for u in us[:100]])
+        assert got == want
+    finally:
+        router.close()
+        close()
+
+
+def test_split_child_on_card_holds_followed_snapshots_there(card, tmp_path):
+    from gelly_streaming_tpu_torch.serving import DegreeQuery, ReplicaServer
+    from gelly_streaming_tpu_torch.serving.router import shard_demo_payloads
+
+    shared = str(tmp_path / "s1")
+    parent = ReplicaServer(shard_demo_payloads(n_vertices=256, n_edges=1200, seed=5,
+                                               window=256, shard=1, nshards=2, device=card),
+                           None, dirpath=shared, role="primary", lease_s=5.0)
+    child = ReplicaServer(dirpath=shared, role="split", device=card)
+    parent.start()
+    child.start()
+    try:
+        parent.server.join(30)
+        parent.mirror.flush(parent.store)
+        # the child follows the mirror version by version: wait for the last
+        last = parent.store.latest().version
+        assert child.store.wait_for(min_version=last, timeout=30).version == last
+        assert child.store.latest().payload["labels"].is_cuda
+        assert child.ask(DegreeQuery(3), timeout=30).value == \
+            parent.ask(DegreeQuery(3), timeout=30).value
+    finally:
+        child.close()
+        parent.close()
+
+
+_ROUTER_ALONE = """
+import json, sys
+import numpy as np
+import torch
+from gelly_streaming_tpu_torch.serving import ComponentSizeQuery, ConnectedQuery, DegreeQuery, ShardRouter
+
+router = ShardRouter(json.loads(sys.argv[1]))
+try:
+    qs = [ConnectedQuery(0, v) for v in range(40)] + [ComponentSizeQuery(5), DegreeQuery(9)]
+    got = [a.value for a in router.ask_batch(qs, deadline_s=60, timeout=120)]
+    stats = router.stats_snapshot()
+finally:
+    router.close()
+print(json.dumps({"answers": [int(v) for v in got], "pulls": stats["pulls"],
+                  "cuda_initialized": torch.cuda.is_initialized()}))
+"""
+
+
+def test_a_router_process_never_makes_a_cuda_context(card):
+    """A process that imports the port and runs a ``ShardRouter`` alone,
+    fan-outs and the merged CC route included, with the card visible to
+    it, never initializes CUDA: the router holds no device state."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    addrs, close = _shard_stack_on(card)
+    try:
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        out = subprocess.run([sys.executable, "-c", _ROUTER_ALONE, json.dumps(addrs)],
+                             capture_output=True, text=True, timeout=300, cwd=root,
+                             env=dict(os.environ, PYTHONPATH=root))
+        assert out.returncode == 0, out.stderr[-2000:]
+        doc = json.loads(out.stdout.strip().splitlines()[-1])
+        assert doc["pulls"] >= 2 and len(doc["answers"]) == 42
+        assert doc["cuda_initialized"] is False
+    finally:
+        close()

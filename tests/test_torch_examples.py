@@ -4,8 +4,8 @@ matching (with its MovieLens mode), iterative CC, and the CC CLI's
 ``--device-encode`` and checkpoint flags (``--checkpoint``,
 ``--checkpoint-dir``, ``--every``, ``--resume``, ``--fresh``).
 
-Mirrors ``tests/test_examples.py:97``, ``:109``, ``:119``, ``:155`` and
-``:272-300``.
+Mirrors ``tests/test_examples.py:97``, ``:109``, ``:119``, ``:155``,
+``:272-300`` and ``:305`` (sharded ingest feeding live serving).
 """
 
 import numpy as np
@@ -180,3 +180,46 @@ def test_cc_checkpointed_cli_raises_without_a_card_unless_told_cpu(monkeypatch, 
     inp.write_text("1 2\n2 3\n")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         connected_components.main([str(inp), "2", "--checkpoint-dir", str(tmp_path / "d")])
+
+
+def test_sharded_ingest_serving_example():
+    """ShardedEdgeSource feeds a LIVE aggregation + serving stack: the
+    example's final answers match a union-find oracle over the same
+    synthesized stream, and the JAX package's example on the same
+    arguments gives the same final lines; without a card the default
+    device raises."""
+    from _uf import union_find_components
+
+    from gelly_streaming_tpu.example import sharded_ingest_serving as jax_sis
+    from gelly_streaming_tpu_torch.example import sharded_ingest_serving
+
+    nv, ne, seed = 1 << 9, 1 << 12, 23
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, nv, ne, dtype=np.int64)
+    dst = rng.integers(0, nv, ne, dtype=np.int64)
+    queries = [(int(a), int(b)) for a, b in rng.integers(0, nv, (3, 2))]
+    comps = union_find_components(zip(src.tolist(), dst.tolist()))
+    root_of = {}
+    for comp in comps:
+        r = min(comp)
+        for m in comp:
+            root_of[m] = r
+    lines = sharded_ingest_serving.run(
+        2, 128, ne, queries, n_vertices=nv, seed=seed, device="cpu"
+    )
+    finals = [ln for ln in lines if ln.startswith("final ")]
+    assert len(finals) == len(queries)
+    for (u, v), line in zip(queries, finals):
+        want = root_of.get(u, u) == root_of.get(v, v)
+        assert f"connected({u},{v}) = {want}" in line, (line, want)
+    assert any("2-shard live ingest" in ln for ln in lines)
+    jlines = jax_sis.run(2, 128, ne, queries, n_vertices=nv, seed=seed)
+    # the final window index follows the shards' arrival interleaving;
+    # the answers do not
+    strip = [ln.split(" [")[0] for ln in finals]
+    assert strip == [ln.split(" [")[0] for ln in jlines if ln.startswith("final ")]
+    if not torch.cuda.is_available():
+        from gelly_streaming_tpu_torch.resilience.errors import DeviceUnavailable
+
+        with pytest.raises(DeviceUnavailable):
+            sharded_ingest_serving.run(2, 128, 64, [(0, 1)], n_vertices=16)

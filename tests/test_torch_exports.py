@@ -49,10 +49,11 @@ _CASES = sorted(
      if _ported(pkg, sub, name)}
 ) + [("ops", "DeviceVertexDict"), ("resilience", "DeviceUnavailable")] + [
     # the reference's PEP 562 lazy exports (serving's RPC names, obs's
-    # endpoint), which no relative import lists; the router's two
-    # (ShardRouter, ReshardWatcher) are slice 9b
+    # endpoint, and the routing tier's two of slice 9b), which no relative
+    # import lists
     ("serving", n) for n in ("HeartbeatLease", "ReplicaServer", "RpcServer",
-                             "RpcClient", "RpcError")] + [("obs", "MetricsEndpoint")]
+                             "RpcClient", "RpcError", "ShardRouter",
+                             "ReshardWatcher")] + [("obs", "MetricsEndpoint")]
 
 
 @pytest.mark.parametrize("package,name", _CASES,
@@ -104,10 +105,9 @@ def test_slice_names_are_cases(package, name):
     assert (package, name) in _CASES
 
 
-#: modules of slices 7b (ingest) and 9a (serving) whose public top-level
-#: names are the exports (the reference does not re-export all of them from
-#: a package ``__init__``); the routing tier's modules (``serving.router``,
-#: ``serving.reshard``) are slice 9b
+#: modules of slices 7b (ingest), 9a (serving) and 9b (the routing tier)
+#: whose public top-level names are the exports (the reference does not
+#: re-export all of them from a package ``__init__``)
 _MODULES = ["core.ingest", "fabric.base", "fabric.wire", "fabric.shared_dir",
             "fabric.exchange", "fabric.agreement", "fabric.collective",
             "parallel.multihost", "resilience.coordinated", "resilience.chaos",
@@ -115,7 +115,8 @@ _MODULES = ["core.ingest", "fabric.base", "fabric.wire", "fabric.shared_dir",
             "obs.trace", "obs.endpoint", "resilience.retry", "resilience.faults",
             "serving.query", "serving.server", "serving.snapshot_store",
             "serving.stats", "serving.txn", "serving.failover", "serving.rpc",
-            "serving.client"]
+            "serving.client", "serving.router", "serving.reshard",
+            "summaries.forest", "example.sharded_ingest_serving"]
 
 
 def _module_names(module):
@@ -133,15 +134,7 @@ def _module_names(module):
     return sorted(n for n in out if not n.startswith("_"))
 
 
-#: the sharded and storm scenarios' constants of the chaos module (slice 9b,
-#: the routing tier); the scenario functions themselves are defined and
-#: raise naming it
-_LATER = {("resilience.chaos", n) for n in (
-    "CLIENT_SHARD", "ROUTER_SHARD", "SHARDED_DEFAULTS",
-    "STORM_CHILD_SHARD", "STORM_DEFAULTS", "STORM_ROUTER2_SHARD")}
-
-_MODULE_CASES = [(m, n) for m in _MODULES for n in _module_names(m)
-                 if (m, n) not in _LATER]
+_MODULE_CASES = [(m, n) for m in _MODULES for n in _module_names(m)]
 
 
 @pytest.mark.parametrize("module,name", _MODULE_CASES,

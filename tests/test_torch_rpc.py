@@ -1200,22 +1200,46 @@ def test_standby_on_a_device_answers_from_uploaded_snapshots(tmp_path):
 
 
 def test_routing_tier_parts_raise_naming_slice_9b(tmp_path):
+    """The routing tier's parts of the wire (slice 9b) are ported: each
+    part that used to raise here now works as the JAX package's does,
+    and the ones that place tables default to the card (raising
+    ``DeviceUnavailable`` without one)."""
+    from gelly_streaming_tpu.serving import reshard as jreshard
+    from gelly_streaming_tpu_torch.resilience.errors import DeviceUnavailable
     from gelly_streaming_tpu_torch.serving import reshard, router
     from gelly_streaming_tpu_torch.serving.rpc import replica_main
 
-    for fn, args in ((router.ShardRouter, ([["127.0.0.1:1"]],)),
-                     (router.shard_demo_payloads, ()),
-                     (reshard.ReshardWatcher, (str(tmp_path),)),
-                     (reshard.propose_split, (str(tmp_path), 1))):
-        with pytest.raises(NotImplementedError, match="slice 9b"):
-            fn(*args)
-    with pytest.raises(NotImplementedError, match="slice 9b"):
-        ReplicaServer(dirpath=str(tmp_path), role="split")
-    with pytest.raises(NotImplementedError, match="slice 9b"):
-        ReplicaServer(dirpath=str(tmp_path), role="standby",
-                      reshard={"store": str(tmp_path), "shard": 0})
-    with pytest.raises(NotImplementedError, match="slice 9b"):
-        replica_main({"role": "primary", "dir": str(tmp_path), "cc_shard": {}})
+    r = router.ShardRouter([["127.0.0.1:1"]])
+    try:
+        assert r.nshards == 1 and r.health()["epoch"] == 0
+    finally:
+        r.close()
+    w = reshard.ReshardWatcher(str(tmp_path))
+    try:
+        assert w.epoch() == 0 and w.plans() == []
+    finally:
+        w.close()
+    won = reshard.propose_split(str(tmp_path), 1, parent=0, child=1, salt=3)
+    assert won == jreshard.read_plan(str(tmp_path), 1)
+    # a split child answers from boot: its gate is open, a standby's is not
+    split = ReplicaServer(dirpath=str(tmp_path / "s"), role="split", device="cpu")
+    standby = ReplicaServer(dirpath=str(tmp_path / "s"), role="standby", device="cpu",
+                            reshard={"store": str(tmp_path), "shard": 0})
+    try:
+        assert split._gate() is None and standby._gate() == "not_primary"
+        assert standby.shard == 0 and standby.rpc.shard == 0
+        assert standby.health()["epoch"] == 0  # the watcher starts with start()
+    finally:
+        split.close()
+        standby.close()
+    if not torch.cuda.is_available():
+        with pytest.raises(DeviceUnavailable):
+            router.shard_demo_payloads(n_vertices=8, n_edges=8)
+        with pytest.raises(DeviceUnavailable):
+            ReplicaServer(dirpath=str(tmp_path / "c"), role="split")
+        with pytest.raises(DeviceUnavailable):
+            replica_main({"role": "primary", "dir": str(tmp_path / "m"),
+                          "cc_shard": {"n_vertices": 8, "n_edges": 8}})
 
 
 @pytest.mark.slow

@@ -190,21 +190,61 @@ def _meshed_slice_reduce(edges):
 
 
 def _shard_router_over(sliding):
-    """A router in front of a sliding aggregation's served payload: the
-    routing tier is ported in slice 9b."""
-    from gelly_streaming_tpu_torch.serving import ShardRouter
+    """A router in front of a sliding aggregation's served payload. The
+    routing tier is ported (slice 9b), so this path no longer raises: it
+    returns the degrees a port router answers over the served payload,
+    next to the ones the JAX package's router answers over the JAX
+    sliding aggregation's payload for the same edges."""
+    from gelly_streaming_tpu.library import DegreeDistribution as JDD
+    from gelly_streaming_tpu.serving import DegreeQuery as JDQ
+    from gelly_streaming_tpu.serving import RpcServer as JRpc
+    from gelly_streaming_tpu.serving import ShardRouter as JRouter
+    from gelly_streaming_tpu.serving import StreamServer as JServer
+    from gelly_streaming_tpu_torch.serving import DegreeQuery, RpcServer, ShardRouter, StreamServer
 
-    sliding.servable_payload()
-    return ShardRouter([["127.0.0.1:1"]])
+    edges = [(1, 2, 10), (2, 3, 20), (3, 1, 30), (4, 5, 40)]
+    answers = []
+    from gelly_streaming_tpu.datasets import IdentityDict as JIdentityDict
+    from gelly_streaming_tpu_torch.datasets import IdentityDict
+
+    for agg, server_cls, rpc_cls, router_cls, q, vd_cls in (
+        (sliding, StreamServer, RpcServer, ShardRouter, DegreeQuery, IdentityDict),
+        (JDD.sliding(10), JServer, JRpc, JRouter, JDQ, JIdentityDict),
+    ):
+        for s, d, t in edges:
+            agg.push([s], [d], [t], shard=0)
+        agg.finish()
+        payload = agg.servable_payload()
+        # the routed shape: raw ids decode through an identity dictionary
+        vd = vd_cls(len(payload["deg"]))
+        vd.observe(len(payload["deg"]) - 1)
+        srv = server_cls(iter([(dict(payload, vdict=vd), len(edges))]), None).start()
+        srv.join(30)
+        rpc = rpc_cls(srv).start()
+        router = router_cls([[f"127.0.0.1:{rpc.port}"]], cache=False)
+        try:
+            answers.append([router.ask(q(v), timeout=30, deadline_s=30).value
+                            for v in range(7)])
+        finally:
+            router.close()
+            rpc.close()
+            srv.close()
+    return answers
+
+
+#: the cases of the test below that later slices ported: each now runs
+#: its parity check under the same test id instead of raising
+_PORTED_SINCE = {"degrees_sliding"}
 
 
 @pytest.mark.parametrize(
     "make",
     [
         # the window and neighborhood layer is ported (slice 4), the
-        # event-time shape (slice 8) and its serving payload (slice 9a,
-        # pinned in test_torch_eventtime.py): what stays on the serving
-        # path is the routing tier (slice 9b)
+        # event-time shape (slice 8), its serving payload (slice 9a,
+        # pinned in test_torch_eventtime.py) and the routing tier (slice
+        # 9b): this case checks a router over the payload against the
+        # JAX package's (_PORTED_SINCE)
         lambda e: _shard_router_over(DegreeDistribution.sliding(10)),
         # the exact counter is ported (slice 5); the triangle path's
         # edge-sharded count stays for slice 6
@@ -224,7 +264,11 @@ def _shard_router_over(sliding):
     ids=["degrees_sliding", "exact_triangles", "meshed_slice", "aggregate",
          "superbatches", "iterative_cc_mesh"],
 )
-def test_later_slices_raise_not_implemented_naming_their_slice(sample_edges, make):
+def test_later_slices_raise_not_implemented_naming_their_slice(sample_edges, make, request):
+    if request.node.callspec.id in _PORTED_SINCE:
+        port, ref = make(sample_edges)
+        assert port == ref and any(port)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, slice"):
         out = make(sample_edges)
         next(iter(out))

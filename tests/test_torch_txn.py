@@ -2,11 +2,11 @@
 (``gelly_streaming_tpu_torch/serving/txn.py``, ``SnapshotStore.at_version``):
 the pin/expiry contract end to end.
 
-Mirrors ``tests/test_txn.py:136-440`` case by case (the chain payloads are
-torch tensors here); ``:478`` (a pinned vector through the router) waits
-for the routing tier, ROADMAP Queue 1, slice 9b. Then, across the
-packages: the txn codec decodes the other package's docs alike, and
-``at_version`` raises the same expiry kinds for the same publish sequence.
+Mirrors ``tests/test_txn.py:136-510`` case by case (the chain payloads are
+torch tensors here; the router's shards hold CPU tensors). Then, across the
+packages: the txn codec decodes the other package's docs alike,
+``at_version`` raises the same expiry kinds for the same publish sequence,
+and a pinned vector through either package's router reads alike.
 """
 
 import json
@@ -26,6 +26,7 @@ from gelly_streaming_tpu_torch.resilience import faults
 from gelly_streaming_tpu_torch.serving import (
     ComponentSizeQuery,
     ConnectedQuery,
+    DegreeQuery,
     ReplicaServer,
     RpcClient,
     RpcError,
@@ -448,3 +449,116 @@ def test_at_version_expiry_kinds_equal_the_jax_packages():
         return out
 
     assert kinds(SnapshotStore, TxnSnapshotExpired) == kinds(JaxStore, JaxExpired)
+
+
+# --------------------------------------------------------------------- #
+# Through the router: a pinned VECTOR survives version advances
+# --------------------------------------------------------------------- #
+def _pinned_router_stack(nshards=2, retention=64, seed=9, pkg=None):
+    """Shard servers of one package (the port's by default, their tables
+    CPU tensors), its router, an RpcServer in front of the router and a
+    client of that package. Returns ``(client, servers, close)``."""
+    if pkg is None:
+        import gelly_streaming_tpu_torch.serving as pkg
+        from gelly_streaming_tpu_torch.serving.router import shard_demo_payloads
+
+        payloads = lambda **kw: shard_demo_payloads(device="cpu", **kw)
+    else:
+        from gelly_streaming_tpu.serving.router import shard_demo_payloads as payloads
+    servers, rpcs, addrs = [], [], []
+    for s in range(nshards):
+        srv = pkg.StreamServer(
+            payloads(n_vertices=256, n_edges=1200, seed=seed, window=256,
+                     shard=s, nshards=nshards),
+            None, store=pkg.SnapshotStore(retention=retention),
+            max_pending=1 << 12,
+        ).start()
+        srv.join(60)
+        servers.append(srv)
+        rpc = pkg.RpcServer(srv, shard=s).start()
+        rpcs.append(rpc)
+        addrs.append([f"127.0.0.1:{rpc.port}"])
+    router = pkg.ShardRouter(addrs)
+    front = pkg.RpcServer(router, epoch=lambda: router._epoch,
+                          txn_narrow=False).start()
+    cl = pkg.RpcClient(f"127.0.0.1:{front.port}")
+
+    def close():
+        cl.close()
+        front.close()
+        router.close()
+        for r in rpcs:
+            r.close()
+        for s_ in servers:
+            s_.close()
+
+    return cl, servers, close
+
+
+def test_router_pinned_vector_survives_version_advance():
+    cl, servers, close = _pinned_router_stack()
+    try:
+        t = TxnContext(deadline_s=120)
+        firsts = {}
+        for v in range(8):  # vertices 0..7 cover both shards' owners
+            firsts[v] = cl.ask(DegreeQuery(v), timeout=60, txn=t)
+        vec = t.vector()
+        assert set(vec) == {0, 1}  # both shards pinned from stamps
+        # cross-shard merged reads under the SAME pinned vector
+        conn1 = cl.ask(ConnectedQuery(0, 3), timeout=60, txn=t)
+        size1 = cl.ask(ComponentSizeQuery(0), timeout=60, txn=t)
+        assert counter_value("router.pinned_merges") >= 1
+        # every shard publishes 3 fresher versions
+        for srv in servers:
+            republish(srv, bump=3)
+        # point repeats: byte-identical (value, version, boot)
+        for v, first in firsts.items():
+            again = cl.ask(DegreeQuery(v), timeout=60, txn=t)
+            assert (int(again.value), again.version, again.boot) == \
+                (int(first.value), first.version, first.boot)
+        # merged repeats: identical values at the pinned vector
+        conn2 = cl.ask(ConnectedQuery(0, 3), timeout=60, txn=t)
+        size2 = cl.ask(ComponentSizeQuery(0), timeout=60, txn=t)
+        assert conn2.value == conn1.value
+        assert int(size2.value) == int(size1.value)
+        assert counter_value("router.pinned_pulls") >= 1
+        # fresh traffic still observes the advance (uncached vertex:
+        # the hot-key cache only serves exact pinned or fresh stamps)
+        fresh = cl.ask(DegreeQuery(101), timeout=60)
+        owner = int(fresh.shard)
+        assert fresh.version > vec[owner][0]
+        assert t.vector() == vec  # fresh reads never mutate the pin
+    finally:
+        close()
+
+
+def test_pinned_vectors_through_either_packages_router_read_alike():
+    """The same pinned transaction through each package's router stack:
+    equal pinned versions per shard and equal values, before and after
+    every shard publishes fresher versions."""
+    import gelly_streaming_tpu.serving as jserving
+    from gelly_streaming_tpu import obs as jobs
+
+    jobs.reset()
+    stacks = [(_pinned_router_stack(), ConnectedQuery, ComponentSizeQuery,
+               DegreeQuery, TxnContext),
+              (_pinned_router_stack(pkg=jserving), jserving.ConnectedQuery,
+               jserving.ComponentSizeQuery, jserving.DegreeQuery,
+               jserving.TxnContext)]
+    try:
+        reads = []
+        for (cl, servers, _close), cq, sq, dq, txn_cls in stacks:
+            t = txn_cls(deadline_s=120)
+            qs = [dq(v) for v in range(8)] + [cq(0, 3), sq(0), cq(5, 200)]
+            first = [cl.ask(q, timeout=60, txn=t) for q in qs]
+            for srv in servers:
+                republish(srv, bump=3)
+            again = [cl.ask(q, timeout=60, txn=t) for q in qs]
+            assert [a.value for a in again] == [a.value for a in first]
+            reads.append(([a.value for a in first],
+                          {k: v[0] for k, v in t.vector().items()}))
+        assert reads[0] == reads[1]
+    finally:
+        for (_cl, _s, close), *_rest in stacks:
+            close()
+        jobs.reset()

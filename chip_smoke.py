@@ -12,7 +12,8 @@ relaunch a 2-process coordinated cluster on the card, serve live queries
 from streaming summaries on the card (in process and over the RPC wire
 with a replica failover), route queries over sharded replicas, run the
 mesh (an NCCL world of one, and gloo worlds of 2 and 4 ranks on the one
-card), and print the results.
+card), train GraphSAGE and GCN at config #5's width (on one device and
+across meshes on the one card), and print the results.
 
     python3 chip_smoke.py
 
@@ -315,7 +316,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    tolerance of width 1. The operations gloo runs through host memory
    (the butterfly's point-to-point buffers) are counted and printed.
    These numbers are transport on one card, not scaling.
-23. a ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
+23. train  — slice 3 on the card. (a) GraphSAGE at config #5's width (phase
+   4's stream over its 4 windows as one edge list of 2^20, V = 2^16, dims
+   [128, 256, 128] in bf16, f32 targets from a seed): 8 steps each of SGD
+   and Adam with remat off and on, under deterministic algorithms, the
+   counts set to 0 just before: each run's loss descends, launches "tc"
+   exactly 2 times a step (4 with remat) and "simt" never, and remat
+   changes no parameter bit for bit; the first step's gradients against
+   autograd through ``fused_sage_matmul_plain`` on the card; then ms a
+   step after a warm step, peak memory and the step's bound
+   (``train_step_bytes``). (b) GCN at the same width: the same, with no
+   kernel to count, its gradients against the same step on the CPU. (c)
+   The sharded step: an NCCL world of one with ``make_mesh(1, 1)`` (bit
+   for bit (a)'s run), then a gloo world of 4 with every rank on the one
+   card, meshes 1x2 and 2x1 on its first two ranks and 2x2 on all four,
+   3 SGD and 3 Adam steps each: every rank's gathered parameters and
+   losses bit-equal, within ``TR_MESH_TOL`` of (a)'s width-1 run; each
+   collective's count and the staged buffers; one 2x2 step profiled on
+   rank 0. (d) ``dryrun_multichip(4)`` on every rank of that world, and
+   ``entry()`` on the card against the CPU.
+24. a ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
 Each phase's wall seconds are printed after it.
 
 TF32 is off for float32 matmuls (``torch.backends.cuda.matmul.allow_tf32 =
@@ -467,7 +487,7 @@ SMP_WINDOW = 1 << 20
 SMP_TARGET_BETA = 100  # k: the least power of two with E[beta_sum] >= this
 SMP_MAX_K = 1 << 24
 SMP_SE = 4  # the estimate within this many binomial standard errors
-SMP_SCAN_EDGES = 1 << 12
+SMP_SCAN_EDGES = 1 << 10  # 1 << 12 until phase 23 joined (PERF.md section 4)
 SMP_SCAN_VERTICES = 1 << 16  # above the vectorized form's 46340
 SMP_SCAN_K = 1 << 12
 SMP_STEPS = ("sampling.window",)  # the scan form's range is "sampling.scan"
@@ -575,6 +595,7 @@ RT_EX_VERTICES = 1 << 21  # the headline's id bound
 RT_SH_VERTICES = 1 << 21  # halved with RT_SH_EDGES until c3's full pull fits a frame
 RT_SH_EDGES = 1 << 22
 RT_SH_WINDOW = 1 << 17
+RT_SH_MEASURE_S = 2.0  # each load cell; SHARDED_DEFAULTS' 4.0 until phase 23 joined
 RT_STORM = dict(n_vertices=1 << 11, n_edges=1 << 12, phase_s=1.2, clients=2,
                 oracle_checks=64)  # bench.py:3259-3262, --storm --smoke
 RT_DEVICE = "cuda"  # where every shard replica's tables live
@@ -587,6 +608,29 @@ MESH_COLL_REPS = 10
 MESH_CC_EDGES = 1 << 22  # phase 5's corpus prefix: 4 windows of 2^20
 MESH_BIP = (1 << 18, 1 << 20, 1 << 18, 25)  # vertices, edges, window, seed
 MESH_TIMEOUT_S = 300  # a collective that waits longer fails the rank
+
+# phase 23: training (slice 3) at config #5's width: phase 4's stream over
+# its 4 windows (2^20 edges) on V = 2^16, DIMS in bf16, targets from a seed
+TR_STEPS = 8  # each of SGD and Adam, remat off and on, in (a) and (b)
+TR_TIMED = 5  # steps timed after a warm step
+TR_MESH_STEPS = 3  # each of SGD and Adam on every mesh of (c)
+TR_WORLD = 4  # the gloo world of (c), every rank on the one card
+TR_MESHES = ((1, 2), (2, 1), (2, 2))  # edges x model, each on the world's first ranks
+TR_LR = {"sage": 0.05, "gcn": 1.0}  # SGD; GCN's normalised outputs need the larger step
+TR_ADAM_LR = 1e-2
+TR_TARGET_SEED = 27
+# the card's first-step gradients against autograd through the plain
+# version on the card (GCN: the same step on the CPU), relative to the
+# largest reference entry: both run in bf16 through two layers, each
+# rounded to bf16, and the kernel's f32 sums run in another order
+TR_GRAD_TOL = 2e-2
+# a mesh run against the width-1 run: the partial sums all-reduce in bf16,
+# another order than one scatter. Losses and SGD's parameters within
+# TR_MESH_TOL of the width-1 values (parameters: of the largest); Adam
+# divides each gradient by its own running scale, so a gradient near 0
+# whose rounding differs can move its parameter by up to the learning rate
+# the other way: Adam's parameters within 2 * lr a step more
+TR_MESH_TOL = 2e-2
 
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
@@ -4184,7 +4228,7 @@ def phase_routing(torch):
     t0 = time.perf_counter()
     try:
         doc = chaos.run_sharded_scenario(root, n_vertices=nv, n_edges=ne, window=RT_SH_WINDOW,
-                                         device=RT_DEVICE, log=say)
+                                         measure_s=RT_SH_MEASURE_S, device=RT_DEVICE, log=say)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     wall = time.perf_counter() - t0
@@ -4596,6 +4640,412 @@ def _mesh_check(res, oracle, base, label):
         raise AssertionError(f"{label}: the sharded forward differs from the width-1 run")
 
 
+# --------------------------------------------------------------------- #
+# Training (phase 23)
+# --------------------------------------------------------------------- #
+def train_step_bytes(v, e, dims, family, opt, remat):
+    """Least work of one training step at config #5: the bytes the step must
+    move (each input read once, each output written once: the features, the
+    int32 edge columns, the mask, the f32 targets, the bf16 parameters in
+    and out, Adam's three f32 buffers in and out, the loss) and the matmul
+    operations, each at the peak of its type: a layer's forward 2VFO for
+    each of its weights (SAGE's two in bf16 on the tensor cores, GCN's one
+    in f32), run twice with remat; the weights' gradients as many, and the
+    inputs' gradients for every layer but the first, in f32 (the backward's
+    products are f32, TF32 off)."""
+    mats = 2 if family == "sage" else 1
+    n_params = sum(mats * fi * fo + fo for fi, fo in zip(dims[:-1], dims[1:]))
+    nbytes = (2 * v * dims[0] + 9 * e + 4 * v * dims[-1] + 2 * 2 * n_params + 4
+              + (2 * 3 * 4 * n_params if opt == "adam" else 0))
+    fwd = sum(mats * 2 * v * fi * fo for fi, fo in zip(dims[:-1], dims[1:]))
+    inputs = sum(mats * 2 * v * fi * fo for fi, fo in zip(dims[1:-1], dims[2:]))
+    fwd_type = "bfloat16" if family == "sage" else "float32"
+    ops = {fwd_type: fwd * (2 if remat else 1)}
+    ops["float32"] = ops.get("float32", 0) + fwd + inputs
+    ops_s = sum(n / PEAK_OPS_PER_S[t] for t, n in ops.items())
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    return {"bytes": nbytes, "ops": ops, "bound_ms": max(bytes_s, ops_s) * 1e3,
+            "bound_by": "bytes" if bytes_s >= ops_s else "operations"}
+
+
+def _train_inputs(torch, device="cuda"):
+    """Phase 4's stream over its 4 windows as one edge list, config #5's
+    feature table, and f32 targets from ``TR_TARGET_SEED``."""
+    src, dst = make_stream(N_VERTICES, WINDOW * N_WINDOWS, seed=STREAM_SEED)
+    _, table = _sage_params(torch)
+    targets = torch.randn((N_VERTICES, DIMS[-1]),
+                          generator=torch.Generator().manual_seed(TR_TARGET_SEED))
+    return (table.table.to(device), torch.from_numpy(src).to(device),
+            torch.from_numpy(dst).to(device),
+            torch.ones(src.shape[0], dtype=torch.bool, device=device), targets.to(device))
+
+
+def _train_params(torch, family, device="cuda"):
+    from gelly_streaming_tpu_torch.models import init_gcn
+
+    if family == "sage":
+        return [{k: v.to(device) for k, v in layer.items()} for layer in _sage_params(torch)[0]]
+    return init_gcn(DIMS, torch.bfloat16, generator=torch.Generator().manual_seed(0),
+                    device=device)
+
+
+def _train_step_fn(torch, family, opt, remat=False, mesh=None):
+    from gelly_streaming_tpu_torch.models import gcn_forward, make_gnn_train_step, sage_forward
+
+    return make_gnn_train_step(
+        mesh, sage_forward if family == "sage" else gcn_forward, lr=TR_LR[family],
+        optimizer=(lambda ps: torch.optim.Adam(ps, lr=TR_ADAM_LR)) if opt == "adam" else None,
+        remat=remat)
+
+
+def _flat_params(torch, params):
+    return torch.cat([v.float().flatten() for layer in params for _, v in sorted(layer.items())])
+
+
+def _train_steps(torch, family, opt, inputs, steps, remat=False, mesh=None):
+    """``steps`` steps of ``family`` from its seeded parameters: the losses
+    (read after the last step) and the whole parameters (gathered under a
+    model axis) flattened after each step."""
+    from gelly_streaming_tpu_torch.models import gather_gnn_params
+
+    step, shard, init_opt = _train_step_fn(torch, family, opt, remat, mesh)
+    params = shard(_train_params(torch, family))
+    state = init_opt(params)
+    losses, flats = [], []
+    for _ in range(steps):
+        params, state, loss = step(params, state, *inputs)
+        losses.append(loss)
+        flats.append(_flat_params(torch, gather_gnn_params(params, mesh)))
+    return [x.item() for x in losses], flats
+
+
+def _step_breakdown(torch, family, inputs):
+    """Device ms of the parts of one SGD step, each run alone between CUDA
+    events (``cuda_ms``): every layer whole and its dense part (the kernel,
+    or GCN's f32 product), whose difference is the layer's message passing
+    (gathers and scatters), the forward without autograd, and the whole
+    step; the backward and the update are the step less the forward."""
+    from gelly_streaming_tpu_torch.models import gcn_forward, gcn_layer, sage_forward, sage_layer
+    from gelly_streaming_tpu_torch.models.graphsage import mean_aggregate
+    from gelly_streaming_tpu_torch.ops.sage_kernels import fused_sage_matmul
+
+    h, s, d, m, t = inputs
+    params = _train_params(torch, family)
+    step, _, _ = _train_step_fn(torch, family, "sgd")
+    out = {"layers": []}
+    with torch.no_grad():
+        x = h
+        for i, p in enumerate(params):
+            act = "relu" if i < len(params) - 1 else "none"
+            if family == "sage":
+                agg = mean_aggregate(x, s, d, m, x.shape[0])
+                layer = functools.partial(sage_layer, p, x, s, d, m, activation=act)
+                dense = functools.partial(fused_sage_matmul, x, agg, p["w_self"], p["w_nbr"],
+                                          p["b"], act)
+            else:
+                layer = functools.partial(gcn_layer, p, x, s, d, m, activation=act)
+                dense = functools.partial(lambda a, w: a.float() @ w.float(), x, p["w"])
+            row = {"layer_ms": cuda_ms(torch, layer, iters=5, warmup=1),
+                   "dense_ms": cuda_ms(torch, dense, iters=5, warmup=1)}
+            row["message_passing_ms"] = row["layer_ms"] - row["dense_ms"]
+            out["layers"].append(row)
+            x = layer()
+        fwd = sage_forward if family == "sage" else gcn_forward
+        out["forward_ms"] = cuda_ms(torch, lambda: fwd(params, h, s, d, m), iters=5, warmup=1)
+    out["step_ms"] = cuda_ms(torch, lambda: step(params, None, *inputs), iters=5, warmup=1)
+    out["backward_and_update_ms"] = out["step_ms"] - out["forward_ms"]
+    return out
+
+
+def _time_steps(torch, family, opt, remat, inputs):
+    """ms a step on the host clock (a warm step first, ``TR_TIMED`` steps
+    ended by a synchronize) and the peak device memory of those steps."""
+    step, shard, init_opt = _train_step_fn(torch, family, opt, remat)
+    params = shard(_train_params(torch, family))
+    state = init_opt(params)
+    params, state, _ = step(params, state, *inputs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    for _ in range(TR_TIMED):
+        params, state, _ = step(params, state, *inputs)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / TR_TIMED * 1e3
+    return {"ms_per_step": ms, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "resident_gb": resident / 1e9}
+
+
+def _first_grads(torch, family, inputs, device="cuda", plain=False):
+    """The loss's gradients at the seeded parameters: through the port's
+    forward, or (``plain``) through a forward composed of ``mean_aggregate``
+    and ``fused_sage_matmul_plain``."""
+    from gelly_streaming_tpu_torch.models import gcn_forward, mse_loss, sage_forward
+    from gelly_streaming_tpu_torch.models.graphsage import mean_aggregate
+    from gelly_streaming_tpu_torch.ops.sage_kernels import fused_sage_matmul_plain
+
+    h, s, d, m, t = inputs
+    leaves = [{k: v.detach().requires_grad_() for k, v in layer.items()}
+              for layer in _train_params(torch, family, device)]
+    if plain:
+        out = h
+        for i, p in enumerate(leaves):
+            agg = mean_aggregate(out, s, d, m, out.shape[0])
+            out = fused_sage_matmul_plain(out, agg, p["w_self"], p["w_nbr"], p["b"],
+                                          "relu" if i < len(leaves) - 1 else "none")
+    else:
+        out = (sage_forward if family == "sage" else gcn_forward)(leaves, h, s, d, m)
+    flat = [v for layer in leaves for _, v in sorted(layer.items())]
+    return torch.autograd.grad(mse_loss(out, t), flat)
+
+
+def _grad_errors(got, want):
+    """(max abs error, max |reference|) of each gradient."""
+    return [((a.float().cpu() - b.float().cpu()).abs().max().item(),
+             b.float().abs().max().item()) for a, b in zip(got, want)]
+
+
+def _train_family(torch, family, smi, inputs):
+    """(a) or (b): the eight-step runs under deterministic algorithms (the
+    counts set to 0 just before), the first step's gradients, then the
+    timed steps without deterministic algorithms."""
+    from gelly_streaming_tpu_torch.ops import sage_kernels as sk
+
+    tag = f"train ({'a' if family == 'sage' else 'b'}) {family} [{smi}]"
+    out = {"runs": {}, "timed": {}}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            sk.LAUNCHES = 0
+            sk.LAUNCHES_BY_VARIANT.update(tc=0, simt=0)
+            for opt in ("sgd", "adam"):
+                for remat in (False, True):
+                    before = dict(sk.LAUNCHES_BY_VARIANT)
+                    losses, flats = _train_steps(torch, family, opt, inputs, TR_STEPS, remat)
+                    launched = {k: sk.LAUNCHES_BY_VARIANT[k] - before[k] for k in before}
+                    out["runs"][(opt, remat)] = {"losses": losses, "flats": flats,
+                                                 "launches": launched}
+            torch.cuda.synchronize()
+            out["launches"] = dict(sk.LAUNCHES_BY_VARIANT)
+            if family == "sage":
+                got = _first_grads(torch, family, inputs)
+                want = _first_grads(torch, family, inputs, plain=True)
+            else:
+                got = _first_grads(torch, family, inputs)
+                want = _first_grads(torch, family, tuple(x.cpu() for x in inputs), device="cpu")
+        determinism = sorted({str(w.message)[:120] for w in caught
+                              if "determinis" in str(w.message)})
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for msg in determinism:
+        say(f"{tag}: warning under deterministic algorithms: {msg}")
+    for (opt, remat), run in out["runs"].items():
+        per_step = 4 if remat else 2
+        want_launch = ({"tc": per_step * TR_STEPS, "simt": 0} if family == "sage"
+                       else {"tc": 0, "simt": 0})
+        descends = run["losses"][-1] < run["losses"][0]
+        say(f"{tag} {opt} remat={remat}: losses {[round(x, 5) for x in run['losses']]}, "
+            f"fused_sage_matmul launches {run['launches']} (expected {want_launch}), "
+            f"{'descends' if descends else 'FAIL: no descent'}")
+        if not descends or run["launches"] != want_launch:
+            raise AssertionError(f"{tag} {opt} remat={remat}: no descent or wrong launches")
+    for opt in ("sgd", "adam"):
+        same = all(torch.equal(a, b) for a, b in zip(out["runs"][(opt, False)]["flats"],
+                                                      out["runs"][(opt, True)]["flats"]))
+        say(f"{tag} {opt}: remat changes no parameter over {TR_STEPS} steps: "
+            f"{'bit for bit' if same else 'FAIL'}")
+        if not same:
+            raise AssertionError(f"{tag} {opt}: remat changed the parameters")
+    errs = _grad_errors(got, want)
+    ref_name = "autograd through fused_sage_matmul_plain on the card" if family == "sage"         else "the same step's gradients on the CPU"
+    worst = max(e / max(r, 1e-30) for e, r in errs)
+    say(f"{tag}: first-step gradients against {ref_name}: max_abs_err/max|ref| per "
+        f"tensor {[f'{e:.3e}/{r:.3e}' for e, r in errs]}, worst {worst:.3e} (tol {TR_GRAD_TOL})")
+    if not worst <= TR_GRAD_TOL:
+        raise AssertionError(f"{tag}: the card's gradients disagree with {ref_name}")
+    out["grad_err"] = worst
+    for opt in ("sgd", "adam"):
+        for remat in (False, True):
+            row = _time_steps(torch, family, opt, remat, inputs)
+            row.update(train_step_bytes(N_VERTICES, WINDOW * N_WINDOWS, DIMS, family, opt,
+                                        remat))
+            row["bound_share"] = row["bound_ms"] / row["ms_per_step"]
+            out["timed"][(opt, remat)] = row
+            say(f"{tag} {opt} remat={remat} [{smi}]: " + json.dumps(row))
+    out["breakdown"] = _step_breakdown(torch, family, inputs)
+    say(f"{tag}: where an SGD step's device time goes (ms between CUDA events, warm) [{smi}]: "
+        + json.dumps(out["breakdown"]))
+    return out
+
+
+def _collective_host_ms(prof):
+    """Host ms of the collectives in a profile (the c10d and gloo ranges),
+    by name."""
+    return {e.key: e.cpu_time_total / 1e3 for e in prof.key_averages()
+            if "c10d" in e.key or "gloo" in e.key}
+
+
+def _train_rank(rank, world, init, work):
+    """One rank of the (c) world: gloo, every rank's tensors on card 0; the
+    SGD and Adam steps on each mesh of ``TR_MESHES`` that holds this rank
+    (a mesh of n ranks takes ranks 0 to n - 1; every rank builds every
+    mesh), under deterministic algorithms; pickles the gathered
+    parameters, the losses and the collectives it issued. Rank 0 profiles
+    one more SGD step on the 2x2 mesh; then every rank runs
+    ``dryrun_multichip`` (d)."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from gelly_streaming_tpu_torch.graft_entry import dryrun_multichip
+    from gelly_streaming_tpu_torch.parallel import comm, make_mesh, multihost
+
+    multihost.initialize(init, world, rank, device="cuda:0", backend="gloo",
+                         timeout_s=MESH_TIMEOUT_S)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    inputs = _train_inputs(torch)
+    out = {}
+    for shape in TR_MESHES:
+        n = shape[0] * shape[1]
+        mesh = make_mesh(*shape, devices=range(n), device="cuda")
+        if rank >= n:
+            continue
+        comm.reset_counters()
+        t0 = time.perf_counter()
+        runs = {opt: _train_steps(torch, "sage", opt, inputs, TR_MESH_STEPS, mesh=mesh)
+                for opt in ("sgd", "adam")}
+        out[shape] = {
+            "runs": {opt: (losses, flats[-1].cpu().numpy()) for opt, (losses, flats) in runs.items()},
+            "seconds": time.perf_counter() - t0, "calls": dict(comm.CALLS),
+            "staged": dict(comm.STAGED)}
+        if shape == (2, 2):
+            step, shard, _ = _train_step_fn(torch, "sage", "sgd", mesh=mesh)
+            params = shard(_train_params(torch, "sage"))
+            step(params, None, *inputs)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                step(params, None, *inputs)
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if rank == 0:
+                say(f"train (c) gloo mesh 2x2 rank 0: one SGD step profiled, {wall * 1e3:.1f} ms")
+                profile_pass(torch, None, wall, prof)
+                say("train (c) gloo mesh 2x2 rank 0: collectives' host ms in that step "
+                    + json.dumps(_collective_host_ms(prof)))
+    t0 = time.perf_counter()
+    dryrun_multichip(world, device="cuda")
+    out["dryrun_s"] = time.perf_counter() - t0
+    with open(os.path.join(work, f"train-rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_train(torch, smi):
+    """Slice 3 on the card: (a) GraphSAGE and (b) GCN training at config
+    #5's width, (c) the sharded step on meshes over the one card, (d)
+    ``entry()`` and ``dryrun_multichip(4)``."""
+    import pickle
+    import tempfile
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from gelly_streaming_tpu_torch.graft_entry import entry
+    from gelly_streaming_tpu_torch.parallel import comm, make_mesh, multihost
+
+    inputs = _train_inputs(torch)
+    sage = _train_family(torch, "sage", smi, inputs)
+    gcn = _train_family(torch, "gcn", smi, inputs)
+
+    # (c) the width-1 reference: (a)'s runs after TR_MESH_STEPS steps
+    base = {opt: (sage["runs"][(opt, False)]["losses"][:TR_MESH_STEPS],
+                  sage["runs"][(opt, False)]["flats"][TR_MESH_STEPS - 1].cpu().numpy())
+            for opt in ("sgd", "adam")}
+    # an NCCL world of one: make_mesh(1, 1) is the single-device step
+    multihost.initialize(device="cuda", timeout_s=MESH_TIMEOUT_S)
+    mesh = make_mesh(1, 1, device="cuda")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            comm.reset_counters()
+            one = {opt: _train_steps(torch, "sage", opt, inputs, TR_MESH_STEPS, mesh=mesh)
+                   for opt in ("sgd", "adam")}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = all(np.array_equal(one[opt][1][-1].cpu().numpy(), base[opt][1])
+               and one[opt][0] == base[opt][0] for opt in one)
+    say(f"train (c) {dist.get_backend()} width 1, mesh 1x1 [{smi}]: SGD and Adam "
+        f"{TR_MESH_STEPS} steps each, collectives {dict(comm.CALLS)}, "
+        f"{'bit for bit equal' if same else 'FAIL'} to (a)'s width-1 run")
+    dist.destroy_process_group()
+    if not same:
+        raise AssertionError("the 1x1 mesh's step differs from the single-device step")
+    del one
+    mesh_rows = {}
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        init = "file://" + os.path.join(work, "train-store")
+        mp.start_processes(_train_rank, args=(TR_WORLD, init, work), nprocs=TR_WORLD,
+                           join=True, start_method="spawn")
+        ranks = []
+        for r in range(TR_WORLD):
+            with open(os.path.join(work, f"train-rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+        say(f"train (c) gloo world of {TR_WORLD} on the one card: "
+            f"{time.perf_counter() - t0:.1f} s")
+        for shape in TR_MESHES:
+            tag = f"train (c) gloo mesh {shape[0]}x{shape[1]} [{smi}]"
+            r0 = ranks[0][shape]
+            for r, res in enumerate(ranks[1:shape[0] * shape[1]], 1):
+                for opt in ("sgd", "adam"):
+                    (la, pa), (lb, pb) = res[shape]["runs"][opt], r0["runs"][opt]
+                    if la != lb or not np.array_equal(pa, pb):
+                        raise AssertionError(f"{tag}: rank {r} differs from rank 0 ({opt})")
+            row = {"seconds": r0["seconds"], "calls": r0["calls"], "staged": r0["staged"]}
+            for opt in ("sgd", "adam"):
+                (losses, flat), (bl, bflat) = r0["runs"][opt], base[opt]
+                p_err = float(np.abs(flat - bflat).max())
+                p_ref = float(np.abs(bflat).max())
+                l_err = max(abs(a - b) / abs(b) for a, b in zip(losses, bl))
+                p_tol = TR_MESH_TOL * p_ref + (
+                    2 * TR_ADAM_LR * TR_MESH_STEPS if opt == "adam" else 0.0)
+                row[opt] = {"losses": losses, "param_err": p_err, "param_tol": p_tol,
+                            "param_ref": p_ref, "loss_rel_err": l_err}
+                if not (p_err <= p_tol and l_err <= TR_MESH_TOL):
+                    raise AssertionError(f"{tag} {opt}: {p_err:.3e} of {p_ref:.3e} from "
+                                         f"the width-1 run (losses {l_err:.3e})")
+            say(f"{tag}: every rank bit-equal; against width 1 (tol {TR_MESH_TOL}): "
+                + json.dumps(row))
+            mesh_rows[shape] = row
+        say(f"train (d) dryrun_multichip({TR_WORLD}) on the gloo world of {TR_WORLD} on "
+            f"the card: every section's asserts held on every rank "
+            f"({ranks[0]['dryrun_s']:.1f} s)")
+
+    # (d) entry() on the card against the CPU
+    fn, args = entry()
+    got = fn(*args)
+    cpu_fn, cpu_args = entry(device="cpu")
+    want = cpu_fn(*cpu_args)
+    err = (got.float().cpu() - want.float()).abs().max().item()
+    ref = want.float().abs().max().item()
+    ok = (tuple(got.shape) == (256, 64) and bool(torch.isfinite(got.float()).all())
+          and err <= SLICE_TOL * ref)
+    say(f"train (d) entry() on the card: shape {tuple(got.shape)} {got.dtype}, against "
+        f"entry(device='cpu') max_abs_err {err:.3e} of max|ref| {ref:.3e} "
+        f"(tol {SLICE_TOL * ref:.3e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("entry() on the card disagrees with the CPU")
+    return {"launches": sage["launches"]["tc"], "sage": sage["timed"], "gcn": gcn["timed"],
+            "mesh": mesh_rows}
+
+
 def timed(name, fn, *args):
     """Run one phase and print its wall seconds."""
     t0 = time.perf_counter()
@@ -4608,7 +5058,7 @@ def main():
     import torch
 
     t_start = time.perf_counter()
-    timed("device", phase_device, torch)
+    smi = timed("device", phase_device, torch)
     timed("build", phase_build)
     main_err, rows = timed("kernels", phase_kernels, torch)
     slice_result = timed("slice", phase_slice, torch, rows)
@@ -4630,6 +5080,7 @@ def main():
     timed("serving", phase_serving, torch, cc_oracle)
     timed("routing", phase_routing, torch)
     mesh_result = timed("mesh", phase_mesh, torch)
+    train_result = timed("train", phase_train, torch, smi)
     say(f"all phases: {time.perf_counter() - t_start:.1f} s")
     kernel = {
         "name": "fused_sage_matmul",
@@ -4639,6 +5090,7 @@ def main():
         "replaces": "gelly_streaming_tpu/ops/pallas_kernels.py:51",
         "launches": slice_result["launches"],
         "launches_mesh": mesh_result["launches"],
+        "launches_train": train_result["launches"],
         "max_abs_err": main_err,
         "ms": sum(r["kernel_ms"] for r in rows),
         "plain_ms": sum(r["plain_ms"] for r in rows),

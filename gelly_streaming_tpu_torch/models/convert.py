@@ -1,8 +1,8 @@
 """Parameters of the JAX package, as the port's tensors.
 
-``params_from_numpy`` takes a GraphSAGE parameter stack in the JAX
-package's layout — a list of ``{"w_self", "w_nbr", "b"}`` dicts — as
-numpy arrays, and returns the same stack as tensors of ``dtype`` on
+``params_from_numpy`` takes a parameter stack in the JAX package's
+layout — a list of dicts of numpy arrays, whatever their keys (GraphSAGE's
+``{"w_self", "w_nbr", "b"}``, GCN's ``{"w", "b"}``) — and returns the same stack as tensors of ``dtype`` on
 ``device``. ``np.asarray`` of a bf16 JAX array is an ``ml_dtypes``
 bfloat16 array, which ``torch.from_numpy`` rejects: pass float32 arrays
 (``np.asarray(x, np.float32)``, exact for bf16 values) and let this

@@ -1,7 +1,6 @@
 """Streaming GraphSAGE: GNN layers over the window stream (BASELINE #5).
 
-The counterpart of ``gelly_streaming_tpu/models/graphsage.py``, forward
-only (the serving path):
+The counterpart of ``gelly_streaming_tpu/models/graphsage.py``:
 
 - Neighbor aggregation is a masked mean over edge messages: a gather of
   ``h[src]`` and an ``index_add_`` scatter into ``dst``.
@@ -15,12 +14,20 @@ Parameters are a list of per-layer dicts of tensors ``{"w_self", "w_nbr",
 (:func:`make_sharded_forward`, ``StreamingGraphSAGE(mesh=)``) the edge
 columns split over the ``"edges"`` axis, each rank scatters its slice's
 messages, and the partial aggregates all-reduce before the replicated
-dense half. Training (``make_sharded_train_step``) is ROADMAP Queue 1,
-slice 3.
+dense half.
+
+Training differentiates this forward: the kernel's wrapper is a
+``torch.autograd.Function`` (its backward is plain f32 matmuls), and
+:func:`sage_forward` takes ``remat=`` (per-layer recomputation) and, under
+the training step's ``shard_map``, ``model_axis=``: the weights' output
+columns split over the ``"model"`` axis, each rank computes its columns
+and the layer's output is all-gathered. :func:`make_sharded_train_step`
+is the round-1 wrapper over the generic step of :mod:`.training`.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Iterator, List
 
@@ -67,8 +74,12 @@ def mean_aggregate(h, src, dst, mask, num_vertices: int, axis_name=None):
     its rounding, changes from run to run. ``axis_name``: inside
     ``shard_map`` over this rank's edges, the partial sums and counts
     all-reduce over that axis, in ``h.dtype`` (the reference's ``psum``),
-    before the divide."""
+    before the divide. Under autograd the gather's gradient, which holds
+    only this rank's edges, all-reduces over the axis too
+    (:func:`~..parallel.comm.copy_over`)."""
     m = mask.to(h.dtype)
+    if axis_name is not None:
+        h = comm.copy_over(h, axis_name)
     msgs = h[src] * m[:, None]
     agg = torch.zeros(
         (num_vertices, h.shape[1]), dtype=h.dtype, device=h.device
@@ -77,29 +88,46 @@ def mean_aggregate(h, src, dst, mask, num_vertices: int, axis_name=None):
         0, dst, m
     )
     if axis_name is not None:
-        agg, cnt = comm.all_reduce((agg, cnt), axis_name)
+        agg = comm.sum_over(agg, axis_name)
+        cnt = comm.all_reduce(cnt, axis_name)
     return agg / torch.clamp_min(cnt, 1.0)[:, None]
 
 
 def sage_layer(params, h, src, dst, mask, *, activation: str = "relu",
-               axis_name=None):
+               axis_name=None, model_axis=None):
     """One GraphSAGE layer: act(h @ W_self + mean_nbr(h) @ W_nbr + b), with
-    ``activation`` "relu" or "none"."""
+    ``activation`` "relu" or "none". ``model_axis``: the weights hold this
+    rank's output columns over that axis (:func:`~.training.shard_gnn_params`);
+    ``h`` and the mean enter the matmul through
+    :func:`~..parallel.comm.copy_over` and the output is gathered whole."""
     agg = mean_aggregate(h, src, dst, mask, h.shape[0], axis_name=axis_name)
-    return fused_sage_matmul(
+    if model_axis is not None:
+        h = comm.copy_over(h, model_axis)
+        agg = comm.copy_over(agg, model_axis)
+    out = fused_sage_matmul(
         h, agg, params["w_self"], params["w_nbr"], params["b"],
         activation=activation,
     )
+    if model_axis is not None:
+        out = comm.gather_columns(out, model_axis)
+    return out
 
 
-def sage_forward(params_stack, h, src, dst, mask, axis_name=None):
-    """Full model: all layers, last layer linear (no activation)."""
+def sage_forward(params_stack, h, src, dst, mask, *, remat: bool = False,
+                 axis_name=None, model_axis=None):
+    """Full model: all layers, last layer linear (no activation).
+
+    ``remat=True`` runs each layer under ``torch.utils.checkpoint`` (the
+    reference's ``jax.checkpoint``): its activations are recomputed in the
+    backward, so each layer's kernel launches twice a training step."""
     n = len(params_stack)
     for i, p in enumerate(params_stack):
-        h = sage_layer(
-            p, h, src, dst, mask, activation="relu" if i < n - 1 else "none",
-            axis_name=axis_name,
+        layer = functools.partial(
+            sage_layer, activation="relu" if i < n - 1 else "none",
+            axis_name=axis_name, model_axis=model_axis,
         )
+        h = comm.remat(layer, p, h, src, dst, mask) if remat else layer(
+            p, h, src, dst, mask)
     return h
 
 
@@ -121,6 +149,24 @@ def make_sharded_forward(mesh):
         )(params_stack, h, src, dst, mask)
 
     return fwd
+
+
+def make_sharded_train_step(mesh, lr=1e-2):
+    """The round-1 SAGE training step: data-parallel over the edge axis,
+    tensor-parallel over the output features. Returns ``(step_fn,
+    shard_params_fn)``; ``step_fn(params, h, src, dst, mask, targets) ->
+    (params, loss)``. A thin wrapper over the generic
+    :func:`~.training.make_sharded_train_step` (which adds the optimizer,
+    other losses and remat)."""
+    from .training import make_sharded_train_step as make_generic
+
+    step, shard_params, _ = make_generic(mesh, sage_forward, lr=lr)
+
+    def step_compat(params, h, src, dst, mask, targets):
+        params, _, loss = step(params, None, h, src, dst, mask, targets)
+        return params, loss
+
+    return step_compat, shard_params
 
 
 class TableFeatureSource:

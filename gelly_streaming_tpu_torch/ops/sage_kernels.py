@@ -21,6 +21,14 @@ plain PyTorch version the tests and ``chip_smoke.py`` hold both kernels
 against. A CUDA tensor never reaches the plain version, and the choice of
 kernel never depends on a build or a launch: the chosen kernel launches
 or the call raises.
+
+Gradients. When autograd records the call (grad mode on and an operand
+that requires a gradient), the wrapper is a ``torch.autograd.Function``:
+the forward is the same kernel (or the plain version on the CPU), and the
+backward is plain torch matmuls in f32, each gradient cast to its
+operand's dtype. The JAX package has no backward kernel either: its
+``pallas_call`` has no ``custom_vjp``, and its training differentiates
+XLA's products. Without a recorded graph the wrapper keeps no state.
 """
 
 from __future__ import annotations
@@ -54,7 +62,49 @@ def fused_sage_matmul_plain(h, agg, w_self, w_nbr, b, activation="relu"):
 def fused_sage_matmul(h, agg, w_self, w_nbr, b, activation="relu"):
     """``act(h @ w_self + agg @ w_nbr + b)``: ``h``/``agg`` [V, F], weights
     [F, O], bias [O]; float32 or bfloat16, one dtype for all five, f32
-    accumulation, output [V, O] in the input dtype."""
+    accumulation, output [V, O] in the input dtype. Differentiable: see
+    :class:`FusedSageMatmul`."""
+    tensors = (h, agg, w_self, w_nbr, b)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return FusedSageMatmul.apply(*tensors, activation)
+    return _forward(*tensors, activation)
+
+
+class FusedSageMatmul(torch.autograd.Function):
+    """:func:`fused_sage_matmul` under autograd. The forward launches the
+    kernel (the plain version for CPU tensors); the backward, with ``g``
+    the output's gradient in f32, zeroed where the relu output is not
+    positive (JAX's and torch's relu both have gradient 0 at 0):
+    ``dh = g @ w_self.T``, ``dagg = g @ w_nbr.T``, ``dw_self = h.T @ g``,
+    ``dw_nbr = agg.T @ g``, ``db = g.sum(0)``, each computed in f32 and
+    only for an operand that needs it."""
+
+    @staticmethod
+    def forward(ctx, h, agg, w_self, w_nbr, b, activation):
+        out = _forward(h, agg, w_self, w_nbr, b, activation)
+        ctx.activation = activation
+        ctx.save_for_backward(h, agg, w_self, w_nbr, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        h, agg, w_self, w_nbr, out = ctx.saved_tensors
+        f32 = torch.float32
+        g = grad_out.to(f32)
+        if ctx.activation == "relu":
+            g = g * (out > 0)
+        need = ctx.needs_input_grad
+        dh = (g @ w_self.to(f32).T).to(h.dtype) if need[0] else None
+        dagg = (g @ w_nbr.to(f32).T).to(agg.dtype) if need[1] else None
+        dws = (h.to(f32).T @ g).to(w_self.dtype) if need[2] else None
+        dwn = (agg.to(f32).T @ g).to(w_nbr.dtype) if need[3] else None
+        db = g.sum(0).to(out.dtype) if need[4] else None
+        return dh, dagg, dws, dwn, db, None
+
+
+def _forward(h, agg, w_self, w_nbr, b, activation):
+    """The checked forward: the plain version on the CPU, the chosen
+    kernel on the card."""
     _check_activation(activation)
     tensors = (h, agg, w_self, w_nbr, b)
     device = h.device

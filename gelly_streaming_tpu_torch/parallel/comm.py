@@ -21,6 +21,22 @@ Mapping of the reference's collectives:
 - ``segment_min``/``segment_sum`` plus a collective ->
   :func:`sharded_segment_min` / :func:`sharded_segment_sum`.
 
+Under autograd (the training step, where the reference differentiates
+through ``shard_map`` and XLA transposes each collective), three
+collectives carry their transposes:
+
+- :func:`sum_over` — forward all-reduce-sum, backward identity: where a
+  rank-partial value becomes replicated (the edge scatter's sums);
+- :func:`copy_over` — forward identity, backward all-reduce-sum: on a
+  replicated tensor just before a rank-varying use (the gather over this
+  rank's edges, a column-sharded matmul);
+- :func:`gather_columns` — forward all-gather along the last dimension,
+  backward this rank's chunk: a column-sharded output made whole.
+
+Each resolves its process group when the forward runs and keeps it for
+the backward, which on the card runs on autograd's own thread, outside
+the :func:`bind` of the forward.
+
 Transport. NCCL takes every operation here on CUDA tensors, and gloo
 takes its collectives (all-reduce, all-gather) on them as they are. The
 butterfly's point-to-point exchange is the one gloo path that goes
@@ -207,6 +223,84 @@ def all_gather(x: Any, axis_name: str, axis: int = 0, tiled: bool = False) -> An
     group = _group(axis_name)
     join = torch.cat if tiled else torch.stack
     return pytree.tree_map(lambda t: join(_gather_list(t, group), dim=axis), x)
+
+
+# --------------------------------------------------------------------------- #
+# Collectives under autograd (the training step)
+# --------------------------------------------------------------------------- #
+def remat(fn: Callable, *args, **kwargs):
+    """``fn(*args, **kwargs)`` with its activations recomputed in the
+    backward (``torch.utils.checkpoint``, non-reentrant; the reference's
+    ``jax.checkpoint``). The mesh bound now is bound again while the
+    recomputation runs, so its collectives find their groups there too."""
+    from torch.utils.checkpoint import checkpoint
+
+    mesh = _BOUND.get()
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(), bind(mesh)),
+                      **kwargs)
+
+
+def _records(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _SumOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce_leaf(x, group, dist.ReduceOp.SUM)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce_leaf(g, ctx.group, dist.ReduceOp.SUM), None
+
+
+class _GatherColumns(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.index = dist.get_rank(group)
+        ctx.width = x.shape[-1]
+        return torch.cat(_gather_list(x, group), dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo = ctx.index * ctx.width
+        return g[..., lo:lo + ctx.width].contiguous(), None
+
+
+def sum_over(x: torch.Tensor, axis_name: str) -> torch.Tensor:
+    """All-reduce-sum ``x`` over ``axis_name``; its gradient passes through
+    unchanged (each rank's partial gets the replicated sum's gradient).
+    Outside a recorded graph this is :func:`all_reduce`."""
+    if not _records(x):
+        return all_reduce(x, axis_name)
+    return _SumOver.apply(x, _group(axis_name))
+
+
+def copy_over(x: torch.Tensor, axis_name: str) -> torch.Tensor:
+    """``x`` itself forward; its gradient is all-reduce-summed over
+    ``axis_name`` (each rank's use contributes a partial). No collective
+    runs outside a recorded graph."""
+    if not _records(x):
+        return x
+    return _CopyOver.apply(x, _group(axis_name))
+
+
+def gather_columns(x: torch.Tensor, axis_name: str) -> torch.Tensor:
+    """Every rank's ``x`` along ``axis_name``, concatenated in rank order
+    along the last dimension; the gradient keeps this rank's columns."""
+    return _GatherColumns.apply(x, _group(axis_name))
 
 
 def axis_index(axis_name: str) -> int:

@@ -31,7 +31,10 @@ followed snapshots there, and a process that ran a ``ShardRouter`` alone
 never made a CUDA context, and slice 6 (the mesh): the sharded GraphSAGE
 forward over an NCCL world of one equals the forward without a mesh bit
 for bit, and (with two cards or more) both kernels launch on the card of
-their operands whatever the current device is.
+their operands whatever the current device is, and slice 3 (training): the
+kernel's gradients on the card equal autograd through its plain version,
+a training step launches "tc" twice (four times with remat), and the
+training entry points raise without a card.
 
 Every test here is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is false. The file imports only torch, numpy
@@ -1141,3 +1144,90 @@ def test_kernels_launch_on_the_operands_card(card):
             err = (got.float() - want.float()).abs().max().item()
             assert err <= tol * max(want.float().abs().max().item(), 1.0), (index, variant)
     assert torch.cuda.current_device() == 0
+
+
+@pytest.mark.parametrize("dtype, variant", [("bfloat16", "tc"), ("float32", "simt")])
+@pytest.mark.parametrize("activation", ["relu", "none"])
+def test_kernel_gradients_on_card_equal_the_plain_versions(card, dtype, variant, activation):
+    """Slice 3: ``fused_sage_matmul`` under autograd on the card (the kernel
+    forward, the f32 matmul backward) against autograd through
+    ``fused_sage_matmul_plain`` on the card. Tolerance of each gradient,
+    relative to its largest entry: the kernel's forward differs from the
+    plain one by summation order (f32) and one bf16 rounding of the output,
+    which a relu mask may flip at an output near 0."""
+    dt = getattr(torch, dtype)
+    ops = [torch.from_numpy(a).to(card, dt) for a in _operands(5, 300, 64, 128)]
+    a = [t.clone().requires_grad_() for t in ops]
+    b = [t.clone().requires_grad_() for t in ops]
+    before = sage_kernels.LAUNCHES_BY_VARIANT[variant]
+    out = fused_sage_matmul(*a, activation)
+    assert sage_kernels.LAUNCHES_BY_VARIANT[variant] == before + 1
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(6)).to(card, dt)
+    got = torch.autograd.grad(out, a, g)
+    want = torch.autograd.grad(fused_sage_matmul_plain(*b, activation), b, g)
+    torch.cuda.synchronize()
+    tol = 2e-2 if dtype == "bfloat16" else 1e-4
+    for name, x, y in zip(("h", "agg", "w_self", "w_nbr", "b"), got, want):
+        assert x.dtype == dt and x.device == y.device == card
+        err = (x.float() - y.float()).abs().max().item()
+        assert err <= tol * y.float().abs().max().item(), (name, err)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_training_step_launches_the_tensor_core_kernel(card, remat):
+    """One bf16 GraphSAGE training step of two layers launches "tc" twice,
+    four times with remat (the recomputed forward), and "simt" never; the
+    step reads nothing on the host and its loss is a 0-d tensor on the
+    card."""
+    from gelly_streaming_tpu_torch.models import init_graphsage, make_gnn_train_step, sage_forward
+
+    rng = np.random.default_rng(7)
+    params = init_graphsage([64, 128, 32], torch.bfloat16,
+                            generator=torch.Generator().manual_seed(0), device=card)
+    h = torch.from_numpy(rng.normal(size=(1024, 64)).astype(np.float32)).to(card, torch.bfloat16)
+    src, dst = (torch.from_numpy(x.astype(np.int32)).to(card) for x in rng.integers(0, 1024, (2, 8192)))
+    mask = torch.ones(8192, dtype=torch.bool, device=card)
+    targets = torch.from_numpy(rng.normal(size=(1024, 32)).astype(np.float32)).to(card)
+    step, _, _ = make_gnn_train_step(None, sage_forward, lr=0.05, remat=remat)
+    before = dict(sage_kernels.LAUNCHES_BY_VARIANT)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        new, _, loss = step(params, None, h, src, dst, mask, targets)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    launched = {k: sage_kernels.LAUNCHES_BY_VARIANT[k] - before[k] for k in before}
+    assert launched == {"tc": 4 if remat else 2, "simt": 0}
+    assert loss.dim() == 0 and loss.device == card and bool(torch.isfinite(loss))
+    assert all(v.device == card and v.dtype == torch.bfloat16 for layer in new for v in layer.values())
+
+
+_NO_CARD = """
+import torch
+from gelly_streaming_tpu_torch.graft_entry import entry
+from gelly_streaming_tpu_torch.models import init_gcn
+from gelly_streaming_tpu_torch.resilience.errors import DeviceUnavailable
+assert not torch.cuda.is_available()
+for call in (entry, lambda: init_gcn([4, 4], generator=torch.Generator().manual_seed(0))):
+    try:
+        call()
+    except DeviceUnavailable:
+        continue
+    raise SystemExit("no raise")
+print("raised")
+"""
+
+
+def test_training_entry_points_without_a_card_raise(card):
+    """With the card hidden (``CUDA_VISIBLE_DEVICES=""``), ``entry()`` and
+    ``init_gcn`` on their default ``device="cuda"`` raise
+    ``DeviceUnavailable``: nothing moves to the CPU unasked."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", _NO_CARD], capture_output=True, text=True,
+                         timeout=300, cwd=root,
+                         env=dict(os.environ, PYTHONPATH=root, CUDA_VISIBLE_DEVICES=""))
+    assert out.returncode == 0 and out.stdout.strip().endswith("raised"), out.stderr[-2000:]

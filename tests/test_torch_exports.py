@@ -142,3 +142,36 @@ _MODULE_CASES = [(m, n) for m in _MODULES for n in _module_names(m)]
 def test_slice_7b_module_defines_the_reference_name(module, name):
     mod = importlib.import_module(f"gelly_streaming_tpu_torch.{module}")
     assert hasattr(mod, name), f"gelly_streaming_tpu_torch.{module} lacks {name}"
+
+
+def _bound_names(package):
+    """Every name the reference's ``__init__`` of ``package`` binds by a
+    relative import: the ``as`` name where there is one
+    (``make_gnn_train_step``), else the imported name."""
+    path = os.path.join(_REF_ROOT, *package.split("."), "__init__.py")
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    return sorted(a.asname or a.name for node in tree.body
+                  if isinstance(node, ast.ImportFrom) and node.level == 1
+                  for a in node.names)
+
+
+@pytest.mark.parametrize("name", _bound_names("models"))
+def test_models_exports_every_reference_name(name):
+    """Slice 3: the port's ``models`` binds every name the reference's
+    does, the training half included."""
+    from gelly_streaming_tpu_torch import models
+
+    assert hasattr(models, name), f"gelly_streaming_tpu_torch.models lacks {name}"
+    assert name in models.__all__
+
+
+_SLICE_3_CASES = [(m, n) for m in ("models.gcn", "models.training", "models.graphsage")
+                  for n in _module_names(m)]
+
+
+@pytest.mark.parametrize("module,name", _SLICE_3_CASES,
+                         ids=[f"{m}.{n}" for m, n in _SLICE_3_CASES])
+def test_slice_3_module_defines_the_reference_name(module, name):
+    mod = importlib.import_module(f"gelly_streaming_tpu_torch.{module}")
+    assert hasattr(mod, name), f"gelly_streaming_tpu_torch.{module} lacks {name}"

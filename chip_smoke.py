@@ -121,7 +121,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    host syncs in the loop (0); the edge set equal to the port's on the CPU
    and every dropped edge within 2 spanner hops (sparse products); then
    k = 3 on the 2^18-edge prefix and on 2^16 edges over 2^12 vertices in
-   4 windows, each equal to the CPU's.
+   4 windows, each equal to the CPU's. Then the reference's own k = 3 cell
+   (``bench.py:3754 spanner_k3_eps``: the same stream, windows, dict and
+   ``expected_edges`` with k = 3), its window loop through the hop kernel
+   of ``csrc/k_reach.cu``: the counted run (the kernel's launches from 0,
+   each window's first search captured); (a) the kernel against its plain
+   version, exactly, on seeded spanners (V in {1, 333, 4099}, W in {1, 3,
+   32}, no, some and all columns live, k = 1 to 4) and on the captured
+   first batches of windows 1-3 (also against the byte form the kernel
+   replaced); host syncs in the loop (0); edges/s; every dropped edge of a
+   seeded sample of 2^14 within 3 spanner hops (sparse products); the
+   profile's step table over windows 0-1 with the bytes' bound and the
+   frontier traffic's;
+   and one search of window 3's first batch timed (kernel, one hop, plain
+   version, byte form) with a cold L2.
 13. device-encode — the CC cell with vertex compaction on the card
    (``bench.py:bench_cc_e2e_device`` and ``bench_cc_e2e_device_text``):
    phase 6's binary cache with ``device_encode=True, min_vertex_capacity=
@@ -403,7 +416,26 @@ SP_SEED = 17
 SP3_EDGES = 1 << 16
 SP3_VERTICES = 1 << 12
 SP_STEPS = ("spanner.k2", "spanner.k2_merge")
-SP3_STEPS = ("spanner.k_reach", "spanner.append")
+SP3_STEPS = ("spanner.csr", "spanner.k_reach", "spanner.append")
+SP3_FOREIGN = {"spanner.k_reach": "k_reach_hop"}  # the hop kernel, launched through ctypes
+# the reference's own k = 3 cell, bench.py:3754 spanner_k3_eps =
+# bench_spanner(k=3): the k = 2 cell's stream, windows, dict and
+# expected_edges (the SP_* constants above) with DeviceSpanner(k=3)
+SPK3_K = 3
+SPK3_SAMPLE = 1 << 14  # dropped edges checked for a spanner path of <= 3 hops
+SPK3_SAMPLE_SEED = 0
+# the profiled pass covers the first 2 windows (window 1's 256 searches):
+# a profile of all 4 took 33-40 s of the phase on an H100 host (its
+# "seconds by stage" line), most of it reading the trace
+SPK3_PROFILE_WINDOWS = 2
+# phase (a): the hop kernel against the plain version on seeded spanners
+KR_VERTICES = (1, 333, 4099)  # ragged: none a multiple of the block
+KR_BATCHES = (32, 96, 1024)  # W = 1, 3 and 32 words a vertex
+KR_EDGES = 3  # spanner columns per vertex
+# the spin before each timed search (about 2 ms of the card's clock): the
+# host takes about 0.5 ms to enqueue a search's some 25 launches, longer
+# than the flush's write, and the card must not wait on it inside the timing
+KR_LEAD_CYCLES = 4_000_000
 CC_STEPS = ("cc.window_prep", "cc.window_upload", "cc.chase_and_group", "cc.propagate",
             "cc.commit_roots", "cc.commit", "cc.forest_superbatch", "cc.resolve_flat",
             "cc.mirror_update", "engine.sync")
@@ -424,43 +456,6 @@ TRI_SEED = 9
 TRI_STEPS = ("tri.oriented_rows", "tri.membership", "csr.build", "segment.sort",
              "segment.count", "tri.plan", "window.rewindow", "window.pack")
 STEADY_PASSES = 3
-
-# BASELINE config #4 (bench.py: bench_pagerank): 4 windows of 2^18
-PR_VERTICES = 1 << 18
-PR_EDGES = 1 << 20
-PR_WINDOW = 1 << 18
-PR_SEED = 11
-PR_TOL = 1e-6
-PR_MAX_ITER = 50
-# final ranks against the float64 oracle (tests/test_pagerank_sage.py:47),
-# iterations within 2 of it (the L1 change at tol 1e-6 is near the
-# float32 noise floor), superbatch 4 against 1 (float atomics)
-PR_RANK_TOL = 1e-5
-PR_ITER_SLACK = 2
-PR_K4_TOL = 1e-6
-PR_STEPS = ("pagerank.window", "pagerank.fixpoint")
-
-# bipartiteness (bench.py: bench_bipartiteness_e2e) on phase 5's corpus
-BIP_STEPS = ("bip.cover_step", "cc.chase_and_group", "cc.propagate", "cc.commit_roots",
-             "cc.window_prep", "cc.window_upload")
-
-# exact triangles (bench.py: bench_exact_triangles): 4 windows of 2^18
-ETC_VERTICES = 1 << 17
-ETC_EDGES = 1 << 20
-ETC_WINDOW = 1 << 18
-ETC_SEED = 15
-ETC_STEPS = ("tri.packed_prep", "tri.packed_count", "tri.merge_packed")
-
-# the device spanner (bench.py: bench_spanner): k = 2, 4 windows of 2^18;
-# k = 3 also on 2^16 edges over 2^12 vertices in 4 windows
-SP_VERTICES = 1 << 18
-SP_EDGES = 1 << 20
-SP_WINDOW = 1 << 18
-SP_SEED = 17
-SP3_EDGES = 1 << 16
-SP3_VERTICES = 1 << 12
-SP_STEPS = ("spanner.k2", "spanner.k2_merge")
-SP3_STEPS = ("spanner.k_reach", "spanner.append")
 
 # phase 8: the seeded edge values of window 0, and the tolerance of its
 # float results between the card and the CPU (relative to max(|x|, 1)):
@@ -663,17 +658,21 @@ def say(*parts):
     print(*parts, flush=True)
 
 
-def cold_ms(torch, fn, flush, iters=TIMED_LAUNCHES, warmup=3):
+def cold_ms(torch, fn, flush, iters=TIMED_LAUNCHES, warmup=3, lead_cycles=0):
     """Median device time of one call of ``fn`` with a cold L2: before each
     call the ``flush`` buffer (``FLUSH_BYTES``) is written, which evicts the
     operands from L2, and each call runs between its own pair of CUDA
     events. The write of the buffer takes longer on the card than the host
-    takes to enqueue the call, so the events time the call, not the host."""
+    takes to enqueue the call, so the events time the call, not the host.
+    A call that the host enqueues more slowly than that (many small
+    launches) gets ``lead_cycles`` of a spinning kernel after the write."""
     for _ in range(warmup):
         fn()
     pairs = []
     for _ in range(iters):
         flush.zero_()
+        if lead_cycles:
+            torch.cuda._sleep(lead_cycles)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1356,10 +1355,30 @@ def step_rows(prof, names, per, nbytes):
     return table
 
 
-def profile_cell(torch, label, one_pass, names, nbytes):
+def _add_foreign_kernels(prof, table, foreign, per):
+    """Add to each step of ``foreign`` (step -> kernel name) the device
+    time and launches of that kernel over the trace, divided by ``per``:
+    a kernel launched through ctypes has no PyTorch operation, so no
+    range holds it in ``_step_table``."""
+    for step, kernel in foreign.items():
+        n = us = 0
+        for e in prof.events():
+            if e.device_type.name == "CUDA" and kernel in e.name:
+                n += 1
+                us += e.time_range.elapsed_us()
+        row = table.setdefault(step, {"calls": 0.0, "launches": 0.0, "device_ms": 0.0})
+        row["launches"] += n / per
+        row["device_ms"] += us / 1e3 / per
+        row[f"{kernel}_ms"] = us / 1e3 / per
+        if "bound_ms" in row:
+            row["bound_share"] = row["bound_ms"] / row["device_ms"] if row["device_ms"] else None
+
+
+def profile_cell(torch, label, one_pass, names, nbytes, foreign=None):
     """One profiled pass with the device steps as record_function ranges:
     busy share, top operations, device-to-host copies, peak memory and
-    the per-window step table."""
+    the per-window step table (with the ``foreign`` kernels added, see
+    ``_add_foreign_kernels``)."""
     from torch.profiler import ProfilerActivity, profile
 
     from gelly_streaming_tpu_torch.obs import trace
@@ -1393,6 +1412,7 @@ def profile_cell(torch, label, one_pass, names, nbytes):
     d2h = sum(1 for e in prof.events() if e.device_type.name == "CUDA" and "DtoH" in e.name)
     peak = torch.cuda.max_memory_allocated() / 1e9
     table = step_rows(prof, names, windows, nbytes)
+    _add_foreign_kernels(prof, table, foreign or {}, windows)
     say(f"{label} device-to-host copies in the profiled pass: {d2h}; peak device memory "
         f"{peak:.3f} GB")
     say(f"{label} steps (device ms, launches and bytes' bound per window) " + json.dumps(table))
@@ -2062,10 +2082,12 @@ def spanner_step_bytes(q, p, v):
     }
 
 
-def phase_spanner(torch):
+def phase_spanner(torch, smi):
     """``bench.py:bench_spanner``: k = 2 with ``expected_edges``, the edge
     set against the port on the CPU and the 2-hop guarantee; then k = 3 on
-    a prefix, against the CPU."""
+    a prefix and on a small stream, against the CPU; then the reference's
+    k = 3 cell at its own size through the hop kernel (``phase_spanner_k3``,
+    with the kernel's checks against its plain version)."""
     src, dst = make_stream(SP_VERTICES, SP_EDGES, seed=SP_SEED)
 
     def one_pass():
@@ -2136,16 +2158,315 @@ def phase_spanner(torch):
 
     cell["profile_k3"] = profile_cell(
         torch, "spanner k=3", k3_pass, SP3_STEPS,
-        k_reach_bytes(k3["windows"]["kept"] // 2, SP3_EDGES // 4))
+        k_reach_bytes(k3["windows"]["kept"] // 2, SP3_EDGES // 4, SP3_VERTICES),
+        foreign=SP3_FOREIGN)
+    cell["k3_eps"] = phase_spanner_k3(torch, smi)
     return cell
 
 
-def k_reach_bytes(s, q):
-    """Bytes of the k >= 3 search and append per window: the spanner
-    columns at the window's start (``s`` edges, taken as half the final
-    spanner) and the ``q`` queries in, the verdicts out; the append reads
-    the columns and the queries and writes the new columns."""
-    return {"spanner.k_reach": 8 * s + 10 * q, "spanner.append": 8 * s + 9 * q + 8 * s}
+def k_reach_bytes(s, q, v):
+    """Bytes of the k >= 3 steps per window: each input read once, each
+    output written once. The CSR build reads the window-start columns
+    (``s`` edges) and writes ``row_ptr`` over ``v`` vertices and the sorted
+    sources and targets; the search reads the columns and the ``q``
+    queries and writes the verdicts; the append reads the columns and the
+    queries and writes the new columns."""
+    return {"spanner.csr": 8 * s + 4 * (v + 1) + 16 * s,
+            "spanner.k_reach": 8 * s + 10 * q, "spanner.append": 8 * s + 9 * q + 8 * s}
+
+
+def k_reach_frontier_bytes(k, s, v, w):
+    """The frontier traffic one search needs, a second figure beside the
+    bytes of ``k_reach_bytes``: each of k hops reads the ``2 s`` entries'
+    source rows of ``w`` int32 words and reads and writes the ``v`` rows."""
+    return k * (2 * s * w * 4 + 2 * v * w * 4)
+
+
+def k_reach_call_bound(s, v, b, k):
+    """(bound ms, bound_by) of one search of ``b`` queries: its inputs read
+    once (``row_ptr`` over ``v`` vertices, the ``2 s`` sorted sources, the
+    queries) and its verdicts written once over the card's memory rate,
+    against its k * 2s * (b / 32) word ORs at the CUDA-core rate."""
+    nbytes = 4 * (v + 1) + 8 * s + 9 * b + b
+    ops = k * 2 * s * (b // 32)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S["float32"]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def k_reach_byte_form(torch, csr, u, v, m, nv, k):
+    """The port's k >= 3 search before the hop kernel, on the same entries:
+    one byte a query in a ``[V + 1, B]`` uint8 frontier (row V the
+    sentinel), each hop ``index_reduce(..., "amax")`` of the gathered
+    ``[2S, B]`` rows. Timed here as the number the kernel replaced; the
+    port no longer has it."""
+    b = u.shape[0]
+    cols = torch.arange(b, device=u.device)
+    src, dst = csr.src.long(), csr.dst.long()
+    frontier = torch.zeros(nv + 1, b, dtype=torch.uint8, device=u.device)
+    frontier.index_put_((torch.where(m, u, nv).long(), cols),
+                        torch.ones(b, dtype=torch.uint8, device=u.device))
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="index_reduce", category=UserWarning)
+        for _ in range(k):
+            frontier = frontier.index_reduce(0, dst, frontier[src], "amax")
+    return (frontier[v.long(), cols] != 0) & m
+
+
+def _kr_inputs(torch, device, seed, b, nv, s, cnt, k):
+    """A seeded spanner of ``s`` columns among vertices ``0 .. V - 2`` (an
+    eighth self-loops, an eighth repeated edges), ``cnt`` of them live, and
+    ``b`` queries on ``device``: half end a random walk of up to k + 1 steps
+    from ``u``, a twentieth are ``u == v``, a fifth are masked."""
+    from gelly_streaming_tpu_torch.ops import reach_kernels as rk
+
+    rng = np.random.default_rng(seed)
+    hi = max(nv - 1, 1)
+    sp = rng.integers(0, hi, s)
+    sq = rng.integers(0, hi, s)
+    e = s // 8
+    sq[:e] = sp[:e]
+    sp[e:2 * e], sq[e:2 * e] = sp[2 * e:3 * e], sq[2 * e:3 * e]
+    a, c = np.concatenate([sp, sq]), np.concatenate([sq, sp])
+    order = np.argsort(a, kind="stable")
+    a, c = a[order], c[order]
+    ptr = np.searchsorted(a, np.arange(nv + 1))
+    u = rng.integers(0, nv, b)
+    x = u.copy()
+    steps = rng.integers(1, k + 2, b)
+    for step in range(k + 1):
+        deg = ptr[x + 1] - ptr[x]
+        pick = np.minimum(ptr[x] + (rng.random(b) * np.maximum(deg, 1)).astype(np.int64),
+                          len(c) - 1)
+        x = np.where((step < steps) & (deg > 0), c[pick], x)
+    v = np.where(rng.random(b) < 0.5, x, rng.integers(0, nv, b))
+    v = np.where(rng.random(b) < 0.05, u, v)
+    m = rng.random(b) >= 0.2
+    t = [torch.from_numpy(np.ascontiguousarray(y)).to(device)
+         for y in (sp.astype(np.int32), sq.astype(np.int32), u.astype(np.int32),
+                   v.astype(np.int32), m)]
+    csr = rk.target_csr(t[0], t[1], torch.tensor(cnt, dtype=torch.int32, device=device), nv)
+    return csr, t[2], t[3], t[4]
+
+
+def _k_reach_equal(torch, rk, label, csr, u, v, m, nv, k, byte_form=False):
+    """One wrapper call on the card, which must launch the hop kernel k
+    times, against the plain version (and the byte form): the answers must
+    be equal. Returns the count of reached queries."""
+    before = rk.LAUNCHES
+    got = rk.k_reach(csr, u, v, m, nv, k)
+    torch.cuda.synchronize()
+    launched = rk.LAUNCHES - before
+    want = rk.k_reach_plain(csr, u, v, m, nv, k)
+    same = bool(torch.equal(got, want)) and launched == k
+    if byte_form:
+        same = same and bool(torch.equal(got, k_reach_byte_form(torch, csr, u, v, m, nv, k)))
+    if not same:
+        diff = int((got != want).sum())
+        raise AssertionError(f"k_reach kernel != plain at {label}: {diff} answers differ, "
+                             f"{launched} launches for k = {k}")
+    return int(got.sum())
+
+
+def phase_k_reach_checks(torch, captured):
+    """(a) The hop kernel against the plain version on the card, exactly:
+    seeded spanners over ragged vertex counts, W = 1, 3 and 32 words, no,
+    some and all columns live, k = 1 to 4; then the captured first batch of
+    windows 1-3 of the k = 3 cell, also against the byte form."""
+    from gelly_streaming_tpu_torch.ops import reach_kernels as rk
+
+    device = captured[0]["args"][1].device  # the main path's card
+    cases = reached = 0
+    for nv in KR_VERTICES:
+        s = KR_EDGES * nv
+        for b in KR_BATCHES:
+            for cnt in (0, s // 2 + 1, s):
+                for k in (1, 2, 3, 4):
+                    args = _kr_inputs(torch, device, cases, b, nv, s, cnt, k)
+                    reached += _k_reach_equal(torch, rk, f"V={nv} B={b} cnt={cnt} k={k}",
+                                              *args, nv, k)
+                    cases += 1
+    say(f"k_reach kernel vs plain: {cases} seeded cases equal ({reached} queries reached)")
+    for w, rec in enumerate(captured, start=1):
+        csr, u, v, m, nv, k = rec["args"]
+        n = _k_reach_equal(torch, rk, f"window {w}'s first batch", csr, u, v, m, nv, k,
+                           byte_form=True)
+        say(f"k_reach kernel vs plain and the byte form, window {w}'s first batch (B = "
+            f"{u.shape[0]}, S = {rec['s']}, V = {nv}, k = {k}): equal, {n} reached")
+    return cases
+
+
+def spanner_check_3hops(src, dst, keys, n, sample, seed):
+    """A seeded sample of ``sample`` of the distinct stream edges not in the
+    spanner: each must have a spanner path of at most 3 hops, through a
+    common neighbour (``S[u] . S[v] > 0``) or a walk of 3
+    (``(S[u] @ S) . S[v] > 0``), by sparse products. Returns (dropped,
+    sampled, bad)."""
+    from scipy.sparse import csr_matrix
+
+    u = np.minimum(src, dst).astype(np.int64)
+    v = np.maximum(src, dst).astype(np.int64)
+    ok = u != v
+    cand = np.unique((u[ok] << 32) | v[ok])
+    dropped = cand[~np.isin(cand, keys)]
+    rng = np.random.default_rng(seed)
+    pick = dropped if len(dropped) <= sample else rng.choice(dropped, sample, replace=False)
+    su, sv = keys >> 32, keys & 0xFFFFFFFF
+    s = csr_matrix((np.ones(2 * len(su), np.int32), (np.concatenate([su, sv]),
+                                                     np.concatenate([sv, su]))), shape=(n, n))
+    rows_u, rows_v = s[pick >> 32], s[pick & 0xFFFFFFFF]
+    two = np.asarray(rows_u.multiply(rows_v).sum(axis=1)).ravel()
+    three = np.asarray((rows_u @ s).multiply(rows_v).sum(axis=1)).ravel()
+    return len(dropped), len(pick), int(np.sum((two == 0) & (three == 0)))
+
+
+def phase_spanner_k3(torch, smi):
+    """(b) The reference's ``spanner_k3_eps`` cell at its own size, through
+    the kernel: the counted main-path run (its host syncs in the window
+    loop counted, each window's first search captured for (a)), (a), the
+    edges/s, the 3-hop check on a sample of the dropped edges, the
+    profile's step table with both bound shares, and the kernel's row of
+    the ``kernels`` line."""
+    from gelly_streaming_tpu_torch.library import spanner as tsp
+    from gelly_streaming_tpu_torch.ops import reach_kernels as rk
+
+    src, dst = make_stream(SP_VERTICES, SP_EDGES, seed=SP_SEED)
+
+    def run():
+        return _spanner_run(src, dst, SPK3_K, SP_WINDOW, SP_VERTICES, expected=SP_EDGES)
+
+    def one_pass():
+        sp, it = run()
+        n = sum(1 for _ in it)
+        sp.sync()
+        return n
+
+    # the main path, counted: the wrapper's launches from 0 and the host
+    # syncs of the window loop, each window's first search's operands kept
+    # (a new CSR starts a window)
+    captured, by_csr = [], {}
+
+    def capture(csr, u, v, m, nv, k):
+        rec = by_csr.get(id(csr))
+        if rec is None:
+            rec = by_csr[id(csr)] = {"args": (csr, u, v, m, nv, k), "batches": 0, "words": 0,
+                                     "q": torch.zeros((), dtype=torch.int64, device=u.device)}
+            captured.append(rec)
+        rec["batches"] += 1
+        rec["words"] += u.shape[0] // 32
+        rec["q"] = rec["q"] + m.sum()
+        return rk.k_reach(csr, u, v, m, nv, k)
+
+    stages, t_stage = {}, time.perf_counter()
+
+    def stage(name):
+        nonlocal t_stage
+        now = time.perf_counter()
+        stages[name] = now - t_stage
+        t_stage = now
+
+    tsp.k_reach = capture
+    try:
+        rk.LAUNCHES = 0
+        sp, it = run()
+        windows, in_loop, after = count_syncs(torch, it)
+        sp.sync()
+        launches = rk.LAUNCHES
+    finally:
+        tsp.k_reach = rk.k_reach
+    batches = sum(r["batches"] for r in captured)
+    for rec in captured:
+        rec["s"] = int(rec["args"][0].row_ptr[-1]) // 2
+        rec["q"] = int(rec["q"])
+    say(f"spanner k=3 (b): {windows} windows, searches a window {[r['batches'] for r in captured]}"
+        f", window-start spanner edges {[r['s'] for r in captured]}, hop launches {launches} "
+        f"(expected {SPK3_K} x {batches})")
+    if launches == 0 or launches != SPK3_K * batches or len(captured) != windows - 1:
+        raise AssertionError("the k = 3 cell did not search windows 1-3 through the hop kernel")
+    kept = _spanner_edges(sp)
+    del sp, it
+    stage("counted_run")
+    cases = phase_k_reach_checks(torch, captured)
+    stage("checks_a")
+    cell = timed_passes(torch, one_pass, SP_EDGES)
+    stage("timed_passes")
+    cell.update(host_syncs_in_loop=in_loop, host_syncs_after_loop=after, kept=int(len(kept)),
+                launches=launches, searches=batches, kernel_cases=cases,
+                window_start_edges=[r["s"] for r in captured])
+    t0 = time.perf_counter()
+    dropped, sampled, bad = spanner_check_3hops(src, dst, kept, SP_VERTICES, SPK3_SAMPLE,
+                                                SPK3_SAMPLE_SEED)
+    cell.update(dropped=dropped, sampled=sampled, sampled_without_3hop_path=bad)
+    stage("check_3hops")
+    say("spanner k=3 (b) cell " + json.dumps(cell))
+    say(f"spanner k=3 (b): {len(kept)} edges kept, {dropped} dropped; of {sampled} sampled, "
+        f"{bad} without a path of at most 3 hops ({time.perf_counter() - t0:.1f} s)")
+    if in_loop != 0 or windows != SP_EDGES // SP_WINDOW:
+        raise AssertionError("the k = 3 spanner read the device in its window loop")
+    if bad:
+        raise AssertionError("the k = 3 device spanner dropped an edge with no 3-hop path")
+
+    # the step table over the cell's first SPK3_PROFILE_WINDOWS windows
+    # (window 0 appends, the rest search): bound per window over them
+    pw = SPK3_PROFILE_WINDOWS
+
+    def profiled_pass():
+        sp_, it_ = _spanner_run(src[:pw * SP_WINDOW], dst[:pw * SP_WINDOW], SPK3_K, SP_WINDOW,
+                                SP_VERTICES, expected=SP_EDGES)
+        n_ = sum(1 for _ in it_)
+        sp_.sync()
+        return n_
+
+    u0 = np.minimum(src[:SP_WINDOW], dst[:SP_WINDOW]).astype(np.int64)
+    v0 = np.maximum(src[:SP_WINDOW], dst[:SP_WINDOW]).astype(np.int64)
+    q0 = len(np.unique((u0 << 32 | v0)[u0 != v0]))
+    per = [k_reach_bytes(r["s"], r["q"], SP_VERTICES) for r in captured[:pw - 1]]
+    nbytes = {name: sum(d[name] for d in per) / pw for name in per[0]}
+    nbytes["spanner.append"] += 9 * q0 / pw
+    prof = profile_cell(torch, f"spanner k=3 (b), windows 0-{pw - 1}", profiled_pass, SP3_STEPS,
+                        nbytes, foreign=SP3_FOREIGN)
+    frontier = sum(k_reach_frontier_bytes(SPK3_K, r["s"], SP_VERTICES, r["words"])
+                   for r in captured[:pw - 1]) / pw
+    step = prof["steps"].get("spanner.k_reach", {})
+    step["frontier_bound_ms"] = frontier / HBM_BYTES_PER_S * 1e3
+    step["frontier_bound_share"] = (step["frontier_bound_ms"] / step["device_ms"]
+                                    if step.get("device_ms") else None)
+    say("spanner k=3 (b) spanner.k_reach a window " + json.dumps(step))
+    cell["profile"] = prof
+    stage("profile")
+
+    # the kernel's row: one search on window 3's first batch, cold L2
+    rec = captured[-1]
+    csr, u, v, m, nv, k = rec["args"]
+    w = u.shape[0] // 32
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=u.device)
+    front = torch.zeros(nv * w, dtype=torch.int32, device=u.device)
+    back = torch.empty_like(front)
+    lead = KR_LEAD_CYCLES
+    row = {
+        "ms": cold_ms(torch, lambda: rk.k_reach(csr, u, v, m, nv, k), flush, lead_cycles=lead),
+        "hop_ms": cold_ms(torch, lambda: rk._launch(csr.row_ptr, csr.src, front, back, nv, w),
+                          flush, lead_cycles=lead),
+        "plain_ms": cold_ms(torch, lambda: rk.k_reach_plain(csr, u, v, m, nv, k), flush,
+                            iters=5, warmup=1, lead_cycles=lead),
+        "byte_form_ms": cold_ms(torch, lambda: k_reach_byte_form(torch, csr, u, v, m, nv, k),
+                                flush, iters=5, warmup=1, lead_cycles=lead),
+    }
+    del flush, front, back
+    row["bound_ms"], row["bound_by"] = k_reach_call_bound(rec["s"], nv, u.shape[0], k)
+    row["frontier_bound_ms"] = (k_reach_frontier_bytes(k, rec["s"], nv, w)
+                                / HBM_BYTES_PER_S * 1e3)
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    row["frontier_bound_share"] = row["frontier_bound_ms"] / row["ms"]
+    row["per"] = (f"one search of window 3's first batch: B = {u.shape[0]}, S = {rec['s']}, "
+                  f"V = {nv}, k = {k}, cold L2; {smi}")
+    say("k_reach time (cold L2, median of each call alone) " + json.dumps(row))
+    if row["bound_share"] > 1.0:
+        raise AssertionError("the search ran faster than its bound: the timing is wrong")
+    cell["kernel_row"] = row
+    stage("timings")
+    say("spanner k=3 (b) seconds by stage " + json.dumps(stages))
+    return cell
+
 
 # --------------------------------------------------------------------- #
 # Slice 5b: the device vertex dictionary, the estimators, iterative CC
@@ -5069,7 +5390,7 @@ def main():
     timed("pagerank", phase_pagerank, torch)
     timed("bipartiteness", phase_bipartiteness, torch)
     timed("exact triangles", phase_exact_triangles, torch)
-    timed("spanner", phase_spanner, torch)
+    spanner_result = timed("spanner", phase_spanner, torch, smi)
     timed("device-encode", phase_device_encode, torch)
     timed("sampling", phase_sampling, torch)
     timed("iterative cc", phase_iterative_cc, torch)
@@ -5102,7 +5423,31 @@ def main():
         "per": f"window: {rows[0]['shape']} + {rows[1]['shape']}, bf16, cold L2",
         "status": "ported",
     }
-    say(json.dumps({"kernels": [kernel]}))
+    k3 = spanner_result["k3_eps"]
+    row = k3["kernel_row"]
+    k_reach = {
+        "name": "k_reach_hop",
+        "route": "cuda",
+        "source": "gelly_streaming_tpu_torch/csrc/k_reach.cu",
+        "replaces": "gelly_streaming_tpu/library/spanner.py:103",
+        "replaces_kind": "an XLA step (_k_reach_cnt), not a Pallas kernel",
+        "launches": k3["launches"],
+        "max_abs_err": 0.0,
+        "ms": row["ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        # no single PyTorch call ORs int32 words by segment
+        "library_ms": None,
+        "byte_form_ms": row["byte_form_ms"],
+        "hop_ms": row["hop_ms"],
+        "bound_share": row["bound_share"],
+        "frontier_bound_ms": row["frontier_bound_ms"],
+        "frontier_bound_share": row["frontier_bound_share"],
+        "per": row["per"],
+        "status": "ported",
+    }
+    say(json.dumps({"kernels": [kernel, k_reach]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -99,6 +99,11 @@ class SummaryAggregation(GroupFoldable, abc.ABC):
     #: the reference's ``device=False``: update/combine on host records
     host_state: bool = False
 
+    #: names of instance attributes whose values change the behavior of
+    #: initial_state/update/combine/transform (hashable values), part of
+    #: :meth:`step_cache_key`
+    config_fields: tuple = ()
+
     def __init__(self, transient_state: bool = False, mesh=None,
                  superbatch=1):
         self.transient_state = transient_state
@@ -112,6 +117,12 @@ class SummaryAggregation(GroupFoldable, abc.ABC):
         self._gf_mesh = None
         self._gf_vdict = None
         self._partial_fns = {}  # (vcap, mesh) -> one-window fold
+
+    def step_cache_key(self):
+        """Hashable identity of the configured window step: the class and
+        the values of its ``config_fields``. Two instances with equal keys
+        fold alike; differently configured ones never share a key."""
+        return (type(self),) + tuple(getattr(self, f) for f in self.config_fields)
 
     # ------------------------------------------------------------------ #
     # State protocol (the updateFun / combineFun / transform slots)
@@ -388,6 +399,9 @@ class SummaryTreeReduce(SummaryAggregation):
     ``degree`` is its fan-in; a degree the edge axis cannot honor (the
     axis size must be a power of it) degrades to 2 with a warning. On one
     device the tree and the flat combine are the same fold."""
+
+    #: the fan-in changes the combine's collective program
+    config_fields: tuple = ("degree",)
 
     def __init__(self, transient_state: bool = False, mesh=None,
                  degree: int = 2, superbatch: int = 1):

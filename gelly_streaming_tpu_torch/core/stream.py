@@ -88,6 +88,51 @@ class GraphStream:
     def get_context(self) -> StreamContext:
         raise NotImplementedError
 
+    def get_edges(self) -> Iterator[Any]:
+        raise NotImplementedError
+
+    def get_vertices(self) -> Iterator[Any]:
+        raise NotImplementedError
+
+    def map_edges(self, fn) -> "GraphStream":
+        raise NotImplementedError
+
+    def filter_edges(self, pred) -> "GraphStream":
+        raise NotImplementedError
+
+    def filter_vertices(self, pred) -> "GraphStream":
+        raise NotImplementedError
+
+    def distinct(self) -> "GraphStream":
+        raise NotImplementedError
+
+    def reverse(self) -> "GraphStream":
+        raise NotImplementedError
+
+    def undirected(self) -> "GraphStream":
+        raise NotImplementedError
+
+    def union(self, other: "GraphStream") -> "GraphStream":
+        raise NotImplementedError
+
+    def get_degrees(self) -> Iterator[Any]:
+        raise NotImplementedError
+
+    def get_in_degrees(self) -> Iterator[Any]:
+        raise NotImplementedError
+
+    def get_out_degrees(self) -> Iterator[Any]:
+        raise NotImplementedError
+
+    def number_of_edges(self) -> Iterator[int]:
+        raise NotImplementedError
+
+    def number_of_vertices(self) -> Iterator[int]:
+        raise NotImplementedError
+
+    def aggregate(self, summary_aggregation) -> Iterator[Any]:
+        raise NotImplementedError
+
 
 class SimpleEdgeStream(GraphStream):
     """The concrete edge-addition stream (``SimpleEdgeStream.java``).

@@ -18,13 +18,15 @@ hops for any windowing, and it equals the host result at window 1.
   "the endpoint rows share a neighbor", so the spanner carries the packed
   sorted adjacency of ``ops/triangles.py`` and each window is a few
   class-bounded common-neighbor passes and one masked merge.
-- ``k >= 3``: a batched breadth-first search. The reference packs 32
-  queries per uint32 word and ORs each target's incoming words with a
-  segmented ``associative_scan`` (there is no scatter-OR). Here a query is
-  one byte of a ``[V, B]`` frontier and the segmented OR over each
-  target's incoming edges is ``index_reduce_(..., "amax")`` of 0/1 bytes;
-  the batch ``B`` is sized to the memory budget. The accepted edges append
-  at device-computed positions.
+- ``k >= 3``: a batched breadth-first search, as in the reference: 32
+  queries share each frontier word (``[B/32, V]`` words), and each hop ORs
+  every target's incoming words. The window-start spanner becomes a CSR by
+  target once a window (:func:`~gelly_streaming_tpu_torch.ops.reach_kernels.target_csr`); every
+  query batch searches it through :func:`~gelly_streaming_tpu_torch.ops.reach_kernels.k_reach`,
+  whose hop is a hand-written kernel on the card and the reference's
+  segmented OR in torch on the CPU. The batch ``B`` is the reference's,
+  sized to the memory budget. The accepted edges append at
+  device-computed positions.
 
 Nothing is read from the device in the window loop: the host keeps exact
 shadows it can compute beside the stream (first-seen candidate keys, and
@@ -36,7 +38,6 @@ tensors).
 
 from __future__ import annotations
 
-import warnings
 from typing import Iterator, Set, Tuple
 
 import numpy as np
@@ -45,6 +46,7 @@ import torch
 from ..aggregate.summary import SummaryBulkAggregation
 from ..core.edgeblock import bucket_capacity, to_device
 from ..obs import trace as _trace
+from ..ops.reach_kernels import k_reach, k_reach_plain, target_csr
 from ..ops.segment import INT_MAX
 from ..ops.triangles import (
     _sort_entries,
@@ -102,26 +104,13 @@ def _k2_accept_merge(pv, pn, pr, qu, qv, qmask, reached):
 
 def _k_reach_cnt(sp, sq, cnt, u, v, m, num_vertices: int, k: int):
     """For each query edge i: is ``v[i]`` within k hops of ``u[i]`` over the
-    first ``cnt`` spanner edges ``(sp, sq)``? A batched BFS over a ``[V + 1,
-    B]`` byte frontier (row V a sentinel for masked queries and dead
-    edges); each hop ORs every target's incoming frontier rows, a segmented
-    OR by ``index_reduce_(0, target, rows, "amax")``."""
-    with _trace.span("spanner.k_reach"):
-        dev = sp.device
-        b = u.shape[0]
-        live = torch.arange(sp.shape[0], device=dev) < cnt
-        src2 = torch.cat([sp, sq]).long()
-        dst2 = torch.where(torch.cat([live, live]), torch.cat([sq, sp]), num_vertices).long()
-        cols = torch.arange(b, device=dev)
-        frontier = torch.zeros(num_vertices + 1, b, dtype=torch.uint8, device=dev)
-        frontier.index_put_((torch.where(m, u, num_vertices).long(), cols),
-                            torch.ones(b, dtype=torch.uint8, device=dev))
-        with warnings.catch_warnings():
-            # index_reduce is marked beta; its amax is what this search needs
-            warnings.filterwarnings("ignore", message="index_reduce", category=UserWarning)
-            for _ in range(k):
-                frontier = frontier.index_reduce(0, dst2, frontier[src2], "amax")
-        return (frontier[v.long(), cols] != 0) & m
+    first ``cnt`` spanner edges ``(sp, sq)``? The reference's function and
+    signature (B a multiple of 32), in plain torch: the entries sorted by
+    target (dead ones to the sentinel V), then
+    :func:`~gelly_streaming_tpu_torch.ops.reach_kernels.k_reach_plain` over a ``[B/32, V]`` int32
+    frontier. The window loop builds the CSR once a window and calls the
+    kernel's wrapper instead."""
+    return k_reach_plain(target_csr(sp, sq, cnt, num_vertices), u, v, m, num_vertices, k)
 
 
 def _gen_append(sp, sq, cnt, qu, qv, keep):
@@ -158,6 +147,7 @@ class Spanner(SummaryBulkAggregation):
     fold under the engine."""
 
     host_state = True
+    config_fields = ("k",)
 
     def __init__(self, k: int, transient_state: bool = False):
         super().__init__(transient_state=transient_state)
@@ -269,8 +259,9 @@ class DeviceSpanner:
     ):
         """``expected_edges`` pre-sizes the carried columns for this many
         spanner edges (fewer growth copies). ``mem_budget_entries`` bounds
-        the k >= 3 search's ``[V, B]`` byte frontier and ``[2S, B]`` edge
-        rows, which sets the query batch ``B`` (at most ``query_chunk``)."""
+        the k >= 3 search's frontier, in bytes: ``[B/32, V]`` int32 words
+        hold 32 queries per 4 bytes a vertex, which sets the query batch
+        ``B`` (at most ``query_chunk``; see :meth:`_batch_cap`)."""
         self.k = k
         self.query_chunk = query_chunk
         self.expected_edges = int(expected_edges)
@@ -294,13 +285,15 @@ class DeviceSpanner:
         self._cnt = None  # device int32 count of the general-k columns
         self._restore = None  # a checkpoint's host columns, rebuilt lazily
 
-    def _batch_cap(self, vcap: int, n_edges: int = 0) -> int:
-        """Queries per k >= 3 batch: the ``[V + 1, B]`` frontier and the
-        ``[2S, B]`` gathered rows (bytes) within the memory budget, at
-        most ``query_chunk``, a multiple of 32."""
-        rows = max(vcap + 1, 2 * n_edges, 1)
-        b = max(32, min(self.query_chunk, self.mem_budget_entries // rows))
-        return (b // 32) * 32
+    def _batch_cap(self, vcap: int) -> int:
+        """Queries per k >= 3 batch, the reference's value: the frontier's
+        ``4 * V`` bytes a word of 32 queries within the memory budget, at
+        most ``query_chunk``, a multiple of 32 rounded down to a power of
+        two."""
+        words = max(1, self.mem_budget_entries // (4 * max(vcap, 1)))
+        b = max(32, min(self.query_chunk, words * 32))
+        b = (b // 32) * 32
+        return bucket_capacity(b) // 2 if bucket_capacity(b) > b else b
 
     def run(self, stream) -> Iterator[SpannerEdges]:
         self._vdict = stream.vertex_dict
@@ -382,9 +375,11 @@ class DeviceSpanner:
     def _window_gen(self, u: np.ndarray, v: np.ndarray, vcap: int) -> None:
         """General k: the frontier search per query batch against the
         window-start spanner (batches cannot reject each other, the same
-        relaxation as k = 2), then the appends. The search reads only the
-        first ``ub0`` columns, the host's bound on the window-start count
-        (past ``cnt`` the reference masks them anyway)."""
+        relaxation as k = 2), then the appends. The window-start spanner's
+        CSR by target is built once and read by every batch; it covers
+        the first ``ub0`` columns, the host's bound on the window-start
+        count (entries past the device ``cnt`` go to the sentinel target).
+        Nothing is read from the device."""
         dev = self._device
         ub0 = self._cnt_ub
         self._cnt_ub += len(u)
@@ -392,9 +387,11 @@ class DeviceSpanner:
         self._sp, self._sq = _grow_cols(
             self._sp, self._sq, max(self._cnt_ub, self.expected_edges), device=dev)
         # an empty window-start spanner reaches nothing: one batch, all kept
-        batch = self._batch_cap(vcap, ub0) if ub0 else len(u)
-        cnt0 = self._cnt
-        sp0, sq0 = self._sp[:ub0], self._sq[:ub0]
+        batch = self._batch_cap(vcap) if ub0 else len(u)
+        csr = None
+        if ub0:
+            with _trace.span("spanner.csr"):
+                csr = target_csr(self._sp[:ub0], self._sq[:ub0], self._cnt, vcap)
         decisions = []
         for a in range(0, len(u), batch):
             b = min(a + batch, len(u))
@@ -405,8 +402,11 @@ class DeviceSpanner:
             uq[: b - a], vq[: b - a] = u[a:b], v[a:b]
             mq[: b - a] = True
             uj, vj, mj = (to_device(x, dev) for x in (uq, vq, mq))
-            reached = (_k_reach_cnt(sp0, sq0, cnt0, uj, vj, mj, vcap, self.k) if ub0
-                       else torch.zeros_like(mj))
+            if csr is None:
+                reached = torch.zeros_like(mj)
+            else:
+                with _trace.span("spanner.k_reach"):
+                    reached = k_reach(csr, uj, vj, mj, vcap, self.k)
             decisions.append((uj, vj, mj, reached))
         for uj, vj, mj, reached in decisions:
             self._sp, self._sq, self._cnt = _gen_append(

@@ -98,6 +98,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     sigs = {
         "write_edge_file": (i64, [ctypes.c_char_p, p64, p64, i64, i32, i32]),
         "cc_baseline_run": (i64, [p64, p64, i64, i64, i32, ctypes.POINTER(i64)]),
+        "flink_proxy_run": (i64, [p64, p64, i64, i64, i32, ctypes.POINTER(i64)]),
         "encoder_create": (vp, []),
         "encoder_destroy": (None, [vp]),
         "encoder_encode": (i64, [vp, p64, i64, pi32a, p64]),
@@ -356,6 +357,32 @@ def cc_baseline(
         partitions = min(8, os.cpu_count() or 1)
     comps = ctypes.c_int64(0)
     ns = lib.cc_baseline_run(
+        src, dst, src.size, window, partitions, ctypes.byref(comps)
+    )
+    return ns / 1e9, int(comps.value)
+
+
+def flink_proxy(
+    src: np.ndarray,
+    dst: np.ndarray,
+    window: int,
+    partitions: Optional[int] = None,
+) -> Tuple[float, int]:
+    """Run the Flink-representative streaming-CC proxy: the reference
+    system's job graph with per-record serialized shuffles and a serialized
+    partial-merge boundary (``ingest.cpp:flink_proxy_run``). An upper bound
+    on single-host Flink throughput for this job (no JVM, network stack or
+    garbage collector), so ratios against it are conservative. Returns
+    ``(seconds, component_count)``; raises without the native library."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError(f"native library unavailable: {BUILD_ERROR}")
+    src = np.ascontiguousarray(src, np.int64)
+    dst = np.ascontiguousarray(dst, np.int64)
+    if partitions is None:
+        partitions = min(8, os.cpu_count() or 1)
+    comps = ctypes.c_int64(0)
+    ns = lib.flink_proxy_run(
         src, dst, src.size, window, partitions, ctypes.byref(comps)
     )
     return ns / 1e9, int(comps.value)

@@ -56,6 +56,32 @@ def _ready_event(payload):
     return None
 
 
+def _payload_ready(payload) -> bool:
+    """True when every value of the payload has finished computing: a CUDA
+    tensor when its device's current stream has no work left (a sound,
+    conservative stand-in for ``jax.Array.is_ready``: the stream may also
+    hold later work), an object with ``is_ready`` when that says so; host
+    arrays and other objects count as ready."""
+    for v in payload.values():
+        if isinstance(v, torch.Tensor):
+            if v.is_cuda and not torch.cuda.current_stream(v.device).query():
+                return False
+            continue
+        ready = getattr(v, "is_ready", None)
+        if ready is not None:
+            try:
+                if not ready():
+                    return False
+            except Exception:
+                # a broken is_ready probe must never break a read (the
+                # value counts as ready), but it is evidence the payload
+                # contract is off, so it stays visible
+                get_registry().counter(
+                    "serving.swallowed", site="payload_ready_probe"
+                ).inc()
+    return True
+
+
 def _snap_ready(snap: "PublishedSnapshot") -> bool:
     """True when the snapshot's device tensors have finished computing
     (a host payload is always ready)."""
@@ -167,6 +193,13 @@ class SnapshotStore:
             if _snap_ready(snap):
                 return snap
         return self._current
+
+    @staticmethod
+    def payload_ready(payload) -> bool:
+        """Whether ``payload``'s values have finished computing (see
+        ``_payload_ready``); ``latest(prefer_ready=True)`` reads the CUDA
+        event recorded at publish instead."""
+        return _payload_ready(payload)
 
     def at_version(
         self, version: int, boot: Optional[str] = None

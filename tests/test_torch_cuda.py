@@ -34,7 +34,12 @@ for bit, and (with two cards or more) both kernels launch on the card of
 their operands whatever the current device is, and slice 3 (training): the
 kernel's gradients on the card equal autograd through its plain version,
 a training step launches "tc" twice (four times with remat), and the
-training entry points raise without a card.
+training entry points raise without a card, and the k >= 3 spanner's hop
+kernel (``csrc/k_reach.cu``): equal to its plain version over a grid of
+batch widths, vertex counts, hops and live counts, launched on its
+operands' card, refusing a malformed CSR before any launch, and the k = 3
+spanner searching in several batches a window on the card equal to the
+CPU without a host sync.
 
 Every test here is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is false. The file imports only torch, numpy
@@ -1231,3 +1236,100 @@ def test_training_entry_points_without_a_card_raise(card):
                          timeout=300, cwd=root,
                          env=dict(os.environ, PYTHONPATH=root, CUDA_VISIBLE_DEVICES=""))
     assert out.returncode == 0 and out.stdout.strip().endswith("raised"), out.stderr[-2000:]
+
+
+# --------------------------------------------------------------------- #
+# The k >= 3 spanner's hop kernel (csrc/k_reach.cu)
+# --------------------------------------------------------------------- #
+def _reach_inputs(seed, b, nv, s, cnt, device):
+    """A seeded spanner of ``s`` columns among vertices ``0 .. V - 2``
+    (self-loops and repeated edges included) with ``cnt`` of them live, and
+    ``b`` queries (a fifth masked, some ``u == v``) on ``device``."""
+    from gelly_streaming_tpu_torch.ops import reach_kernels as rk
+
+    rng = np.random.default_rng(seed)
+    hi = max(nv - 1, 1)
+    sp = rng.integers(0, hi, s).astype(np.int32)
+    sq = rng.integers(0, hi, s).astype(np.int32)
+    sq[: s // 8] = sp[: s // 8]
+    sp[s // 8: s // 4], sq[s // 8: s // 4] = sp[s // 4: 3 * s // 8], sq[s // 4: 3 * s // 8]
+    u = rng.integers(0, nv, b).astype(np.int32)
+    v = np.where(rng.random(b) < 0.1, u, rng.integers(0, nv, b)).astype(np.int32)
+    m = rng.random(b) >= 0.2
+    t = [torch.from_numpy(a).to(device) for a in (sp, sq, u, v, m)]
+    csr = rk.target_csr(t[0], t[1], torch.tensor(cnt, dtype=torch.int32, device=device), nv)
+    return csr, t[2], t[3], t[4]
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+@pytest.mark.parametrize("nv", [1, 7, 90, 4096])
+@pytest.mark.parametrize("b", [32, 96, 1024])
+def test_k_reach_kernel_matches_plain_on_card(card, b, nv, k):
+    """The kernel's answers equal the plain version's exactly, for W = 1, 3
+    and 32 words a vertex, no, some and all columns live; each call
+    launches the hop kernel k times."""
+    from gelly_streaming_tpu_torch.ops import reach_kernels as rk
+
+    s = {1: 6, 7: 12, 90: 120, 4096: 6144}[nv]
+    for cnt in (0, s // 2 + 1, s):
+        csr, u, v, m = _reach_inputs(b + nv + k, b, nv, s, cnt, card)
+        before = rk.LAUNCHES
+        got = rk.k_reach(csr, u, v, m, nv, k)
+        torch.cuda.synchronize(card)
+        assert rk.LAUNCHES == before + k
+        want = rk.k_reach_plain(csr, u, v, m, nv, k)
+        assert got.device == card and torch.equal(got, want), cnt
+
+
+def test_k_reach_kernel_launches_on_the_operands_card(card):
+    """With card 0 current, a search on card 1's operands launches there."""
+    from gelly_streaming_tpu_torch.ops import reach_kernels as rk
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards or more")
+    torch.cuda.set_device(0)
+    for index in (1, 0, 1):
+        dev = torch.device("cuda", index)
+        csr, u, v, m = _reach_inputs(3, 64, 300, 600, 400, dev)
+        got = rk.k_reach(csr, u, v, m, 300, 3)
+        torch.cuda.synchronize(dev)
+        assert got.device == dev
+        host = rk.TargetCSR(*(t.cpu() for t in csr))
+        assert torch.equal(got.cpu(), rk.k_reach_plain(host, u.cpu(), v.cpu(), m.cpu(), 300, 3))
+    assert torch.cuda.current_device() == 0
+
+
+def test_k_reach_malformed_row_ptr_raises_before_a_launch(card):
+    from gelly_streaming_tpu_torch.ops import reach_kernels as rk
+
+    csr, u, v, m = _reach_inputs(4, 32, 50, 80, 80, card)
+    before = rk.LAUNCHES
+    with pytest.raises(ValueError, match="row_ptr"):
+        rk.k_reach(csr._replace(row_ptr=csr.row_ptr[:-1]), u, v, m, 50, 3)
+    with pytest.raises(ValueError, match="row_ptr"):
+        rk.k_reach(csr, u, v, m, 51, 3)
+    assert rk.LAUNCHES == before
+
+
+def test_multi_batch_k3_spanner_on_card_matches_cpu(card):
+    """At a budget of 2^14 bytes over 2^11 vertices (batches of 64) every
+    window searches in several batches through the kernel, without a host
+    sync, and emits the CPU's edge sets."""
+    from gelly_streaming_tpu_torch.library import DeviceSpanner
+    from gelly_streaming_tpu_torch.ops import reach_kernels as rk
+
+    src, dst = _zipf(16, 1 << 11, 1 << 14)
+
+    def run(device, strict=False):
+        stream = gt.SimpleEdgeStream((src, dst), window=gt.CountWindow(1 << 12),
+                                     vertex_dict=IdentityDict(1 << 11), device=device)
+        sp = DeviceSpanner(k=3, mem_budget_entries=1 << 14)
+        assert sp._batch_cap(1 << 11) == 64
+        snaps = _syncs(lambda: list(sp.run(stream))) if strict else list(sp.run(stream))
+        return [set(s) for s in snaps]
+
+    want = run("cpu")
+    run(card)  # warm
+    before = rk.LAUNCHES
+    assert run(card, strict=True) == want and len(want) == 4
+    assert rk.LAUNCHES - before >= 3 * 3 * 2  # windows 1-3, 3 hops, several batches

@@ -238,6 +238,19 @@ def test_cc_baseline_matches_jax():
     assert torch_native.cc_baseline(s, d, 1000)[1] == jax_native.cc_baseline(s, d, 1000)[1]
 
 
+@pytest.mark.parametrize("partitions", [1, 3])
+def test_flink_proxy_matches_jax(partitions):
+    """``native.flink_proxy`` (the reference's ``native/__init__.py:413``):
+    the same component count as the JAX package's and as the baseline on
+    the same edges."""
+    rng = np.random.default_rng(2)
+    s = rng.integers(0, 3000, 6000)
+    d = rng.integers(0, 3000, 6000)
+    seconds, comps = torch_native.flink_proxy(s, d, 1000, partitions)
+    assert comps == jax_native.flink_proxy(s, d, 1000, partitions)[1]
+    assert comps == torch_native.cc_baseline(s, d, 1000, partitions)[1] and seconds >= 0
+
+
 # --------------------------------------------------------------------- #
 # Windows over chunks
 # --------------------------------------------------------------------- #

@@ -374,6 +374,37 @@ def test_staleness_zero_after_stream_end():
         assert ans.watermark == 100  # exact edge watermark (host cache)
 
 
+class _Probe:
+    """A payload value with the ``is_ready`` probe of ``jax.Array``."""
+
+    def __init__(self, ready):
+        self.ready = ready
+
+    def is_ready(self):
+        if self.ready is None:
+            raise RuntimeError("broken probe")
+        return self.ready
+
+
+@pytest.mark.parametrize("probes, want", [
+    ((), True), ((True,), True), ((True, False), False), ((None,), True),
+])
+def test_payload_ready_matches_jax(registry, probes, want):
+    """``SnapshotStore.payload_ready`` (the reference's
+    ``serving/snapshot_store.py:160``): host arrays, CPU tensors and plain
+    objects are ready, a value whose ``is_ready`` says False is not, and a
+    probe that raises counts as ready and is counted as swallowed, in both
+    packages on the same payloads."""
+    payload = {"labels": np.arange(4), "deg": torch.arange(4), "n": 4}
+    payload.update({f"p{i}": _Probe(r) for i, r in enumerate(probes)})
+    jax_payload = {k: (v.numpy() if isinstance(v, torch.Tensor) else v)
+                   for k, v in payload.items()}
+    assert SnapshotStore.payload_ready(payload) is want
+    assert jserving.SnapshotStore.payload_ready(jax_payload) is want
+    swallowed = registry.counter("serving.swallowed", site="payload_ready_probe").value
+    assert swallowed == (None in probes)
+
+
 def test_snapshot_swap_atomicity_under_writer():
     store = SnapshotStore()
     n_pub = 2000

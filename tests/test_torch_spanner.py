@@ -157,7 +157,9 @@ def test_memory_budget_shrinks_query_batches():
             pass
         return sp, out
 
-    sp_small, small = final(1 << 12)
+    # the reference's budget rule: 4 bytes a vertex per word of 32 queries,
+    # so 2^9 bytes over 128 vertices is one word, B = 32
+    sp_small, small = final(1 << 9)
     sp_big, big = final(1 << 28)
     assert sp_small._batch_cap(128) < sp_big._batch_cap(128)
     assert sp_small._batch_cap(128) == 32

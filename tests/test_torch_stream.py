@@ -454,3 +454,71 @@ def test_window_pack_spans_reach_sinks_and_the_torch_profiler(tracing, sample_ed
     assert [e["attrs"]["edges"] for e in packs] == [3, 3, 1]
     names = {e.key for e in prof.key_averages()}
     assert "window.pack" in names
+
+
+def _declared(cls):
+    return sorted(n for n, f in vars(cls).items() if callable(f) and not n.startswith("_"))
+
+
+def test_graph_stream_declares_the_reference_api():
+    """``GraphStream`` declares the 16 methods of the reference's
+    ``core/stream.py:70-116``, each raising ``NotImplementedError`` on the
+    abstract type, and ``SimpleEdgeStream`` overrides every one."""
+    from gelly_streaming_tpu.core.stream import GraphStream as JaxGraphStream
+    from gelly_streaming_tpu_torch.core.stream import GraphStream
+
+    names = _declared(JaxGraphStream)
+    assert _declared(GraphStream) == names and len(names) == 16
+    base = GraphStream()
+    for name in names:
+        method = getattr(base, name)
+        n_args = method.__code__.co_argcount - 1
+        with pytest.raises(NotImplementedError):
+            method(*([None] * n_args))
+        assert getattr(gt.SimpleEdgeStream, name) is not getattr(GraphStream, name), name
+
+
+def test_step_cache_key_matches_jax():
+    """``SummaryAggregation.step_cache_key`` (the reference's
+    ``aggregate/summary.py:154``): the class and its ``config_fields``, so
+    differently configured instances of one class never share a key
+    (``tests/test_pipeline.py:131``, ``tests/test_examples.py:189``)."""
+    from gelly_streaming_tpu.library import ConnectedComponentsTree as JaxCCT
+    from gelly_streaming_tpu.library import Spanner as JaxSpanner
+    from gelly_streaming_tpu_torch.aggregate.summary import SummaryBulkAggregation
+    from gelly_streaming_tpu_torch.library import ConnectedComponentsTree, Spanner
+
+    class Scaled(SummaryBulkAggregation):
+        config_fields = ("factor",)
+
+        def __init__(self, factor):
+            super().__init__()
+            self.factor = factor
+
+        def initial_state(self, vcap):
+            return torch.zeros(vcap, dtype=torch.int32)
+
+        def update(self, state, src, dst, val, mask):
+            return state.index_add(0, src.long(), mask.to(torch.int32) * self.factor)
+
+        def combine(self, a, b):
+            return a + b
+
+        def transform(self, state, vdict):
+            return int(state.sum())
+
+    def run(factor):
+        s = gt.SimpleEdgeStream((np.array([0, 1, 2]), np.array([1, 2, 0])),
+                                window=gt.CountWindow(3), device="cpu")
+        return list(s.aggregate(Scaled(factor)))[-1]
+
+    assert run(1) == 3 and run(5) == 15
+    assert Scaled(1).step_cache_key() != Scaled(5).step_cache_key()
+    assert Scaled(5).step_cache_key() == (Scaled, 5)
+    pairs = [(ConnectedComponentsTree(degree=4), JaxCCT(degree=4)),
+             (ConnectedComponentsTree(), JaxCCT()), (Spanner(k=3), JaxSpanner(k=3))]
+    for port, ref in pairs:
+        key, ref_key = port.step_cache_key(), ref.step_cache_key()
+        assert (key[0].__name__, key[1:]) == (ref_key[0].__name__, ref_key[1:])
+    assert pairs[0][0].step_cache_key() != pairs[1][0].step_cache_key()
+    hash(pairs[2][0].step_cache_key())

@@ -123,18 +123,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    k = 3 on the 2^18-edge prefix and on 2^16 edges over 2^12 vertices in
    4 windows, each equal to the CPU's. Then the reference's own k = 3 cell
    (``bench.py:3754 spanner_k3_eps``: the same stream, windows, dict and
-   ``expected_edges`` with k = 3), its window loop through the hop kernel
-   of ``csrc/k_reach.cu``: the counted run (the kernel's launches from 0,
-   each window's first search captured); (a) the kernel against its plain
-   version, exactly, on seeded spanners (V in {1, 333, 4099}, W in {1, 3,
-   32}, no, some and all columns live, k = 1 to 4) and on the captured
-   first batches of windows 1-3 (also against the byte form the kernel
-   replaced); host syncs in the loop (0); edges/s; every dropped edge of a
+   ``expected_edges`` with k = 3), its window loop through the search
+   kernel of ``csrc/k_reach.cu`` (one launch a search): the counted run
+   (the kernel's launches from 0, one a search; each window's first search
+   captured); (a) the kernel against its plain version and the
+   one-launch-a-hop search, exactly, on seeded spanners (V in {1, 333,
+   4099}, W in {1, 3, 32}, no, some and all columns live, k = 1 to 4) and
+   on the captured first batches of windows 1-3 (also against the byte
+   form); host syncs in the loop (0); edges/s; every dropped edge of a
    seeded sample of 2^14 within 3 spanner hops (sparse products); the
    profile's step table over windows 0-1 with the bytes' bound and the
-   frontier traffic's;
-   and one search of window 3's first batch timed (kernel, one hop, plain
-   version, byte form) with a cold L2.
+   frontier traffic's; and one search of window 3's first batch timed in
+   turns with a cold L2 (the search, also with its bitmap read from device
+   memory, the one-launch-a-hop search and one hop, the plain version, the
+   byte form) beside its bounds: the bytes', the dense frontier's and the
+   active traffic's (from a numpy BFS of the batch).
 13. device-encode — the CC cell with vertex compaction on the card
    (``bench.py:bench_cc_e2e_device`` and ``bench_cc_e2e_device_text``):
    phase 6's binary cache with ``device_encode=True, min_vertex_capacity=
@@ -417,7 +420,7 @@ SP3_EDGES = 1 << 16
 SP3_VERTICES = 1 << 12
 SP_STEPS = ("spanner.k2", "spanner.k2_merge")
 SP3_STEPS = ("spanner.csr", "spanner.k_reach", "spanner.append")
-SP3_FOREIGN = {"spanner.k_reach": "k_reach_hop"}  # the hop kernel, launched through ctypes
+SP3_FOREIGN = {"spanner.k_reach": "k_reach_search"}  # the search kernel, launched through ctypes
 # the reference's own k = 3 cell, bench.py:3754 spanner_k3_eps =
 # bench_spanner(k=3): the k = 2 cell's stream, windows, dict and
 # expected_edges (the SP_* constants above) with DeviceSpanner(k=3)
@@ -428,13 +431,14 @@ SPK3_SAMPLE_SEED = 0
 # a profile of all 4 took 33-40 s of the phase on an H100 host (its
 # "seconds by stage" line), most of it reading the trace
 SPK3_PROFILE_WINDOWS = 2
-# phase (a): the hop kernel against the plain version on seeded spanners
+# phase (a): the search kernel against the plain version on seeded spanners
 KR_VERTICES = (1, 333, 4099)  # ragged: none a multiple of the block
 KR_BATCHES = (32, 96, 1024)  # W = 1, 3 and 32 words a vertex
 KR_EDGES = 3  # spanner columns per vertex
 # the spin before each timed search (about 2 ms of the card's clock): the
-# host takes about 0.5 ms to enqueue a search's some 25 launches, longer
-# than the flush's write, and the card must not wait on it inside the timing
+# host takes about 0.5 ms to enqueue the one-launch-a-hop search's some 25
+# launches (and the plain version's more), longer than the flush's write,
+# and the card must not wait on it inside the timing
 KR_LEAD_CYCLES = 4_000_000
 CC_STEPS = ("cc.window_prep", "cc.window_upload", "cc.chase_and_group", "cc.propagate",
             "cc.commit_roots", "cc.commit", "cc.forest_superbatch", "cc.resolve_flat",
@@ -2086,8 +2090,9 @@ def phase_spanner(torch, smi):
     """``bench.py:bench_spanner``: k = 2 with ``expected_edges``, the edge
     set against the port on the CPU and the 2-hop guarantee; then k = 3 on
     a prefix and on a small stream, against the CPU; then the reference's
-    k = 3 cell at its own size through the hop kernel (``phase_spanner_k3``,
-    with the kernel's checks against its plain version)."""
+    k = 3 cell at its own size through the search kernel
+    (``phase_spanner_k3``, with the kernel's checks against its plain
+    version)."""
     src, dst = make_stream(SP_VERTICES, SP_EDGES, seed=SP_SEED)
 
     def one_pass():
@@ -2193,8 +2198,55 @@ def k_reach_call_bound(s, v, b, k):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def k_reach_active_traffic(csr, u, m, nv, k):
+    """The bytes one search of the search kernel's design must move on these
+    inputs, from a numpy BFS of the batch (a third figure beside
+    ``k_reach_call_bound`` and ``k_reach_frontier_bytes``): the seed's
+    queries and words; per hop ``row_ptr``, the live sources, the two
+    bitmaps read and the two written, the rows of the sources the hop before
+    changed (gathered whole), the non-zero own rows read, and the non-zero
+    words written; the read-out; the clearing of the rows non-zero after
+    the last two hops. Returns the bytes and per hop the rows gathered,
+    read and written."""
+    rp = csr.row_ptr.cpu().numpy().astype(np.int64)
+    live = int(rp[nv])
+    src = csr.src[:live].cpu().numpy().astype(np.int64)
+    dst = np.repeat(np.arange(nv), np.diff(rp))
+    b = u.shape[0]
+    w = b // 32
+    un, mn = u.cpu().numpy(), m.cpu().numpy()
+    front = np.zeros((nv, w), np.uint32)
+    i = np.flatnonzero(mn)
+    np.bitwise_or.at(front, (un[i], i // 32), (np.uint32(1) << (i % 32).astype(np.uint32)))
+    changed = np.zeros(nv, bool)
+    changed[un[mn]] = True
+    nonzero = changed.copy()
+    row, bmap = 4 * w, 4 * ((nv + 127) // 128) * 4
+    nbytes = 9 * b + 4 * len(i)
+    hops = []
+    for _ in range(k):
+        hot = changed[src]
+        acc = np.where(nonzero[:, None], front, np.uint32(0))
+        if hot.any():
+            d = dst[hot]
+            starts = np.flatnonzero(np.r_[True, d[1:] != d[:-1]])
+            acc[d[starts]] |= np.bitwise_or.reduceat(front[src[hot]], starts, axis=0)
+        hop = {"gathered": int(hot.sum()), "own_read": int(nonzero.sum()),
+               "written_words": int(np.count_nonzero(acc))}
+        nbytes += (4 * (nv + 1) + 4 * live + 4 * bmap + row * hop["gathered"]
+                   + row * hop["own_read"] + 4 * hop["written_words"])
+        prev_nonzero = nonzero
+        changed = (acc != front).any(axis=1)
+        nonzero = (acc != 0).any(axis=1)
+        front = acc
+        hops.append(hop)
+    last_two = int(nonzero.sum()) + (int(prev_nonzero.sum()) if k else 0)
+    nbytes += 9 * b + 4 * b + row * last_two + 4 * bmap
+    return {"bytes": nbytes, "hops": hops, "cleared_rows": last_two}
+
+
 def k_reach_byte_form(torch, csr, u, v, m, nv, k):
-    """The port's k >= 3 search before the hop kernel, on the same entries:
+    """The port's k >= 3 search before its kernels, on the same entries:
     one byte a query in a ``[V + 1, B]`` uint8 frontier (row V the
     sentinel), each hop ``index_reduce(..., "amax")`` of the gathered
     ``[2S, B]`` rows. Timed here as the number the kernel replaced; the
@@ -2249,29 +2301,32 @@ def _kr_inputs(torch, device, seed, b, nv, s, cnt, k):
 
 
 def _k_reach_equal(torch, rk, label, csr, u, v, m, nv, k, byte_form=False):
-    """One wrapper call on the card, which must launch the hop kernel k
-    times, against the plain version (and the byte form): the answers must
-    be equal. Returns the count of reached queries."""
+    """One wrapper call on the card, which must launch the search kernel
+    once, against the plain version and the one-launch-a-hop search (and
+    the byte form): the answers must be equal. Returns the count of
+    reached queries."""
     before = rk.LAUNCHES
     got = rk.k_reach(csr, u, v, m, nv, k)
     torch.cuda.synchronize()
     launched = rk.LAUNCHES - before
     want = rk.k_reach_plain(csr, u, v, m, nv, k)
-    same = bool(torch.equal(got, want)) and launched == k
+    same = (bool(torch.equal(got, want)) and launched == 1
+            and bool(torch.equal(got, rk.k_reach_by_hops(csr, u, v, m, nv, k))))
     if byte_form:
         same = same and bool(torch.equal(got, k_reach_byte_form(torch, csr, u, v, m, nv, k)))
     if not same:
         diff = int((got != want).sum())
-        raise AssertionError(f"k_reach kernel != plain at {label}: {diff} answers differ, "
-                             f"{launched} launches for k = {k}")
+        raise AssertionError(f"k_reach kernel != plain or the hop search at {label}: {diff} "
+                             f"answers differ from plain, {launched} launches for k = {k}")
     return int(got.sum())
 
 
 def phase_k_reach_checks(torch, captured):
-    """(a) The hop kernel against the plain version on the card, exactly:
-    seeded spanners over ragged vertex counts, W = 1, 3 and 32 words, no,
-    some and all columns live, k = 1 to 4; then the captured first batch of
-    windows 1-3 of the k = 3 cell, also against the byte form."""
+    """(a) The search kernel against the plain version and the
+    one-launch-a-hop search on the card, exactly: seeded spanners over
+    ragged vertex counts, W = 1, 3 and 32 words, no, some and all columns
+    live, k = 1 to 4; then the captured first batch of windows 1-3 of the
+    k = 3 cell, also against the byte form."""
     from gelly_streaming_tpu_torch.ops import reach_kernels as rk
 
     device = captured[0]["args"][1].device  # the main path's card
@@ -2285,12 +2340,14 @@ def phase_k_reach_checks(torch, captured):
                     reached += _k_reach_equal(torch, rk, f"V={nv} B={b} cnt={cnt} k={k}",
                                               *args, nv, k)
                     cases += 1
-    say(f"k_reach kernel vs plain: {cases} seeded cases equal ({reached} queries reached)")
+    say(f"k_reach kernel vs plain and the hop search: {cases} seeded cases equal ({reached} "
+        f"queries reached)")
     for w, rec in enumerate(captured, start=1):
         csr, u, v, m, nv, k = rec["args"]
         n = _k_reach_equal(torch, rk, f"window {w}'s first batch", csr, u, v, m, nv, k,
                            byte_form=True)
-        say(f"k_reach kernel vs plain and the byte form, window {w}'s first batch (B = "
+        say(f"k_reach kernel vs plain, the hop search and the byte form, window {w}'s first "
+            f"batch (B = "
             f"{u.shape[0]}, S = {rec['s']}, V = {nv}, k = {k}): equal, {n} reached")
     return cases
 
@@ -2378,10 +2435,10 @@ def phase_spanner_k3(torch, smi):
         rec["s"] = int(rec["args"][0].row_ptr[-1]) // 2
         rec["q"] = int(rec["q"])
     say(f"spanner k=3 (b): {windows} windows, searches a window {[r['batches'] for r in captured]}"
-        f", window-start spanner edges {[r['s'] for r in captured]}, hop launches {launches} "
-        f"(expected {SPK3_K} x {batches})")
-    if launches == 0 or launches != SPK3_K * batches or len(captured) != windows - 1:
-        raise AssertionError("the k = 3 cell did not search windows 1-3 through the hop kernel")
+        f", window-start spanner edges {[r['s'] for r in captured]}, search launches {launches} "
+        f"(expected one a search, {batches})")
+    if launches == 0 or launches != batches or len(captured) != windows - 1:
+        raise AssertionError("the k = 3 cell did not search windows 1-3 through the search kernel")
     kept = _spanner_edges(sp)
     del sp, it
     stage("counted_run")
@@ -2427,6 +2484,8 @@ def phase_spanner_k3(torch, smi):
     frontier = sum(k_reach_frontier_bytes(SPK3_K, r["s"], SP_VERTICES, r["words"])
                    for r in captured[:pw - 1]) / pw
     step = prof["steps"].get("spanner.k_reach", {})
+    span = prof["host_spans"].get("spanner.k_reach", {})
+    step["host_ms_a_search"] = span["host_ms"] / span["calls"] if span.get("calls") else None
     step["frontier_bound_ms"] = frontier / HBM_BYTES_PER_S * 1e3
     step["frontier_bound_share"] = (step["frontier_bound_ms"] / step["device_ms"]
                                     if step.get("device_ms") else None)
@@ -2434,29 +2493,51 @@ def phase_spanner_k3(torch, smi):
     cell["profile"] = prof
     stage("profile")
 
-    # the kernel's row: one search on window 3's first batch, cold L2
+    # the kernel's row: one search on window 3's first batch, cold L2, each
+    # form in turns (the search and the hop search twice)
     rec = captured[-1]
     csr, u, v, m, nv, k = rec["args"]
     w = u.shape[0] // 32
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=u.device)
     front = torch.zeros(nv * w, dtype=torch.int32, device=u.device)
     back = torch.empty_like(front)
+    fronts, bitmaps = rk._scratch(u.device, nv, w)
+    out = torch.empty_like(m)
     lead = KR_LEAD_CYCLES
+    search = lambda: rk.k_reach(csr, u, v, m, nv, k)  # noqa: E731
+    by_hops = lambda: rk.k_reach_by_hops(csr, u, v, m, nv, k)  # noqa: E731
+    turns = {"ms": [cold_ms(torch, search, flush, lead_cycles=lead)],
+             "hop_search_ms": [cold_ms(torch, by_hops, flush, lead_cycles=lead)]}
     row = {
-        "ms": cold_ms(torch, lambda: rk.k_reach(csr, u, v, m, nv, k), flush, lead_cycles=lead),
-        "hop_ms": cold_ms(torch, lambda: rk._launch(csr.row_ptr, csr.src, front, back, nv, w),
+        "hop_ms": cold_ms(torch, lambda: rk.launch_hop(csr.row_ptr, csr.src, front, back, nv, w),
                           flush, lead_cycles=lead),
+        "device_bitmap_ms": cold_ms(
+            torch, lambda: rk._launch(csr.row_ptr, csr.src, u, v, m, fronts, bitmaps, out, nv, w,
+                                      k, device_bitmap=True), flush, lead_cycles=lead),
         "plain_ms": cold_ms(torch, lambda: rk.k_reach_plain(csr, u, v, m, nv, k), flush,
                             iters=5, warmup=1, lead_cycles=lead),
         "byte_form_ms": cold_ms(torch, lambda: k_reach_byte_form(torch, csr, u, v, m, nv, k),
                                 flush, iters=5, warmup=1, lead_cycles=lead),
     }
+    turns["hop_search_ms"].append(cold_ms(torch, by_hops, flush, lead_cycles=lead))
+    turns["ms"].append(cold_ms(torch, search, flush, lead_cycles=lead))
+    if not (torch.equal(out, search()) and not fronts.any() and not bitmaps.any()):
+        raise AssertionError("the search with its bitmap in device memory disagrees, or the "
+                             "scratch was left dirty")
     del flush, front, back
+    for name, pair in turns.items():
+        row[name] = sum(pair) / 2
+        row[name + "_turns"] = pair
     row["bound_ms"], row["bound_by"] = k_reach_call_bound(rec["s"], nv, u.shape[0], k)
     row["frontier_bound_ms"] = (k_reach_frontier_bytes(k, rec["s"], nv, w)
                                 / HBM_BYTES_PER_S * 1e3)
+    active = k_reach_active_traffic(csr, u, m, nv, k)
+    row["active"] = active
+    row["active_bound_ms"] = active["bytes"] / HBM_BYTES_PER_S * 1e3
     row["bound_share"] = row["bound_ms"] / row["ms"]
     row["frontier_bound_share"] = row["frontier_bound_ms"] / row["ms"]
+    row["active_bound_share"] = row["active_bound_ms"] / row["ms"]
+    row["hop_search_frontier_share"] = row["frontier_bound_ms"] / row["hop_search_ms"]
     row["per"] = (f"one search of window 3's first batch: B = {u.shape[0]}, S = {rec['s']}, "
                   f"V = {nv}, k = {k}, cold L2; {smi}")
     say("k_reach time (cold L2, median of each call alone) " + json.dumps(row))
@@ -5426,7 +5507,7 @@ def main():
     k3 = spanner_result["k3_eps"]
     row = k3["kernel_row"]
     k_reach = {
-        "name": "k_reach_hop",
+        "name": "k_reach_search",
         "route": "cuda",
         "source": "gelly_streaming_tpu_torch/csrc/k_reach.cu",
         "replaces": "gelly_streaming_tpu/library/spanner.py:103",
@@ -5440,10 +5521,14 @@ def main():
         # no single PyTorch call ORs int32 words by segment
         "library_ms": None,
         "byte_form_ms": row["byte_form_ms"],
+        "hop_search_ms": row["hop_search_ms"],
         "hop_ms": row["hop_ms"],
+        "device_bitmap_ms": row["device_bitmap_ms"],
         "bound_share": row["bound_share"],
         "frontier_bound_ms": row["frontier_bound_ms"],
         "frontier_bound_share": row["frontier_bound_share"],
+        "active_bound_ms": row["active_bound_ms"],
+        "active_bound_share": row["active_bound_share"],
         "per": row["per"],
         "status": "ported",
     }

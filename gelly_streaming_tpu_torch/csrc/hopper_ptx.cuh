@@ -1,7 +1,7 @@
 // PTX helpers for Hopper (sm_90a): shared-memory barriers (mbarrier), TMA
-// tile loads, warpgroup register reallocation, and wgmma with its shared-
-// memory matrix descriptors. Raw inline PTX, so a source that includes this
-// header builds in seconds (no CUTLASS, no PyTorch headers).
+// tile loads and 1-D bulk copies, warpgroup register reallocation, and wgmma
+// with its shared-memory matrix descriptors. Raw inline PTX, so a source that
+// includes this header builds in seconds (no CUTLASS, no PyTorch headers).
 #pragma once
 
 #include <stdint.h>
@@ -73,6 +73,23 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map, uint6
       " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
       : "memory");
+}
+
+// Copies `bytes` (a multiple of 16; both addresses 16-byte aligned) of global
+// memory into shared memory at `dst` with the TMA's 1-D form; completion is
+// counted in bytes on `bar`.
+__device__ __forceinline__ void bulk_load_1d(uint32_t dst, const void* src, uint32_t bytes,
+                                             uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Orders this thread's accesses through the generic proxy (plain loads and
+// stores) against its later ones through the async proxy (TMA), both ways.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async;\n" ::: "memory");
 }
 
 // ---- warpgroup register reallocation ----------------------------------------

@@ -113,6 +113,21 @@ def _k_reach_cnt(sp, sq, cnt, u, v, m, num_vertices: int, k: int):
     return k_reach_plain(target_csr(sp, sq, cnt, num_vertices), u, v, m, num_vertices, k)
 
 
+def _upload_queries(u: np.ndarray, v: np.ndarray, device):
+    """One batch's query operands on ``device`` in one upload: a pinned
+    ``[3, B]`` int32 buffer (B the batch padded to a power of two, at least
+    32) whose rows are ``u``, ``v`` and the mask, the mask as B bools in the
+    first B bytes of its row. Returns the views (u, v int32 [B], m bool
+    [B]); the padding is masked."""
+    n = len(u)
+    qcap = bucket_capacity(n, minimum=32)
+    buf = np.zeros((3, qcap), np.int32)
+    buf[0, :n], buf[1, :n] = u, v
+    buf[2].view(bool)[:n] = True
+    d = to_device(buf, device)
+    return d[0], d[1], d[2].view(torch.bool)[:qcap]
+
+
 def _gen_append(sp, sq, cnt, qu, qv, keep):
     """Append the ACCEPTED queries to the spanner edge columns at positions
     from a prefix sum over ``keep``, into new columns (past-capacity
@@ -395,13 +410,7 @@ class DeviceSpanner:
         decisions = []
         for a in range(0, len(u), batch):
             b = min(a + batch, len(u))
-            qcap = bucket_capacity(b - a, minimum=32)
-            uq = np.zeros(qcap, np.int32)
-            vq = np.zeros(qcap, np.int32)
-            mq = np.zeros(qcap, bool)
-            uq[: b - a], vq[: b - a] = u[a:b], v[a:b]
-            mq[: b - a] = True
-            uj, vj, mj = (to_device(x, dev) for x in (uq, vq, mq))
+            uj, vj, mj = _upload_queries(u[a:b], v[a:b], dev)
             if csr is None:
                 reached = torch.zeros_like(mj)
             else:

@@ -34,12 +34,15 @@ for bit, and (with two cards or more) both kernels launch on the card of
 their operands whatever the current device is, and slice 3 (training): the
 kernel's gradients on the card equal autograd through its plain version,
 a training step launches "tc" twice (four times with remat), and the
-training entry points raise without a card, and the k >= 3 spanner's hop
-kernel (``csrc/k_reach.cu``): equal to its plain version over a grid of
-batch widths, vertex counts, hops and live counts, launched on its
-operands' card, refusing a malformed CSR before any launch, and the k = 3
-spanner searching in several batches a window on the card equal to the
-CPU without a host sync.
+training entry points raise without a card, and the k >= 3 spanner's search
+kernel (``csrc/k_reach.cu``, one launch a search): equal to its plain
+version over a grid of batch widths, vertex counts, hops and live counts,
+and at B = 2048, at V = 2^21 (its bitmap read from device memory), with a
+hub of in-degree 2^16, and over consecutive searches on one scratch, which
+each leaves all zero; equal to the one-launch-a-hop search with no host
+sync; launched on its operands' card, refusing a malformed CSR before any
+launch, and the k = 3 spanner searching in several batches a window on the
+card equal to the CPU without a host sync.
 
 Every test here is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is false. The file imports only torch, numpy
@@ -1239,7 +1242,7 @@ def test_training_entry_points_without_a_card_raise(card):
 
 
 # --------------------------------------------------------------------- #
-# The k >= 3 spanner's hop kernel (csrc/k_reach.cu)
+# The k >= 3 spanner's search kernel (csrc/k_reach.cu)
 # --------------------------------------------------------------------- #
 def _reach_inputs(seed, b, nv, s, cnt, device):
     """A seeded spanner of ``s`` columns among vertices ``0 .. V - 2``
@@ -1267,7 +1270,7 @@ def _reach_inputs(seed, b, nv, s, cnt, device):
 def test_k_reach_kernel_matches_plain_on_card(card, b, nv, k):
     """The kernel's answers equal the plain version's exactly, for W = 1, 3
     and 32 words a vertex, no, some and all columns live; each call
-    launches the hop kernel k times."""
+    launches the search kernel once."""
     from gelly_streaming_tpu_torch.ops import reach_kernels as rk
 
     s = {1: 6, 7: 12, 90: 120, 4096: 6144}[nv]
@@ -1276,7 +1279,7 @@ def test_k_reach_kernel_matches_plain_on_card(card, b, nv, k):
         before = rk.LAUNCHES
         got = rk.k_reach(csr, u, v, m, nv, k)
         torch.cuda.synchronize(card)
-        assert rk.LAUNCHES == before + k
+        assert rk.LAUNCHES == before + 1
         want = rk.k_reach_plain(csr, u, v, m, nv, k)
         assert got.device == card and torch.equal(got, want), cnt
 
@@ -1332,4 +1335,103 @@ def test_multi_batch_k3_spanner_on_card_matches_cpu(card):
     run(card)  # warm
     before = rk.LAUNCHES
     assert run(card, strict=True) == want and len(want) == 4
-    assert rk.LAUNCHES - before >= 3 * 3 * 2  # windows 1-3, 3 hops, several batches
+    assert rk.LAUNCHES - before >= 3 * 2  # windows 1-3, several searches each
+
+
+def _scratch_is_zero(rk, device, nv, b):
+    fronts, bitmaps = rk._scratch(device, nv, b // 32)
+    return not bool(fronts.any()) and not bool(bitmaps.any())
+
+
+def _search_equal(rk, card, csr, u, v, m, nv, k):
+    """One search against the plain version and the one-launch-a-hop
+    search; one launch, and the scratch left all zero."""
+    before = rk.LAUNCHES
+    got = rk.k_reach(csr, u, v, m, nv, k)
+    torch.cuda.synchronize(card)
+    assert rk.LAUNCHES == before + 1
+    assert torch.equal(got, rk.k_reach_plain(csr, u, v, m, nv, k)), (nv, k)
+    assert torch.equal(got, rk.k_reach_by_hops(csr, u, v, m, nv, k)), (nv, k)
+    assert _scratch_is_zero(rk, card, nv, u.shape[0])
+    return got
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+def test_k_reach_kernel_matches_plain_at_2048_queries(card, k):
+    """B = 2048: W = 64 words a vertex, two a lane of the target's warp."""
+    from gelly_streaming_tpu_torch.ops import reach_kernels as rk
+
+    for cnt in (3000, 6144):
+        csr, u, v, m = _reach_inputs(2048 + k, 2048, 4096, 6144, cnt, card)
+        _search_equal(rk, card, csr, u, v, m, 4096, k)
+
+
+def test_k_reach_kernel_reads_the_bitmap_from_device_memory_above_shared_memory(card):
+    """At V = 2^21 the changed bitmap (256 KB) does not fit in a block, so
+    the search reads it from device memory; at V = 2^18 (32 KB) it is
+    staged in shared memory. Both answer as the plain version."""
+    from gelly_streaming_tpu_torch.ops import reach_kernels as rk
+
+    assert rk.search_is_staged(1 << 18, card)
+    assert not rk.search_is_staged(1 << 21, card)
+    lib = rk._library()
+    for nv in (1, 4099, 1 << 18, 1 << 21):
+        assert lib.k_reach_bitmap_words(nv) == rk.bitmap_words(nv)
+    nv = 1 << 21
+    for k in (1, 3):
+        csr, u, v, m = _reach_inputs(21 + k, 256, nv, 1 << 21, 1 << 21, card)
+        _search_equal(rk, card, csr, u, v, m, nv, k)
+
+
+def test_k_reach_kernel_with_a_hub_of_in_degree_65536(card):
+    """One target with 2^16 sources (2,048 loads of 32 for its warp),
+    reached from all of them in one hop."""
+    from gelly_streaming_tpu_torch.ops import reach_kernels as rk
+
+    rng = np.random.default_rng(16)
+    nv, hub = 1 << 17, 0
+    sp = np.concatenate([np.arange(1, 1 + (1 << 16)), rng.integers(1, nv, 1 << 16)])
+    sq = np.concatenate([np.full(1 << 16, hub), rng.integers(1, nv, 1 << 16)])
+    b = 1024
+    u = rng.integers(1, nv, b).astype(np.int32)
+    v = np.where(rng.random(b) < 0.5, hub, rng.integers(0, nv, b)).astype(np.int32)
+    m = rng.random(b) >= 0.2
+    t = [torch.from_numpy(a).to(card) for a in (sp.astype(np.int32), sq.astype(np.int32), u, v, m)]
+    csr = rk.target_csr(t[0], t[1], torch.tensor(len(sp), dtype=torch.int32, device=card), nv)
+    for k in (1, 2, 3):
+        got = _search_equal(rk, card, csr, *t[2:], nv, k).cpu().numpy()
+        assert got[m & (u <= 1 << 16) & (v == hub)].all()
+
+
+def test_k_reach_consecutive_searches_share_one_scratch(card):
+    """Searches over different CSRs, hop counts (k = 0 too) and queries one
+    after another on one scratch, which each leaves all zero; a larger V
+    gets new scratch, and the old V's comes back zeroed."""
+    from gelly_streaming_tpu_torch.ops import reach_kernels as rk
+
+    b = 1024
+    for step, (nv, k) in enumerate([(5000, 3), (5000, 0), (5000, 2), (70000, 3), (5000, 4)]):
+        for cnt in (2000, 4000, 7000):
+            csr, u, v, m = _reach_inputs(100 + step * 7 + cnt, b, nv, 7000, cnt, card)
+            _search_equal(rk, card, csr, u, v, m, nv, k)
+
+
+def test_k_reach_search_equals_the_hop_search_without_a_host_sync(card):
+    """On seeded cases the one-launch search and the one-launch-a-hop
+    search, both enqueued under strict sync mode (a host sync raises),
+    give the same answers, also equal to the plain version."""
+    from gelly_streaming_tpu_torch.ops import reach_kernels as rk
+
+    cases = [(b, nv, k) for b in (32, 96, 1024) for nv in (333, 4099) for k in (1, 3, 4)]
+    inputs = [(_reach_inputs(7 * i, b, nv, 3 * nv, 2 * nv, card), nv, k)
+              for i, (b, nv, k) in enumerate(cases)]
+    torch.cuda.synchronize(card)
+    got = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for (csr, u, v, m), nv, k in inputs:
+            got.append((rk.k_reach(csr, u, v, m, nv, k), rk.k_reach_by_hops(csr, u, v, m, nv, k)))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for ((csr, u, v, m), nv, k), (new, old) in zip(inputs, got):
+        assert torch.equal(new, old) and torch.equal(new, rk.k_reach_plain(csr, u, v, m, nv, k))

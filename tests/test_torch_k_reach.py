@@ -10,7 +10,12 @@ incoming edges. Also: ``DeviceSpanner._batch_cap`` equals the reference's
 (``:366-374``) over a grid of its inputs; a path graph pins the synchronous
 hop; the k = 3 and k = 4 device spanners with a budget small enough for
 several batches a window equal the JAX package's emissions window by
-window; and the CSR by target and the wrapper's operand checks.
+window; the card path with its one launch replaced by a numpy model of the
+whole search (seed, bitmaps of changed and non-zero rows, gathers from
+changed sources only, read-out, clearing) equals the plain version over
+two searches on one scratch, which it leaves zero, and equals the JAX
+package on a target of in-degree 5,000, a path and a cycle at k = 0..5
+and self-loops; and the CSR by target and the wrapper's operand checks.
 """
 
 import jax.numpy as jnp
@@ -157,38 +162,164 @@ def test_multi_batch_device_spanner_matches_jax(k, monkeypatch):
     assert len(calls) > 3 * 2 and len(set(calls)) <= 3
 
 
-def _hop_on_the_cpu(row_ptr, src, front, back, nv, w):
-    """What one launch of ``csrc/k_reach.cu`` computes, in numpy: row t of
-    ``back`` is row t of ``front`` ORed with the rows of t's sources."""
-    f = front.view(nv, w).numpy()
-    out = f.copy()
+def _bits(words, n):
+    """The first ``n`` bits of an int32 bitmap as a bool array."""
+    return np.unpackbits(words.view(np.uint8), bitorder="little")[:n].astype(bool)
+
+
+def _pack(rows, nwords):
+    """A bool array as the words of an int32 bitmap of ``nwords`` words."""
+    out = np.zeros(nwords * 32, np.uint8)
+    out[:len(rows)] = rows
+    return np.packbits(out, bitorder="little").view(np.int32)
+
+
+def _search_on_the_cpu(row_ptr, src, u, v, m, fronts, bitmaps, out, nv, w, k):
+    """What one launch of ``csrc/k_reach.cu``'s search kernel computes, in
+    numpy and in place on the scratch: the seed (bits added, the seeded
+    vertices set in changed and non-zero slot 0), k hops between the two
+    frontiers that gather only the sources set in the last changed bitmap,
+    read a target's own row only where its non-zero bit is set, write only
+    non-zero words and OR their bits into slot ``h % 3`` (zeroed by the hop
+    before, which clears slot ``(h + 1) % 3``), then the read-out and the
+    clearing of the rows set in the last two non-zero bitmaps and of all
+    six bitmaps."""
+    f = fronts.numpy().reshape(2, nv, w)
+    bits = bitmaps.numpy()
+    changed, nonzero = bits[0:3], bits[3:6]
+    nwords = bits.shape[1]
+    un, vn, mn = u.numpy(), v.numpy(), m.numpy()
     rp, sr = row_ptr.numpy(), src.numpy()
-    for t in range(nv):
-        if rp[t + 1] > rp[t]:
-            out[t] |= np.bitwise_or.reduce(f[sr[rp[t]:rp[t + 1]]], axis=0)
-    back.copy_(torch.from_numpy(out).view(-1))
+    dst = np.repeat(np.arange(nv), np.diff(rp[:nv + 1]))
+    srcs = sr[:rp[nv]]
+    for i in np.flatnonzero(mn):
+        f[0, un[i], i // 32] += np.uint32(1 << (i % 32)).view(np.int32)
+    seeded = np.zeros(nv, bool)
+    seeded[un[mn]] = True
+    changed[0] |= _pack(seeded, nwords)
+    nonzero[0] |= _pack(seeded, nwords)
+    for h in range(1, k + 1):
+        prev, nxt = f[(h - 1) & 1], f[h & 1]
+        own = np.where(_bits(nonzero[(h - 1) % 3], nv)[:, None], prev, 0)
+        acc = own.copy()
+        hot = _bits(changed[(h - 1) % 3], nv)[srcs]
+        np.bitwise_or.at(acc, dst[hot], prev[srcs[hot]])
+        changed[(h + 1) % 3] = 0
+        nonzero[(h + 1) % 3] = 0
+        write = acc != 0
+        nxt[write] = acc[write]
+        changed[h % 3] |= _pack((acc != own).any(axis=1), nwords)
+        nonzero[h % 3] |= _pack(write.any(axis=1), nwords)
+    fin, other = f[k & 1], f[(k + 1) & 1]
+    i = np.arange(len(un))
+    word = fin[vn, i // 32].view(np.uint32)
+    out.copy_(torch.from_numpy(mn & (((word >> (i % 32).astype(np.uint32)) & 1) != 0)))
+    fin[_bits(nonzero[k % 3], nv)] = 0
+    if k:
+        other[_bits(nonzero[(k - 1) % 3], nv)] = 0
+    bits[:] = 0
     rk.LAUNCHES += 1
+
+
+def _layout_search(monkeypatch, csr, u, v, m, nv, k):
+    """One search through the card path with its launch modelled on the
+    CPU: asserts one launch, and the scratch all zero afterwards."""
+    monkeypatch.setattr(rk, "_launch", _search_on_the_cpu)
+    before = rk.LAUNCHES
+    got = rk._k_reach_search(csr, u, v, m, nv, k)
+    assert rk.LAUNCHES == before + 1
+    fronts, bitmaps = rk._scratch(u.device, nv, u.shape[0] // 32)
+    assert not fronts.any() and not bitmaps.any()
+    return got
 
 
 @pytest.mark.parametrize("k", [0, 1, 3])
 @pytest.mark.parametrize("nv", [1, 7, 90])
 @pytest.mark.parametrize("b", [32, 96, 1024])
 def test_card_path_layout_matches_plain(b, nv, k, monkeypatch):
-    """The card path around the kernel (the vertex-major ``[V, W]`` seed,
-    the ping-pong of k hops, the read-out) with each launch replaced by the
-    kernel's hop computed on the CPU equals the plain version; k launches
-    a search."""
-    monkeypatch.setattr(rk, "_launch", _hop_on_the_cpu)
+    """The card path around the kernel (the scratch, the vertex-major
+    ``[V, W]`` frontiers and the bitmaps of changed and non-zero rows) with
+    its launch replaced by the kernel's search computed on the CPU equals
+    the plain version; one launch a search, and two searches with
+    different queries on one scratch, which each leaves all zero."""
     rng = np.random.default_rng(b + nv + k)
     s = EDGES_OF[nv]
     sp, sq = _spanner(rng, nv, s)
-    u, v, m = _queries(rng, b, nv, sp, sq, k)
-    tsp_, tsq, tu, tv, tm = _torch(sp, sq, u, v, m)
+    tsp_, tsq = _torch(sp, sq)
     csr = rk.target_csr(tsp_, tsq, torch.tensor(s - 1, dtype=torch.int32), nv)
-    before = rk.LAUNCHES
-    got = rk._k_reach_hops(csr, tu, tv, tm, nv, k)
-    assert rk.LAUNCHES == before + k
-    assert torch.equal(got, rk.k_reach_plain(csr, tu, tv, tm, nv, k))
+    for _ in range(2):
+        tu, tv, tm = _torch(*_queries(rng, b, nv, sp, sq, k))
+        got = _layout_search(monkeypatch, csr, tu, tv, tm, nv, k)
+        assert torch.equal(got, rk.k_reach_plain(csr, tu, tv, tm, nv, k))
+
+
+def _all_paths(monkeypatch, sp, sq, cnt, u, v, m, nv, k):
+    """The JAX package's answers, asserted equal to the port's plain
+    version and to its card path with the launch modelled on the CPU."""
+    want, got = _both(sp, sq, cnt, u, v, m, nv, k)
+    np.testing.assert_array_equal(got.numpy(), want)
+    tsp_, tsq, tu, tv, tm = _torch(sp, sq, u, v, m)
+    csr = rk.target_csr(tsp_, tsq, torch.tensor(cnt, dtype=torch.int32), nv)
+    np.testing.assert_array_equal(_layout_search(monkeypatch, csr, tu, tv, tm, nv, k).numpy(),
+                                  want)
+    return want
+
+
+def test_card_path_hub_of_in_degree_5000_matches_jax(monkeypatch):
+    """A target with 5,000 sources (more than a warp's load of 32 a hop
+    takes, many times over), reached from each of them and from
+    vertices two hops out."""
+    rng = np.random.default_rng(77)
+    nv, hub = 6000, 0
+    sp = np.arange(1, 5001, dtype=np.int32)
+    sq = np.full(5000, hub, np.int32)
+    tail = rng.integers(5001, nv, 500).astype(np.int32)
+    sp, sq = np.concatenate([sp, tail]), np.concatenate([sq, sp[tail % 5000]])
+    b = 64
+    u = rng.integers(0, nv, b).astype(np.int32)
+    v = np.full(b, hub, np.int32)
+    v[::2] = rng.integers(0, nv, b // 2)
+    m = rng.random(b) >= 0.1
+    for k in (1, 2, 3):
+        want = _all_paths(monkeypatch, sp, sq, len(sp), u, v, m, nv, k)
+        assert want[m & (u >= 1) & (u <= 5000) & (v == hub)].all()
+
+
+@pytest.mark.parametrize("shape", ["path", "cycle"])
+def test_card_path_path_and_cycle_match_jax_at_k_0_to_5(shape, monkeypatch):
+    """On a path 0-1-...-11 and a 12-cycle every pair at each k = 0..5:
+    reached exactly when the distance is at most k."""
+    nv = 12
+    sp = np.arange(nv - 1 if shape == "path" else nv, dtype=np.int32)
+    sq = ((sp + 1) % nv).astype(np.int32)
+    pairs = [(a, c) for a in range(nv) for c in range(nv)][:128]
+    u = np.array([a for a, _ in pairs], np.int32)
+    v = np.array([c for _, c in pairs], np.int32)
+    m = np.ones(len(pairs), bool)
+    m[5::17] = False
+    dist = np.abs(u - v) if shape == "path" else np.minimum(np.abs(u - v), nv - np.abs(u - v))
+    for k in range(6):
+        want = _all_paths(monkeypatch, sp, sq, len(sp), u, v, m, nv, k)
+        np.testing.assert_array_equal(want, m & (dist <= k))
+
+
+def test_card_path_self_loops_match_jax(monkeypatch):
+    """A spanner of self-loops and a few edges: a self-loop carries a query
+    nowhere, so each reaches only ``u`` and its true neighbours."""
+    rng = np.random.default_rng(3)
+    nv = 40
+    loops = np.arange(0, nv, 2, dtype=np.int32)
+    sp = np.concatenate([loops, np.array([1, 3, 5], np.int32)])
+    sq = np.concatenate([loops, np.array([3, 5, 7], np.int32)])
+    u = rng.integers(0, nv, 96).astype(np.int32)
+    v = np.where(rng.random(96) < 0.5, u, rng.integers(0, nv, 96)).astype(np.int32)
+    v[:4] = [3, 5, 7, 7]
+    u[:4] = [1, 1, 1, 5]
+    m = rng.random(96) >= 0.2
+    m[:4] = True
+    for k in (1, 2, 3):
+        want = _all_paths(monkeypatch, sp, sq, len(sp), u, v, m, nv, k)
+        assert want[:4].tolist() == [True, k >= 2, k >= 3, True]
 
 
 def test_target_csr_rows_hold_the_live_entries():

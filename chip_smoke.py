@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (gelly_streaming_tpu_torch) on one
 NVIDIA card: build every kernel, hold each against its plain PyTorch
-version, drive streaming GraphSAGE, streaming Connected Components, the
-degree stream, window triangles, the neighborhood aggregations,
+version, drive streaming GraphSAGE, streaming Connected Components (also
+at the north-star shape, 2^27 edges, in one window), the degree stream,
+window triangles, the neighborhood aggregations,
 incremental PageRank, bipartiteness, exact triangles, the device
 spanner, the device vertex dictionary, the sampling triangle estimators
 and iterative CC end to end, kill and resume the headline cell under the
@@ -62,6 +63,30 @@ Phases, in order; any failure raises and the script exits non-zero:
    Then one profiled pass: the top operations by device time, the busy
    share, the peak device memory, and the device time and launches of each
    CC step (``cc.*`` spans as ``record_function`` ranges).
+   northstar — the north-star shape, ``bench.py:2566 run_northstar``
+   step for step on the card (unnumbered, so the later phases keep their
+   numbers): the ``livejournal-xl`` surrogate (R-MAT scale 23, 2^27 edges,
+   ids below 2^23), its columns made here from the seeds the port's
+   ``synthesize`` uses and written as its binary cache by
+   ``datasets.write_binary`` (the timed passes read only that file); scipy's
+   labels once; the compiled baseline and the Flink proxy
+   (``native.cc_baseline``, ``native.flink_proxy``) once each on the file's
+   columns, their component count equal to scipy's. Then three passes, each
+   a warm pass and the median of 3 (of 2 for the identity pass), ``sync()``
+   timed: ``window_1m`` (``CountWindow(1 << 20)``, ``device_encode=True,
+   min_vertex_capacity=
+   1 << 23``, ``prefetch_depth=2``: 128 windows), ``window_1m_identity``
+   (the same with ``IdentityDict(1 << 23)``: carry "forest") and
+   ``window_100m`` (``CountWindow(max(2^27, 100_000_000))``, device
+   encoded: exactly 1 window): edges/s, p50/p95, host reads a window, the
+   carry, each pass's peak device memory and the process's peak host
+   memory after it, ``vs_baseline`` and ``vs_flink`` beside the card and
+   the host CPU; after each, the last
+   emission's labels equal to scipy's on the seen ids (0 mismatches) and
+   its component count equal to the baseline's. Then the one-window pass
+   profiled (no prefetch): host spans, busy share, top operations and the
+   device steps against ``dict_encode_bytes``. The phase frees its columns,
+   its oracle and the file before phase 6.
 6. degrees — BASELINE config #1, ``bench.py:bench_degrees_e2e``: phase 5's
    corpus through its binary cache (``datasets.binary_cache``, as
    ``bench.py`` builds it) into ``datasets.stream_file`` with
@@ -102,8 +127,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    The final ranks must be within 1e-5 of a float64 scipy run of the
    reference's procedure and every window's iterations within 2 of its;
    ``superbatch=4`` within 1e-6 of ``superbatch=1``. Then a scale pass on
-   phase 6's binary cache (16 windows of 2^20 over 2^21 ids) against the
-   same oracle.
+   the first 8 windows of phase 6's binary cache (2^20 edges each over
+   2^21 ids, written to a binary file of their own) against the same
+   oracle.
 10. bipartiteness — ``bench.py:bench_bipartiteness_e2e``: the binary cache
    through ``stream_file`` into ``BipartitenessCheck()`` (carry "auto" must
    pick "forest"), timed like phase 9; the verdicts after window 0 and the
@@ -195,8 +221,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    cadence ``every="auto"`` settles on.
 17. autok  — ``superbatch="auto"`` (the ``AutoK`` controller) on the card,
    CC with the forest carry, ``sync()`` timed: (a) the cliff cell of
-   ``bench.py:764 bench_autotune_pair``, phase 5's corpus prefix of 2^23
-   edges (its binary cache) in ``CountWindow(1024)`` over
+   ``bench.py:764 bench_autotune_pair``, phase 5's corpus prefix of 2^21
+   edges (its binary cache; 2^23 until phase northstar joined) in
+   ``CountWindow(1024)`` over
    ``IdentityDict(1 << 21)``: the hand K of ``auto_superbatch_k`` (256)
    and auto (from K = 1) alternate, a warm pass each and 2 pairs; edges/s
    of each and their ratio, the controller's ``k_path``, its retunes and
@@ -213,8 +240,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    1e-6 of the per-window run's; and a kill at
    ``pipeline.item`` 12 under ``superbatch="auto"`` through
    ``AutoCheckpoint(every=4)`` must resume to the uninterrupted labels.
-18. eventtime — ``bench.py:2089 bench_eventtime`` at full size: 96 panes of
-   8192 edges over a drifting key span of 2^15, a window of 8 panes: the
+18. eventtime — ``bench.py:2089 bench_eventtime`` at half its length: 48
+   panes of 8192 edges (96 until phase northstar joined) over a drifting key
+   span of 2^15, a window of 8 panes: the
    sliding aggregator's edges/s (one warm pass, the median of 2), a pass
    with ``verify=True`` (every window against the from-scratch oracles),
    and every expiry's retraction against a rebuild of the three summaries
@@ -227,8 +255,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    that path and of the aggregator alone.
    Phases 17 and 18 print their ``fused_sage_matmul`` launches (0: their
    paths have no hand-written kernel).
-19. ingest — slice 7b on the card. (a) ``bench.py:1895 bench_ingest`` at its
-   full size: 2^22 R-MAT edges (scale 20, seed 7) served by the port's
+19. ingest — slice 7b on the card. (a) ``bench.py:1895 bench_ingest`` at a
+   quarter of its size: 2^20 R-MAT edges (scale 20, seed 7; 2^22 until phase
+   northstar joined) served by the port's
    ``python -m gelly_streaming_tpu_torch.core.ingest --serve`` peer
    subprocesses (started together, no card visible to them), per-shard
    windows of 2^14, ``superbatches(8)``, frames of 8192 edges, 8 queued
@@ -237,7 +266,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    (``ShardedEdgeSource``): edges/s as the median of 3 passes with the
    reference's endpoint (groups assembled and encoded), each pass's
    ``source.backpressure_s`` and malformed frames and lines (0), and every
-   pass must consume exactly 2^22 edges. (b) The ``c4_binary`` and
+   pass must consume exactly 2^20 edges. (b) The ``c4_binary`` and
    ``c1_text`` streams into ``ConnectedComponents(superbatch=8)`` on the
    card, ``sync()`` timed, a warm pass and the median of 3: edges/s, the
    emission interval's p50 (and a group's), host reads a window, the carry
@@ -289,8 +318,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 21. routing — slice 9b on the card; every shard replica holds its tables
    on the card (``device="cuda"``), no router touches it. (a)
    ``example/sharded_ingest_serving.run`` at phase 19's per-shard window
-   and edge count over the headline's id bound (2 shards, windows of 2^14,
-   2^22 edges over 2^21 vertices, seed 23): edges/s and the final answers,
+   over the headline's id bound (2 shards, windows of 2^14, 2^22 edges over
+   2^21 vertices, seed 23): edges/s and the final answers,
    which must equal scipy's components of the regenerated edges. (b)
    ``resilience/chaos.py:run_sharded_scenario`` (c1 direct, c2 cache off
    and on with the oracle, the joined trace and the shard kill, c3 delta
@@ -384,6 +413,15 @@ CC_ID_BOUND = 1 << 21
 CC_PREFIX_WINDOWS = 4
 CC_STEADY_PASSES = 3
 
+# the north-star shape (bench.py:2566 run_northstar): the scale-23 surrogate
+NS_CORPUS = "livejournal-xl"
+NS_WINDOW = 1 << 20
+NS_BIG_WINDOW = 100_000_000  # the one-window pass takes max(edges, this)
+NS_ID_BOUND = 1 << 23
+NS_PASSES = 3  # after a warm pass; the median is the cell
+NS_IDENTITY_PASSES = 2  # the host-bound identity pass: the median of 2, cut for time
+NS_DEVICE = "cuda"
+
 # BASELINE config #4 (bench.py: bench_pagerank): 4 windows of 2^18
 PR_VERTICES = 1 << 18
 PR_EDGES = 1 << 20
@@ -391,6 +429,7 @@ PR_WINDOW = 1 << 18
 PR_SEED = 11
 PR_TOL = 1e-6
 PR_MAX_ITER = 50
+PR_SCALE_WINDOWS = 8  # the scale pass's windows of 2^20; 16 until phase northstar joined
 # final ranks against the float64 oracle (tests/test_pagerank_sage.py:47),
 # iterations within 2 of it (the L1 change at tol 1e-6 is near the
 # float32 noise floor), superbatch 4 against 1 (float atomics)
@@ -500,7 +539,7 @@ ICC_STEPS = ("icc.incremental", "icc.diff", "dict.encode", "engine.dispatch", "c
 # phase 17 (bench.py:764 bench_autotune_pair, :846 bench_autotune_shift,
 # :908 bench_autotune_pagerank_hold): the corpus prefix at the cliff window
 AK_WINDOW = 1024
-AK_EDGES = 1 << 23
+AK_EDGES = 1 << 21  # 1 << 23 until phase northstar joined (PERF.md section 4)
 AK_HAND_K = 256  # bench.py:auto_superbatch_k(1024), BENCH_AUTOTUNE_CPU.json
 AK_PAIRS = 2  # 3 until phase 19 joined the script (PERF.md section 4)
 AK_SHIFT_EDGES = 1 << 22
@@ -512,8 +551,8 @@ AK_PR_FOLD = 1 << 14
 AK_KILL_ITEM = 12  # the group ordinal of the kill at pipeline.item
 AK_KILL_EVERY = 4  # a barrier lands by group 4, before the kill
 
-# phase 18 (bench.py:2089 bench_eventtime at full size)
-ET_PANES = 96
+# phase 18 (bench.py:2089 bench_eventtime at half its length)
+ET_PANES = 48  # the reference's 96 until phase northstar joined (PERF.md section 4)
 ET_PER_PANE = 1 << 13
 ET_VSPAN = 1 << 15
 ET_WINDOW_PANES = 8
@@ -541,7 +580,7 @@ DUR_DD_KILL_AFTER = 5
 # phase 19: sharded ingest (bench.py:1895 bench_ingest at its full size),
 # the slice's CC path on the card, event time over sharded sockets, the
 # multi-process kill sweep and the fabric legs of bench.py:run_transport_bench
-IG_EDGES = 1 << 22
+IG_EDGES = 1 << 20  # 1 << 22 until phase northstar joined (PERF.md section 4)
 IG_SCALE = 20
 IG_SEED = 7
 IG_WINDOW = 1 << 14  # per shard
@@ -572,9 +611,9 @@ SV_PACE_S = 0.01
 SV_MAX_PENDING = 1 << 15
 SV_PAIRS = 2  # plain/served pairs after a warm pass of each (the reference's 3 cut)
 # (a) at the defaults serves 0.1-0.8 s, 5-7 batches: its overhead and p99
-# weigh the server's start. The steady run is the same bench over 32x the
-# windows (2^26 edges), long enough to hold hundreds of batches
-SV_STEADY_WINDOWS = 256
+# weigh the server's start. The steady run is the same bench over 16x the
+# windows (2^25 edges), long enough to hold about a hundred batches
+SV_STEADY_WINDOWS = 128  # 256 until phase northstar joined (PERF.md section 4)
 SV_SHORT_WINDOWS = 4  # (b) the degree, rank and bipartiteness servables' windows
 SV_DEVICE = "cuda"  # where the served tables live (and both replicas' in (c))
 SV_STEP_REPS = 20  # calls of each query step between two CUDA events
@@ -594,7 +633,8 @@ RT_EX_VERTICES = 1 << 21  # the headline's id bound
 RT_SH_VERTICES = 1 << 21  # halved with RT_SH_EDGES until c3's full pull fits a frame
 RT_SH_EDGES = 1 << 22
 RT_SH_WINDOW = 1 << 17
-RT_SH_MEASURE_S = 2.0  # each load cell; SHARDED_DEFAULTS' 4.0 until phase 23 joined
+RT_SH_MEASURE_S = 0.5  # each load cell; SHARDED_DEFAULTS' 4.0 until phase 23 joined, 2.0
+# until phase northstar joined
 RT_STORM = dict(n_vertices=1 << 11, n_edges=1 << 12, phase_s=1.2, clients=2,
                 oracle_checks=64)  # bench.py:3259-3262, --storm --smoke
 RT_DEVICE = "cuda"  # where every shard replica's tables live
@@ -1003,26 +1043,40 @@ def profile_pass(torch, one_pass, wall, prof=None):
     return total_us / 1e6 / wall
 
 
-@functools.lru_cache(maxsize=1)
-def rmat_oracle_edges(n_edges, scale, chunk=1 << 22, a=0.57, b=0.19, c=0.19, seed=0):
+def _rmat_chunk(start, n, scale, a, b, c, seed):
+    """One chunk of :func:`rmat_columns`: ``n`` edges from the seed
+    ``seed + start``, one pass of draws per address bit."""
+    rng = np.random.default_rng(seed + start)
+    src = np.zeros(n, np.int64)
+    dst = np.zeros(n, np.int64)
+    for _ in range(scale):
+        r = rng.random(n)
+        src = (src << 1) | (r >= a + b)
+        dst = (dst << 1) | ((r >= a) & (r < a + b) | (r >= a + b + c))
+    return src, dst
+
+
+def rmat_columns(n_edges, scale, chunk=1 << 22, a=0.57, b=0.19, c=0.19, seed=0):
     """The surrogate's edge columns regenerated from the seeds the corpus
     writer uses (chunk ``start`` takes seed ``seed + start``), by an R-MAT
-    written out here: the oracle needs neither the port nor the file. Kept
-    for phase 6, which checks the same edges; callers only read them. One
-    chunk with ``seed`` is the serve peer's stream (phase 19)."""
-    srcs, dsts = [], []
-    for start in range(0, n_edges, chunk):
-        n = min(chunk, n_edges - start)
-        rng = np.random.default_rng(seed + start)
-        src = np.zeros(n, np.int64)
-        dst = np.zeros(n, np.int64)
-        for _ in range(scale):
-            r = rng.random(n)
-            src = (src << 1) | (r >= a + b)
-            dst = (dst << 1) | ((r >= a) & (r < a + b) | (r >= a + b + c))
-        srcs.append(src)
-        dsts.append(dst)
-    return np.concatenate(srcs), np.concatenate(dsts)
+    written out here: the oracle needs neither the port nor the file. The
+    chunks are made on a pool of threads (numpy's generator and its array
+    operations release the interpreter lock) and joined in their order.
+    One chunk with ``seed`` is the serve peer's stream (phase 19)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    starts = range(0, n_edges, chunk)
+    with ThreadPoolExecutor(max(1, min(len(starts), os.cpu_count() or 1))) as pool:
+        parts = list(pool.map(
+            lambda s: _rmat_chunk(s, min(chunk, n_edges - s), scale, a, b, c, seed), starts))
+    return np.concatenate([p[0] for p in parts]), np.concatenate([p[1] for p in parts])
+
+
+@functools.lru_cache(maxsize=1)
+def rmat_oracle_edges(n_edges, scale, chunk=1 << 22, a=0.57, b=0.19, c=0.19, seed=0):
+    """:func:`rmat_columns`, kept for phase 6, which checks the same edges
+    as phase 5; callers only read them."""
+    return rmat_columns(n_edges, scale, chunk, a, b, c, seed)
 
 
 def oracle_labels(src, dst, n):
@@ -1283,6 +1337,221 @@ def phase_cc(torch):
         "bound by bytes) " + json.dumps(table))
     cell["steps"] = table
     return cell, oracle
+
+
+# --------------------------------------------------------------------- #
+# The north-star shape (phase northstar)
+# --------------------------------------------------------------------- #
+def _host_peak_gb():
+    """The process's peak resident size so far (``ru_maxrss``), in GB."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+
+
+def _host_cpu():
+    """The host CPU (both baselines run there): its model name where
+    ``/proc/cpuinfo`` gives one, else its vendor, family and model
+    numbers, and the core count."""
+    import platform
+
+    fields = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            key, _, value = line.partition(":")
+            fields.setdefault(key.strip(), value.strip())
+    model = fields.get("model name", "unknown")
+    name = (model if model != "unknown" else "") or " ".join(
+        f"{k} {fields[k]}" for k in ("vendor_id", "cpu family", "model", "CPU part")
+        if fields.get(k)) or platform.processor() or platform.machine()
+    return f"{name}, {os.cpu_count()} cores"
+
+
+def _ns_pass(torch, bin_path, window, identity, prefetch=2):
+    """One pass of ``bench_cc_e2e`` (``identity``: ``IdentityDict(1 << 23)``)
+    or ``bench_cc_e2e_device`` (device encode) over the north-star binary
+    corpus into ``ConnectedComponents()``, ``sync()`` inside the timed
+    region; the peak of device memory is reset before it, the process's
+    peak resident size read after. Returns the result, the last emission and the stream."""
+    from gelly_streaming_tpu_torch import CountWindow, datasets
+    from gelly_streaming_tpu_torch.library import ConnectedComponents
+    from gelly_streaming_tpu_torch.ops import device_dict
+    from gelly_streaming_tpu_torch.summaries import labels
+
+    torch.cuda.reset_peak_memory_stats()
+    if identity:
+        stream = datasets.stream_file(
+            bin_path, window=CountWindow(window), vertex_dict=datasets.IdentityDict(NS_ID_BOUND),
+            prefetch_depth=prefetch, device=NS_DEVICE)
+    else:
+        stream = datasets.stream_file(
+            bin_path, window=CountWindow(window), device_encode=True,
+            min_vertex_capacity=NS_ID_BOUND, prefetch_depth=prefetch, device=NS_DEVICE)
+    agg = ConnectedComponents()
+    labels.HOST_READS = 0
+    device_dict.ENCODES = 0
+    lat, last = [], None
+    t0 = last_t = time.perf_counter()
+    for last in stream.aggregate(agg):
+        now = time.perf_counter()
+        lat.append(now - last_t)
+        last_t = now
+    agg.sync()
+    dt = time.perf_counter() - t0
+    lat_ms = np.asarray(lat) * 1e3
+    return {
+        "windows": len(lat), "seconds": dt,
+        "p50_ms": float(np.percentile(lat_ms, 50)), "p95_ms": float(np.percentile(lat_ms, 95)),
+        "carry": agg._cc_mode, "encodes": device_dict.ENCODES,
+        "host_reads_per_window": labels.HOST_READS / len(lat),
+        "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "process_peak_host_gb": _host_peak_gb(),
+    }, last, stream
+
+
+def _raw_partition(last, vdict, want, seen):
+    """The emission's partition decoded to raw ids against scipy's
+    (``want``: each vertex's least raw id in its component; ``seen``: the
+    raw ids seen, ascending): whether the seen ids are equal, the ids whose
+    component's least raw id differs, and the number of components."""
+    ids, lab = last.labels()
+    raw = vdict.decode(ids)
+    uniq, inv = np.unique(lab, return_inverse=True)
+    least = np.full(len(uniq), np.iinfo(np.int64).max, np.int64)
+    np.minimum.at(least, inv, raw)
+    order = np.argsort(raw)
+    same = np.array_equal(raw[order], seen)
+    bad = int(np.count_nonzero(least[inv][order] != want[seen])) if same else len(seen)
+    return same, bad, len(uniq)
+
+
+def phase_northstar(torch, smi=None):
+    """``bench.py:2566 run_northstar`` on the card: the ``livejournal-xl``
+    surrogate (R-MAT scale 23, 2^27 edges) in 2^20-edge windows, device
+    encoded and through ``IdentityDict``, and in one window of 2^27 edges,
+    each pass exact against scipy and its component count equal to the
+    compiled baseline's. Alone: ``python3 -c "import chip_smoke, torch;
+    chip_smoke.phase_northstar(torch)"`` (``smi`` is then read by
+    :func:`phase_device`)."""
+    import gc
+
+    from gelly_streaming_tpu_torch import datasets, native
+
+    if smi is None:
+        smi = phase_device(torch)
+    spec = datasets.CORPORA[NS_CORPUS]
+    n_edges = spec.surrogate_edges
+    scale = int(spec.surrogate_vscale).bit_length() - 1
+    big = max(n_edges, NS_BIG_WINDOW)
+    if not native.native_available():
+        raise AssertionError(f"the native library did not load: {native.BUILD_ERROR}")
+    cpu = _host_cpu()
+
+    # (a) the corpus: the surrogate's columns from the seeds synthesize
+    # uses, written as its binary cache (run_northstar's passes read only it)
+    t0 = time.perf_counter()
+    src, dst = rmat_columns(n_edges, scale)
+    t_cols = time.perf_counter() - t0
+    _cache_dir()
+    bin_path = datasets.write_binary(datasets.surrogate_path(NS_CORPUS) + ".gbin", src, dst)
+    t_make = time.perf_counter() - t0
+    top = int(max(src.max(), dst.max()))
+    say(f"northstar corpus: {bin_path}, {n_edges} edges, ids below {1 << scale} (largest {top}), "
+        f"{os.path.getsize(bin_path)} bytes, made in {t_make:.1f} s (columns {t_cols:.1f} s, "
+        f"write {t_make - t_cols:.1f} s)")
+    if top >= NS_ID_BOUND:
+        raise AssertionError(f"a corpus id {top} is not below {NS_ID_BOUND}")
+
+    # (b) scipy's labels once; the compiled baseline and the Flink proxy
+    # once each on the file's columns (the reference: the median of 3)
+    t1 = time.perf_counter()
+    want = oracle_labels(src, dst, NS_ID_BOUND)
+    seen_mask = np.zeros(NS_ID_BOUND, bool)
+    seen_mask[src] = True
+    seen_mask[dst] = True
+    seen = np.flatnonzero(seen_mask)
+    del seen_mask
+    n_comp = len(np.unique(want[seen]))
+    say(f"northstar oracle: scipy over {NS_ID_BOUND} ids, {len(seen)} seen, {n_comp} components "
+        f"({time.perf_counter() - t1:.1f} s)")
+    t2 = time.perf_counter()
+    chunks = list(datasets.iter_binary_chunks(bin_path, 1 << 22))
+    s64 = np.concatenate([c[0] for c in chunks]).astype(np.int64)
+    d64 = np.concatenate([c[1] for c in chunks]).astype(np.int64)
+    del chunks
+    load_s = time.perf_counter() - t2
+    if not (np.array_equal(s64, src) and np.array_equal(d64, dst)):
+        raise AssertionError("the binary corpus does not hold the generated columns")
+    del src, dst
+    cc_s, base_comp = native.cc_baseline(s64, d64, window=NS_WINDOW)
+    fl_s, fl_comp = native.flink_proxy(s64, d64, window=NS_WINDOW)
+    del s64, d64
+    base = {"edges_per_s": n_edges / (load_s + cc_s), "load_s": load_s, "cc_s": cc_s,
+            "components": base_comp}
+    flink = {"edges_per_s": n_edges / fl_s, "cc_s": fl_s, "components": fl_comp}
+    say(f"northstar baselines on the host [{cpu}]: compiled " + json.dumps(base)
+        + "; flink proxy " + json.dumps(flink))
+    if base_comp != n_comp or fl_comp != n_comp:
+        raise AssertionError(f"components: baseline {base_comp}, flink proxy {fl_comp}, "
+                             f"scipy {n_comp}")
+
+    # (c)-(e) the three passes: one warm pass, then the median of NS_PASSES
+    # (NS_IDENTITY_PASSES for the identity pass)
+    cells = {}
+    for name, window, identity, passes in (("window_1m", NS_WINDOW, False, NS_PASSES),
+                                           ("window_1m_identity", NS_WINDOW, True,
+                                            NS_IDENTITY_PASSES),
+                                           ("window_100m", big, False, NS_PASSES)):
+        warm, _, _ = _ns_pass(torch, bin_path, window, identity)
+        runs = [_ns_pass(torch, bin_path, window, identity) for _ in range(passes)]
+        results = [r[0] for r in runs]
+        for r in results:
+            r["edges_per_s"] = n_edges / r["seconds"]
+        order = sorted(range(len(results)), key=lambda i: results[i]["edges_per_s"])
+        mid = order[len(order) // 2]
+        cell = dict(results[mid])
+        cell.update(edges_per_s_all=[r["edges_per_s"] for r in results],
+                    warm_seconds=warm["seconds"], window=window,
+                    vs_baseline=cell["edges_per_s"] / base["edges_per_s"],
+                    vs_flink=cell["edges_per_s"] / flink["edges_per_s"])
+        t3 = time.perf_counter()
+        same, bad, comps = _raw_partition(runs[mid][1], runs[mid][2].vertex_dict, want, seen)
+        cell.update(vertices_seen=len(seen), mismatches=bad, components=comps)
+        say(f"northstar {name} [{smi}] " + json.dumps(cell))
+        say(f"northstar {name} vs scipy (last window, {len(seen)} vertices): seen ids "
+            f"{'equal' if same else 'DIFFER'}, {bad} mismatches, components {comps} (baseline "
+            f"{base_comp}) ({time.perf_counter() - t3:.1f} s); vs_baseline "
+            f"{cell['vs_baseline']:.3f}, vs_flink {cell['vs_flink']:.3f} [card {smi}; baselines "
+            f"on {cpu}]")
+        want_windows = -(-n_edges // window)
+        if not same or bad or comps != base_comp:
+            raise AssertionError(f"northstar {name} disagrees with scipy or the baseline")
+        if cell["windows"] != want_windows or (identity and cell["carry"] != "forest"):
+            raise AssertionError(f"northstar {name} ran {cell['windows']} windows, carry "
+                                 f"{cell['carry']}")
+        cells[name] = cell
+        del runs, results
+
+    # where the time goes in the one-window pass (no prefetch: the encode's
+    # ranges are then on the profiled thread)
+    cells["window_100m"]["profile"] = profile_cell(
+        torch, "northstar window_100m",
+        lambda: _ns_pass(torch, bin_path, big, False, prefetch=0)[0]["windows"], DE_STEPS,
+        {"dict.encode": dict_encode_bytes(n_edges, NS_ID_BOUND)})
+
+    # free the corpus and the oracle before the later phases
+    del want, seen
+    os.remove(bin_path)
+    gc.collect()
+    torch.cuda.empty_cache()
+    keys = ("windows", "carry", "edges_per_s", "p50_ms", "p95_ms", "mismatches", "components",
+            "vs_baseline", "vs_flink", "peak_device_gb")
+    summary = {"corpus_edges": n_edges, "components": n_comp, "cpu": cpu, "card": smi,
+               "baseline_edges_per_s": base["edges_per_s"],
+               "flink_edges_per_s": flink["edges_per_s"],
+               **{name: {k: cell[k] for k in keys} for name, cell in cells.items()}}
+    say("northstar result " + json.dumps(summary))
+    return {"baseline": base, "flink": flink, **summary, **cells}
 
 
 # --------------------------------------------------------------------- #
@@ -1776,18 +2045,21 @@ def phase_pagerank(torch):
         raise AssertionError("PageRank with superbatch 4 disagrees with superbatch 1")
     cell["superbatch4_max_abs_diff"] = err4
 
-    # the scale pass: the livejournal surrogate's binary cache, 16 windows
-    path, _ = datasets.ensure_corpus(CC_CORPUS)
+    # the scale pass: the first PR_SCALE_WINDOWS windows of the livejournal
+    # surrogate's binary cache, as a binary file of their own
     spec = datasets.CORPORA[CC_CORPUS]
-    bin_path = datasets.binary_cache(path)
-    stream = datasets.stream_file(bin_path, window=CountWindow(CC_WINDOW),
+    n_edges = PR_SCALE_WINDOWS * CC_WINDOW
+    prefix_path = os.path.join(_cache_dir(), "smoke_pagerank_prefix.gbin")
+    datasets.write_binary(prefix_path, *_corpus_prefix(n_edges))
+    stream = datasets.stream_file(prefix_path, window=CountWindow(CC_WINDOW),
                                   vertex_dict=datasets.IdentityDict(CC_ID_BOUND),
                                   prefetch_depth=2, device="cuda")
     prs, ems_s, sec_s, reads_s = _pr_pass(stream)
-    n_edges = spec.surrogate_edges
-    rs, rd = rmat_oracle_edges(n_edges, int(spec.surrogate_vscale).bit_length() - 1)
+    os.remove(prefix_path)
+    rs, rd = rmat_oracle_edges(spec.surrogate_edges,
+                               int(spec.surrogate_vscale).bit_length() - 1)
     t1 = time.perf_counter()
-    want_s, want_iters_s = pagerank_oracle(rs, rd, CC_WINDOW, CC_ID_BOUND)
+    want_s, want_iters_s = pagerank_oracle(rs[:n_edges], rd[:n_edges], CC_WINDOW, CC_ID_BOUND)
     got_s = prs._carry[2].cpu().numpy().astype(np.float64)
     err_s = float(np.abs(got_s - want_s).max())
     iters_s = [int(e.iterations) for e in ems_s]
@@ -1795,9 +2067,9 @@ def phase_pagerank(torch):
              "ms_per_window": sec_s / len(ems_s) * 1e3, "iterations_per_window": iters_s,
              "oracle_iterations": want_iters_s, "host_reads_per_window": reads_s / len(ems_s),
              "max_abs_rank_err": err_s}
-    say(f"pagerank scale pass ({CC_CORPUS} surrogate, {n_edges} edges, oracle "
+    say(f"pagerank scale pass ({CC_CORPUS} surrogate, its first {n_edges} edges, oracle "
         f"{time.perf_counter() - t1:.1f} s) " + json.dumps(scale))
-    if len(ems_s) != n_edges // CC_WINDOW or not err_s <= PR_RANK_TOL:
+    if len(ems_s) != PR_SCALE_WINDOWS or not err_s <= PR_RANK_TOL:
         raise AssertionError("the PageRank scale pass disagrees with the float64 oracle")
     cell["scale"] = scale
     cell["profile"] = profile_cell(
@@ -2603,17 +2875,9 @@ def _de_pass(torch, path, form, prefetch=2):
 
 
 def _raw_partition_ok(last, vdict, want, seen):
-    """The emission's partition decoded to raw ids against scipy's
-    (``want``: each vertex's least raw id in its component; ``seen``: the
-    raw ids seen, ascending)."""
-    ids, lab = last.labels()
-    raw = vdict.decode(ids)
-    uniq, inv = np.unique(lab, return_inverse=True)
-    least = np.full(len(uniq), np.iinfo(np.int64).max, np.int64)
-    np.minimum.at(least, inv, raw)
-    order = np.argsort(raw)
-    ok = np.array_equal(raw[order], seen) and np.array_equal(least[inv][order], want[seen])
-    return ok, len(seen), len(uniq)
+    """:func:`_raw_partition` as one verdict: ``(exact, seen, components)``."""
+    same, bad, n_comp = _raw_partition(last, vdict, want, seen)
+    return same and bad == 0, len(seen), n_comp
 
 
 def phase_device_encode(torch):
@@ -3849,7 +4113,7 @@ def phase_ingest(torch):
 
         # (b) the slice's main path: the same streams into streaming CC on
         # the card, sync() inside the timed region
-        src, dst = rmat_oracle_edges(IG_EDGES, IG_SCALE, chunk=IG_EDGES, seed=IG_SEED)
+        src, dst = rmat_columns(IG_EDGES, IG_SCALE, chunk=IG_EDGES, seed=IG_SEED)
         seen = np.unique(np.concatenate([src, dst]))
         want = oracle_labels(src, dst, 1 << IG_SCALE)
 
@@ -5465,6 +5729,7 @@ def main():
     main_err, rows = timed("kernels", phase_kernels, torch)
     slice_result = timed("slice", phase_slice, torch, rows)
     _, cc_oracle = timed("cc", phase_cc, torch)
+    timed("northstar", phase_northstar, torch, smi)
     timed("degrees", phase_degrees, torch)
     timed("triangles", phase_triangles, torch)
     timed("neighborhood", phase_neighborhood, torch)

@@ -241,6 +241,13 @@ def synthesize(
     return path
 
 
+def surrogate_path(name: str) -> str:
+    """Where :func:`ensure_corpus` keeps the surrogate text of ``name``
+    (its binary cache is this path plus ``.gbin``)."""
+    spec = CORPORA[name]
+    return os.path.join(cache_dir(), f"surrogate_{name}_{spec.surrogate_edges}.txt")
+
+
 def ensure_corpus(name: str) -> Tuple[str, bool]:
     """``(path, is_real)``: the real corpus if present, else the cached
     surrogate (synthesized on first use, written under a temporary name
@@ -249,10 +256,7 @@ def ensure_corpus(name: str) -> Tuple[str, bool]:
     if real is not None:
         return real, True
     os.makedirs(cache_dir(), exist_ok=True)
-    spec = CORPORA[name]
-    path = os.path.join(
-        cache_dir(), f"surrogate_{name}_{spec.surrogate_edges}.txt"
-    )
+    path = surrogate_path(name)
     if not os.path.exists(path):
         tmp = f"{path}.{os.getpid()}.tmp"
         synthesize(name, tmp)
@@ -285,6 +289,18 @@ def binary_cache(path: str, bin_path: Optional[str] = None, arrays=None) -> str:
         except OSError:
             pass
     src, dst, val = arrays if arrays is not None else native.parse_edge_file(path)
+    write_binary(bin_path, src, dst, val)
+    with open(sidecar, "w") as f:
+        f.write(stamp)
+    return bin_path
+
+
+def write_binary(bin_path: str, src, dst, val=None) -> str:
+    """Write edge columns in the :func:`binary_cache` layout, under a
+    temporary name renamed into place (a run cut short leaves no partial
+    file behind). Ids must be non-negative int32; ``val`` is stored as
+    float32 when given."""
+    src, dst = np.asarray(src), np.asarray(dst)
     if src.size and (
         max(src.max(), dst.max()) > np.iinfo(np.int32).max
         or min(src.min(), dst.min()) < 0
@@ -297,10 +313,8 @@ def binary_cache(path: str, bin_path: Optional[str] = None, arrays=None) -> str:
         src.astype(np.int32).tofile(f)
         dst.astype(np.int32).tofile(f)
         if val is not None:
-            val.astype(np.float32).tofile(f)
+            np.asarray(val).astype(np.float32).tofile(f)
     os.replace(bin_path + ".tmp", bin_path)
-    with open(sidecar, "w") as f:
-        f.write(stamp)
     return bin_path
 
 

@@ -18,11 +18,19 @@ out-edges spread their mass uniformly, so ranks sum to 1.
 
 What differs from the XLA reference, and why:
 
-- The early exit is a ``lax.while_loop`` over ``chunk``-long
-  ``lax.scan`` bodies with a freeze flag. Eager torch has no device-side
-  while, so each chunk runs ``chunk`` iterations (each ``torch.where(done,
-  r, new)``), then ``done`` is read on the host once: at most
-  ``max_chunks`` host reads a window, counted in :data:`HOST_READS`.
+- The reference runs a window (append, warm start, fixpoint) as one
+  jitted dispatch; its early exit is a ``lax.while_loop`` over
+  ``chunk``-long ``lax.scan`` bodies with a freeze flag. On one device the
+  port runs the warm start and the whole fixpoint as one launch of a
+  hand-written kernel (``ops/pagerank_kernels.py:fixpoint``,
+  ``csrc/pagerank.cu``), which stops at the converged iteration (the
+  reference's frozen iterations change nothing) and reads nothing back:
+  a window is the two in-place appends and that launch. On CPU tensors,
+  and on the mesh path, the torch form
+  (``pagerank_kernels.fixpoint_plain``) runs each chunk's ``chunk``
+  iterations (each ``torch.where(done, r, new)``), then reads ``done`` on
+  the host once: at most ``max_chunks`` host reads a window, counted in
+  ``pagerank_kernels.HOST_READS`` (zero on the kernel path).
   ``iterations`` and ``l1_delta`` mean what they mean in the reference.
 - The reference writes the window's padded block into the donated carry
   with ``dynamic_update_slice`` and masks everything past the edge count.
@@ -30,8 +38,9 @@ What differs from the XLA reference, and why:
   (``src[n0:n0 + cap].copy_(bsrc)``), the capacity rule asserted, and the
   iteration reads only the first ``n_edges`` entries (the masked rest
   contributes nothing in the reference either).
-- ``index_add_`` of floats on a card sums in an order that changes from
-  run to run: compare ranks within a tolerance, never bitwise.
+- The kernel's float atomics (like ``index_add_`` of floats on a card)
+  sum in an order that changes from run to run: compare ranks within a
+  tolerance, never bitwise.
 - The K-window ``lax.scan`` of the group fold is a loop over the same
   one-window function (:func:`_window_step`), which both paths share.
 
@@ -45,7 +54,9 @@ the edge columns into a replicated vertex table, the out-degrees
 all-reduce once and each iteration's partial ranks all-reduce before the
 teleport terms. Every decision reads post-reduce (replicated) values, and
 the chunk's early-exit flag itself is all-reduced before its host read, so
-every rank leaves the loop at the same chunk.
+every rank leaves the loop at the same chunk. That path keeps the torch
+iteration: it needs an all-reduce between each scatter and the teleport
+terms, which one kernel launch cannot make.
 """
 
 from __future__ import annotations
@@ -57,18 +68,16 @@ import torch
 
 from ..core.edgeblock import bucket_capacity, to_device
 from ..obs import trace as _trace
+from ..ops import pagerank_kernels
 from ..parallel import comm
 from ..parallel.mesh import EDGE_AXIS, P, mesh_shape
 from ..summaries.groupfold import GroupFoldable
 
-#: device -> host reads of the fixpoints (one per chunk); callers zero it
-HOST_READS = 0
-
-
 class PageRankEmission(NamedTuple):
     """Per-window emission. ``iterations``/``l1_delta`` are device scalars
-    (read on first use), so successive windows queue on the device instead
-    of waiting per emission; ``int()``/``float()`` them to read."""
+    (read on first use; on the card the fixpoint kernel writes them and the
+    window reads nothing back), so successive windows queue on the device
+    instead of waiting per emission; ``int()``/``float()`` them to read."""
 
     window: int
     num_vertices: int
@@ -76,64 +85,12 @@ class PageRankEmission(NamedTuple):
     l1_delta: torch.Tensor
 
 
-def _fixpoint(src, dst, ranks, active, n, damping: float, tol: float,
-              chunk: int, max_chunks: int, axis_name=None):
-    """Power iteration from ``ranks`` over the edges ``src -> dst`` until
-    the L1 change is at most ``tol``, checked on the host once per
-    ``chunk`` iterations, at most ``max_chunks`` chunks. Returns ``(ranks,
-    delta, iters)``; iterations after convergence inside a chunk are
-    computed and discarded, as in the reference. ``axis_name``: inside
-    ``shard_map`` over this rank's edges, the degrees and each iteration's
-    partial ranks all-reduce over that axis."""
-    global HOST_READS
-    with _trace.span("pagerank.fixpoint"):
-        nv = ranks.shape[0]
-        dev = ranks.device
-        src_l = src.long()
-        dst_l = dst.long()
-        ones = torch.zeros(nv, dtype=ranks.dtype, device=dev)
-        ones.index_add_(0, src_l, torch.ones(src.shape[0], dtype=ranks.dtype, device=dev))
-        if axis_name is not None:
-            ones = comm.all_reduce(ones, axis_name)
-        deg_src = torch.clamp(ones, min=1.0)[src_l]
-        dangling = active & (ones == 0.0)
-        zero = torch.zeros((), dtype=ranks.dtype, device=dev)
-        # damping as a float32 scalar, so 1 - d rounds as the reference's
-        d = torch.full((), damping, dtype=ranks.dtype, device=dev)
-        teleport = (1.0 - d) / n
-        r = ranks
-        delta = torch.full((), float("inf"), dtype=ranks.dtype, device=dev)
-        iters = torch.zeros((), dtype=torch.int32, device=dev)
-        done = torch.zeros((), dtype=torch.bool, device=dev)
-        for _ in range(max_chunks):
-            for _ in range(chunk):
-                new = torch.zeros(nv, dtype=ranks.dtype, device=dev)
-                new.index_add_(0, dst_l, r[src_l] / deg_src)
-                if axis_name is not None:
-                    new = comm.all_reduce(new, axis_name)
-                dangling_mass = torch.where(dangling, r, zero).sum()
-                new = teleport + d * (new + dangling_mass / n)
-                new = torch.where(active, new, zero)
-                dl = (new - r).abs().sum()
-                r = torch.where(done, r, new)
-                delta = torch.where(done, delta, dl)
-                iters = iters + (~done).to(torch.int32)
-                done = done | (dl <= tol)
-            HOST_READS += 1
-            flag = done
-            if axis_name is not None:
-                # one exit for every rank, whatever each computed
-                flag = comm.all_reduce(done.to(torch.int32), axis_name, op="min")
-            if bool(flag):
-                break
-        return r, delta, iters
-
-
 def _window_step(carry, bsrc, bdst, n_edges0: int, n_new: int, n_seen: int,
                  damping: float, tol: float, chunk: int, max_chunks: int,
                  mesh=None):
-    """One window: append, warm start, fixpoint. ``carry`` is ``(src, dst,
-    ranks)`` at their capacities; ``bsrc``/``bdst`` the window's padded
+    """One window: append, then the warm start and the fixpoint (one kernel
+    launch on the card). ``carry`` is ``(src, dst, ranks)`` at their
+    capacities; ``bsrc``/``bdst`` the window's padded
     block, of which the first ``n_new`` entries are real. The block is
     written in place at ``n_edges0`` (the host keeps the edge capacity at
     ``n_edges0`` + the block's capacity or more); the padding past the real
@@ -150,33 +107,24 @@ def _window_step(carry, bsrc, bdst, n_edges0: int, n_new: int, n_seen: int,
         src[n_edges0:n_edges0 + cap].copy_(bsrc)
         dst[n_edges0:n_edges0 + cap].copy_(bdst)
         n_edges = n_edges0 + n_new
-        nv = ranks.shape[0]
-        # warm start: never-ranked active vertices enter at uniform mass,
-        # then the seen ranks renormalize to sum 1 (padding slots stay 0:
-        # the active mask keeps them out of the teleport and dangling terms)
-        active = torch.arange(nv, device=ranks.device) < n_seen
-        # a float32 scalar, so every term rounds as the reference's does
-        n = torch.full((), float(max(n_seen, 1)), dtype=ranks.dtype, device=ranks.device)
-        ranks = torch.where(active & (ranks == 0.0), 1.0 / n, ranks)
-        ranks = ranks / torch.clamp(ranks.sum(), min=1e-30)
-        if mesh is None:
-            ranks, delta, iters = _fixpoint(
-                src[:n_edges], dst[:n_edges], ranks, active, n, damping, tol,
-                chunk, max_chunks,
-            )
-        else:
-            def shard_fn(src_s, dst_s, ranks, active, n):
-                # the rank's slice holds real edges up to n_edges only
-                c = src_s.shape[0]
-                k = max(0, min(c, n_edges - comm.axis_index(EDGE_AXIS) * c))
-                return _fixpoint(src_s[:k], dst_s[:k], ranks, active, n,
-                                 damping, tol, chunk, max_chunks,
-                                 axis_name=EDGE_AXIS)
+        with _trace.span("pagerank.fixpoint"):
+            if mesh is None:
+                ranks, delta, iters = pagerank_kernels.fixpoint(
+                    src[:n_edges], dst[:n_edges], ranks, n_seen, damping, tol, chunk,
+                    max_chunks,
+                )
+            else:
+                def shard_fn(src_s, dst_s, ranks):
+                    # the rank's slice holds real edges up to n_edges only
+                    c = src_s.shape[0]
+                    k = max(0, min(c, n_edges - comm.axis_index(EDGE_AXIS) * c))
+                    return pagerank_kernels.fixpoint_plain(
+                        src_s[:k], dst_s[:k], ranks, n_seen, damping, tol, chunk,
+                        max_chunks, axis_name=EDGE_AXIS)
 
-            ranks, delta, iters = comm.shard_map(
-                shard_fn, mesh, (P(EDGE_AXIS), P(EDGE_AXIS), P(), P(), P()),
-                (P(), P(), P()),
-            )(src, dst, ranks, active, n)
+                ranks, delta, iters = comm.shard_map(
+                    shard_fn, mesh, (P(EDGE_AXIS), P(EDGE_AXIS), P()), (P(), P(), P()),
+                )(src, dst, ranks)
         return (src, dst, ranks), delta, iters
 
 

@@ -116,6 +116,15 @@ def build_all() -> dict:
         return {name: fut.result() for name, fut in futures.items()}
 
 
+def device_index(device) -> int:
+    """The CUDA index of ``device`` (the current card for a bare "cuda"),
+    which a launcher selects in the CUDA runtime linked into its library."""
+    import torch
+
+    device = torch.device(device)
+    return device.index if device.index is not None else torch.cuda.current_device()
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built on first use."""
     lib = _LIBS.get(name)

@@ -59,7 +59,7 @@ from typing import NamedTuple
 
 import torch
 
-from .cuda_build import load_library
+from .cuda_build import device_index, load_library
 
 #: launches of the search kernel since import (or since a caller reset it):
 #: one a search on the card
@@ -268,24 +268,19 @@ def _call(name: str, device, *args) -> None:
     ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        code = getattr(lib, name)(*ptrs, _index(device), stream)
+        code = getattr(lib, name)(*ptrs, device_index(device), stream)
     if code != 0:
         msg = lib.k_reach_error_string(code).decode()
         raise RuntimeError(f"k_reach: {name} failed: {msg} (cudaError {code})")
-
-
-def _index(device) -> int:
-    device = torch.device(device)
-    return device.index if device.index is not None else torch.cuda.current_device()
 
 
 def search_is_staged(num_vertices: int, device) -> bool:
     """Whether a search over ``num_vertices`` on the CUDA ``device`` stages
     its changed bitmap in shared memory (else it reads it from device
     memory): the launcher's own rule, from V and the card."""
-    staged = _library().k_reach_search_staged(num_vertices, _index(device))
+    staged = _library().k_reach_search_staged(num_vertices, device_index(device))
     if staged < 0:
-        raise RuntimeError(f"k_reach: cannot read the shared memory of card {_index(device)}")
+        raise RuntimeError(f"k_reach: cannot read the shared memory of card {device_index(device)}")
     return bool(staged)
 
 

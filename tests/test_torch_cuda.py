@@ -42,7 +42,13 @@ hub of in-degree 2^16, and over consecutive searches on one scratch, which
 each leaves all zero; equal to the one-launch-a-hop search with no host
 sync; launched on its operands' card, refusing a malformed CSR before any
 launch, and the k = 3 spanner searching in several batches a window on the
-card equal to the CPU without a host sync.
+card equal to the CPU without a host sync, and PageRank's fixpoint kernel
+(``csrc/pagerank.cu``, one launch a window): against its plain version at
+config #4's last window, with a hub of in-degree 2^16, with every vertex
+dangling and at the cap (ranks within 1e-6, iterations within 2); one launch
+a window and no host read through the entry point; no host sync in the
+window step; launched on its operands' card; refused under deterministic
+algorithms; and superbatch 4 within 1e-6 of superbatch 1.
 
 Every test here is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is false. The file imports only torch, numpy
@@ -434,9 +440,10 @@ def _syncs(run):
 @pytest.mark.parametrize("superbatch", [1, 4])
 def test_pagerank_on_card_matches_cpu(card, superbatch):
     """Ranks within 1e-6 of the CPU run's, iterations within 2 (float
-    atomics sum in another order on the card); one host read per chunk."""
+    atomics sum in another order on the card); on the card no host read
+    (the fixpoint kernel), one a chunk on the CPU."""
     from gelly_streaming_tpu_torch.library import IncrementalPageRank
-    from gelly_streaming_tpu_torch.library import pagerank as tpr
+    from gelly_streaming_tpu_torch.ops import pagerank_kernels as pk
 
     src, dst = _zipf(11, 1 << 12, 1 << 15)
     out = {}
@@ -444,14 +451,15 @@ def test_pagerank_on_card_matches_cpu(card, superbatch):
         stream = gt.SimpleEdgeStream((src, dst), window=gt.CountWindow(1 << 13),
                                      vertex_dict=IdentityDict(1 << 12), device=device)
         pr = IncrementalPageRank(superbatch=superbatch)
-        tpr.HOST_READS = 0
+        pk.HOST_READS = 0
         ems = list(pr.run(stream))
         iters = [int(e.iterations) for e in ems]
-        out[str(device)] = (pr._carry[2].cpu().numpy(), iters, tpr.HOST_READS)
-    (rc, ic, _), (rg, ig, reads) = out["cpu"], out[str(card)]
+        out[str(device)] = (pr._carry[2].cpu().numpy(), iters, pk.HOST_READS)
+    (rc, ic, cpu_reads), (rg, ig, reads) = out["cpu"], out[str(card)]
     assert np.abs(rc - rg).max() <= 1e-6 and abs(rg.sum() - 1) <= 1e-5
     assert max(abs(a - b) for a, b in zip(ic, ig)) <= 2
-    assert reads == sum(-(-i // 10) for i in ig)
+    assert cpu_reads == sum(-(-i // 10) for i in ic)
+    assert reads == 0
 
 
 @pytest.mark.parametrize("superbatch", [1, 4])
@@ -1435,3 +1443,192 @@ def test_k_reach_search_equals_the_hop_search_without_a_host_sync(card):
         torch.cuda.set_sync_debug_mode("default")
     for ((csr, u, v, m), nv, k), (new, old) in zip(inputs, got):
         assert torch.equal(new, old) and torch.equal(new, rk.k_reach_plain(csr, u, v, m, nv, k))
+
+
+# --------------------------------------------------------------------- #
+# PageRank's fixpoint kernel (csrc/pagerank.cu)
+# --------------------------------------------------------------------- #
+def _pr_stream(src, dst, nv, window, device):
+    return gt.SimpleEdgeStream((src, dst), window=gt.CountWindow(window),
+                               vertex_dict=IdentityDict(nv), device=device)
+
+
+def _last_window_operands(card, nv=1 << 18, ne=1 << 20, window=1 << 18, seed=11):
+    """Config #4's last window on the card: the carry's ranks after the
+    windows before it, all the edges, the seen vertices."""
+    from gelly_streaming_tpu_torch.library import IncrementalPageRank
+
+    src, dst = _zipf(seed, nv, ne)
+    pr = IncrementalPageRank(tol=1e-6, max_iter=50)
+    for _ in pr.run(_pr_stream(src[:ne - window], dst[:ne - window], nv, window, card)):
+        pass
+    n_seen = 1 + int(max(src.max(), dst.max()))
+    return (torch.from_numpy(src).to(card), torch.from_numpy(dst).to(card), pr._carry[2],
+            n_seen)
+
+
+def _ranks_close(r, p):
+    """Each rank within 1e-4 of the plain one relative to itself, plus
+    1e-10 (float atomics reorder the sums; a hub of in-degree 2^16 moves by
+    about 6e-6 of itself)."""
+    return bool(((r - p).abs() <= 1e-4 * p.abs() + 1e-10).all())
+
+
+def _fixpoint_equal(card, src, dst, ranks, n_seen, tol=1e-6, chunk=10, max_chunks=5, rtol=0.0):
+    """One kernel launch against the plain version on the same card
+    tensors: ranks within 1e-6 (plus ``rtol`` of the plain rank, for a
+    vertex whose rank sums many float32 terms) and each within 1e-4 of
+    itself (plus 1e-10: at 2^18 vertices a rank is about 1e-6, as small as
+    the absolute bound), the ranks' sum within 1e-5 of the plain ranks'
+    (float32 rounding at a hub loses mass in both, so neither need sum to
+    1), iterations within 2, the input ranks unchanged."""
+    from gelly_streaming_tpu_torch.ops import pagerank_kernels as pk
+
+    held = ranks.clone()
+    before = pk.LAUNCHES
+    r, delta, it = pk.fixpoint(src, dst, ranks, n_seen, 0.85, tol, chunk, max_chunks)
+    torch.cuda.synchronize(card)
+    assert pk.LAUNCHES == before + 1
+    pr, pdelta, pit = pk.fixpoint_plain(src, dst, ranks, n_seen, 0.85, tol, chunk, max_chunks)
+    assert r.device == card and delta.device == card and it.device == card
+    assert r.dtype == torch.float32 and delta.dtype == torch.float32 and it.dtype == torch.int32
+    assert torch.equal(ranks, held) and r.data_ptr() != ranks.data_ptr()
+    err = float(((r - pr).abs() - rtol * pr.abs()).max()) if r.numel() else 0.0
+    assert err <= 1e-6, err
+    assert _ranks_close(r, pr), float(((r - pr).abs() / pr.abs().clamp(min=1e-30)).max())
+    assert abs(float(r.double().sum()) - float(pr.double().sum())) <= 1e-5
+    assert abs(int(it) - int(pit)) <= 2, (int(it), int(pit))
+    if int(it) < chunk * max_chunks:
+        assert float(delta) <= tol
+    return r, delta, it
+
+
+def test_pagerank_kernel_matches_plain_at_config_4s_last_window(card):
+    from gelly_streaming_tpu_torch.ops import pagerank_kernels as pk
+
+    assert pk._library().slot_floats == pk._library().pagerank_slot_floats() == 8
+    src, dst, ranks, n_seen = _last_window_operands(card)
+    r, _, it = _fixpoint_equal(card, src, dst, ranks, n_seen)
+    assert 1 <= int(it) <= 50 and abs(float(r.double().sum()) - 1) <= 1e-5
+
+
+def test_pagerank_kernel_with_a_hub_of_in_degree_65536(card):
+    """Vertex 0 receives 2^16 edges: its atomics serialize in L2. Its rank
+    (about 0.25) is a sum of 2^16 float32 terms, whose order alone moves
+    it by 1.5e-6 (the plain version on the CPU over the same edges
+    shuffled), so the hub's rank is held within 2^-14 of the plain one's
+    (1.5e-5 at 0.25), every other rank within 1e-6. (Each of those adds
+    rounds at the hub's ulp, so in float32 the L1 change stalls near 3e-4
+    and both forms run to the cap at either tol.)"""
+    rng = np.random.default_rng(17)
+    nv = 1 << 17
+    src = np.concatenate([np.arange(1, 1 + (1 << 16)), rng.integers(0, nv, 1 << 16)])
+    dst = np.concatenate([np.zeros(1 << 16, np.int64), rng.integers(0, nv, 1 << 16)])
+    ranks = torch.zeros(nv, device=card)
+    t = [torch.from_numpy(a.astype(np.int32)).to(card) for a in (src, dst)]
+    for tol in (1e-4, 1e-6):
+        r, _, _ = _fixpoint_equal(card, *t, ranks, nv, tol=tol, rtol=2**-14)
+        assert int(r.argmax()) == 0
+
+
+def test_pagerank_kernel_with_every_vertex_dangling(card):
+    """No edges: every seen vertex dangles, ranks stay uniform over the
+    seen ones, the rest 0; also with every slot seen."""
+    empty = torch.zeros(0, dtype=torch.int32, device=card)
+    nv = 1000
+    for n_seen in (600, nv):
+        r, _, it = _fixpoint_equal(card, empty, empty, torch.zeros(nv, device=card), n_seen)
+        want = torch.zeros(nv, device=card)
+        want[:n_seen] = 1.0 / n_seen
+        assert float((r - want).abs().max()) <= 1e-7 and int(it) == 1
+
+
+def test_pagerank_kernel_reaches_the_cap(card):
+    """tol 0: chunk * max_chunks iterations, as the plain version."""
+    src, dst = _zipf(12, 1 << 12, 1 << 15)
+    t = [torch.from_numpy(a).to(card) for a in (src, dst)]
+    _, _, it = _fixpoint_equal(card, *t, torch.zeros(1 << 12, device=card), 1 << 12, tol=0.0,
+                               chunk=4, max_chunks=3)
+    assert int(it) == 12
+
+
+def test_pagerank_makes_one_launch_a_window_and_no_host_read(card):
+    from gelly_streaming_tpu_torch.library import IncrementalPageRank
+    from gelly_streaming_tpu_torch.ops import pagerank_kernels as pk
+
+    src, dst = _zipf(13, 1 << 12, 1 << 15)
+    for superbatch in (1, 4):
+        pk.LAUNCHES = pk.HOST_READS = 0
+        ems = list(IncrementalPageRank(superbatch=superbatch).run(
+            _pr_stream(src, dst, 1 << 12, 1 << 12, card)))
+        assert len(ems) == 8 and pk.LAUNCHES == 8 and pk.HOST_READS == 0
+
+
+def test_pagerank_window_step_makes_no_host_sync(card):
+    """The window step (the appends and the one launch) under
+    ``set_sync_debug_mode("error")``; its scalars read afterwards."""
+    from gelly_streaming_tpu_torch.library import pagerank as tpr
+
+    src, dst = _zipf(14, 1 << 12, 1 << 14)
+    nv, cap = 1 << 12, 1 << 13
+    carry = (torch.zeros(1 << 14, dtype=torch.int32, device=card),
+             torch.zeros(1 << 14, dtype=torch.int32, device=card),
+             torch.zeros(nv, device=card))
+    blocks = [(torch.from_numpy(src[i:i + cap]).to(card), torch.from_numpy(dst[i:i + cap]).to(card))
+              for i in (0, cap)]
+    n_seen = 1 + int(max(src.max(), dst.max()))
+    torch.cuda.synchronize(card)
+    out = []
+
+    def steps():
+        nonlocal carry
+        for w, (bs, bd) in enumerate(blocks):
+            carry, delta, iters = tpr._window_step(carry, bs, bd, w * cap, cap, n_seen, 0.85,
+                                                   1e-6, 10, 5)
+            out.append((delta, iters))
+
+    _syncs(steps)
+    assert all(1 <= int(it) <= 50 for _, it in out)
+    assert abs(float(carry[2].sum()) - 1) <= 1e-5
+
+
+def test_pagerank_kernel_launches_on_the_operands_card(card):
+    """With card 0 current, a fixpoint on card 1's operands launches there."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards or more")
+    src, dst = _zipf(15, 1 << 10, 1 << 13)
+    torch.cuda.set_device(0)
+    for index in (1, 0, 1):
+        dev = torch.device("cuda", index)
+        t = [torch.from_numpy(a).to(dev) for a in (src, dst)]
+        r, _, _ = _fixpoint_equal(dev, *t, torch.zeros(1 << 10, device=dev), 1 << 10)
+        assert r.device == dev
+    assert torch.cuda.current_device() == 0
+
+
+def test_pagerank_kernel_refuses_deterministic_algorithms(card):
+    from gelly_streaming_tpu_torch.ops import pagerank_kernels as pk
+
+    src, dst = (torch.from_numpy(a).to(card) for a in _zipf(16, 1 << 10, 1 << 12))
+    ranks = torch.zeros(1 << 10, device=card)
+    before = pk.LAUNCHES
+    torch.use_deterministic_algorithms(True)
+    try:
+        with pytest.raises(RuntimeError, match="deterministic"):
+            pk.fixpoint(src, dst, ranks, 1 << 10, 0.85, 1e-6, 10, 5)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert pk.LAUNCHES == before
+
+
+def test_pagerank_superbatch_4_within_1e6_of_1_on_card(card):
+    from gelly_streaming_tpu_torch.library import IncrementalPageRank
+
+    src, dst = _zipf(18, 1 << 14, 1 << 17)
+    got = {}
+    for k in (1, 4):
+        pr = IncrementalPageRank(superbatch=k)
+        ems = list(pr.run(_pr_stream(src, dst, 1 << 14, 1 << 14, card)))
+        got[k] = (pr._carry[2], [int(e.iterations) for e in ems])
+    assert float((got[1][0] - got[4][0]).abs().max()) <= 1e-6
+    assert max(abs(a - b) for a, b in zip(got[1][1], got[4][1])) <= 2

@@ -131,15 +131,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    of its; ``superbatch=4`` within 1e-6 of ``superbatch=1``. Then a scale
    pass on the first 8 windows of phase 6's binary cache (2^20 edges each
    over 2^21 ids, written to a binary file of their own) against the same
-   oracle. Then the kernel of ``csrc/pagerank.cu`` on the kept last
-   window against ``fixpoint_plain`` (each rank within 1e-6 and within
-   1e-4 of itself plus 1e-10, the ranks' sum within 1e-5 of 1, iterations
-   within 2), and its cold time beside the plain version's, one iteration
-   of ``torch.mv`` on a sparse CSR matrix of the carry times the
-   iterations, the byte rule's bound and the bound of re-reading the edges
-   every iteration; and last the profile, the kernel's ctypes launches
-   added by name (the pass profiled again where the trace holds fewer of
-   them than ``LAUNCHES`` counted).
+   oracle, one launch a window and no push launch. Then, at two shapes
+   (the kept last window of config #4 and of the scale pass), both designs
+   of ``csrc/pagerank.cu`` (the pull the library launches, and the first,
+   push design through its private entry) against ``fixpoint_plain`` (each
+   rank within 1e-6 and within 1e-4 of itself plus 1e-10, the ranks' sum
+   within 1e-5 of 1, iterations within 2); their cold times in turns
+   (push, pull, pull, push), each with no iteration and with one (set-up
+   ms, ms an iteration), beside the plain version's, one iteration of
+   ``torch.mv`` on a sparse CSR matrix of the carry times the iterations,
+   the byte rule's bound and the bound of re-reading the edges every
+   iteration, and the window's in-degree figures; and last the profile,
+   the kernel's ctypes launches added by name (the pass profiled again
+   where the trace holds fewer of them than ``LAUNCHES`` counted).
 10. bipartiteness — ``bench.py:bench_bipartiteness_e2e``: the binary cache
    through ``stream_file`` into ``BipartitenessCheck()`` (carry "auto" must
    pick "forest"), timed like phase 9; the verdicts after window 0 and the
@@ -455,6 +459,9 @@ PR_KERNEL_FLOOR = 1e-10
 PR_STEPS = ("pagerank.window", "pagerank.fixpoint")
 # the kernel, launched through ctypes, and its wrapper's module (its LAUNCHES)
 PR_FOREIGN = {"pagerank.fixpoint": ("pagerank_fixpoint", "pagerank_kernels")}
+# csrc/pagerank.cu's split: a row of more than PR_ROW_THREAD entries goes to
+# warps, in pieces of at most PR_PIECE
+PR_ROW_THREAD, PR_PIECE = 32, 1024
 
 # bipartiteness (bench.py: bench_bipartiteness_e2e) on phase 5's corpus
 BIP_STEPS = ("bip.cover_step", "cc.chase_and_group", "cc.propagate", "cc.commit_roots",
@@ -798,7 +805,7 @@ def phase_build():
         info = cuda_build.BUILD_INFO[name]
         say(f"  {name}: nvcc {info['seconds']:.2f} s")
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if "entry function" in line or "registers" in line or "spill" in line:
                 say("   ", line.strip())
     sass_counts(paths["fused_sage_matmul"], cuda_build.find_nvcc())
 
@@ -2044,15 +2051,17 @@ def _pr_stream(src, dst, device="cuda"):
 
 def _pr_pass(stream, superbatch=1):
     """One pass of config #4 as ``bench_pagerank`` runs it (``sync()``
-    inside): the workload, its emissions, seconds, host reads."""
+    inside): the workload, its emissions, seconds, and the fixpoints' host
+    reads (``pagerank_kernels.HOST_READS``, the one counter of them)."""
     from gelly_streaming_tpu_torch.library import pagerank
+    from gelly_streaming_tpu_torch.ops import pagerank_kernels
 
     pr = pagerank.IncrementalPageRank(tol=PR_TOL, max_iter=PR_MAX_ITER, superbatch=superbatch)
-    pagerank.HOST_READS = 0
+    pagerank_kernels.HOST_READS = 0
     t0 = time.perf_counter()
     ems = list(pr.run(stream))
     pr.sync()
-    return pr, ems, time.perf_counter() - t0, pagerank.HOST_READS
+    return pr, ems, time.perf_counter() - t0, pagerank_kernels.HOST_READS
 
 
 def pagerank_oracle(src, dst, window, n_vertices, tol=PR_TOL, max_iter=PR_MAX_ITER,
@@ -2133,63 +2142,111 @@ def pr_ranks_agree(r, p):
     return err, rel, total, err <= PR_KERNEL_TOL and rel <= 1.0 and abs(total - 1) <= 1e-5
 
 
-def pagerank_kernel_row(torch, args, smi):
-    """The fixpoint kernel on one window's operands (``args``, as the
-    window step passed them): against ``fixpoint_plain`` on the same card
-    tensors, then the cold times of the kernel, of the plain version and of
-    one iteration of ``torch.mv`` on a sparse CSR matrix of the carry (times the
-    kernel's iterations; no single PyTorch call computes the fixpoint),
-    each form in turns, beside both bounds."""
+def pr_in_degrees(torch, dst, nv):
+    """The in-degree figures of one window's edges that set the pull
+    kernel's split (``PR_ROW_THREAD``, ``PR_PIECE``)."""
+    deg = torch.bincount(dst.long(), minlength=nv)
+    nonempty = deg[deg > 0]
+    out = {"max": int(deg.max()) if deg.numel() else 0,
+           "mean_nonempty": float(nonempty.double().mean()) if nonempty.numel() else 0.0}
+    for k in (PR_ROW_THREAD, 256, PR_PIECE):
+        out[f"rows_over_{k}"] = int((deg > k).sum())
+        out[f"entries_over_{k}"] = int(deg[deg > k].sum())
+    out["pieces"] = int(((deg[deg > PR_ROW_THREAD] + PR_PIECE - 1) // PR_PIECE).sum())
+    return out
+
+
+def pagerank_kernel_row(torch, args, smi, where):
+    """Both fixpoint designs on one window's operands (``args``, as the
+    window step passed them to ``fixpoint``; ``where`` names the window):
+    the pull (the library's kernel) and the push (the first design, through
+    its private entry), each against ``fixpoint_plain`` on the same card
+    tensors; then cold times in turns (push, pull, pull, push), each design
+    with no iteration and with one (its set-up and its first iteration),
+    the plain version's, and one iteration of ``torch.mv`` on a sparse CSR
+    matrix of the carry (times the pull's iterations; no single PyTorch
+    call computes the fixpoint), beside both bounds. The pull's figures are
+    the row's; the push's are under ``"push"``."""
     from gelly_streaming_tpu_torch.ops import pagerank_kernels as pk
 
-    src, dst, ranks = args[:3]
+    src, dst, ranks, n_seen, damping, tol, chunk, max_chunks = args
     e, nv = src.shape[0], ranks.shape[0]
-    r, delta, it = pk.fixpoint(*args)
+    designs = {
+        "pull": lambda m=chunk * max_chunks: pk._fixpoint_kernel(src, dst, ranks, n_seen,
+                                                                 damping, tol, m),
+        "push": lambda m=chunk * max_chunks: pk._fixpoint_push(src, dst, ranks, n_seen,
+                                                               damping, tol, m),
+    }
     pr, pdelta, pit = pk.fixpoint_plain(*args)
-    err, rel, total, close = pr_ranks_agree(r, pr)
-    it, pit = int(it), int(pit)
-    say(f"pagerank kernel vs fixpoint_plain, config #4's last window (E = {e}, V = {nv}): "
-        f"max abs rank difference {err:.3e} (tol {PR_KERNEL_TOL:g}), largest difference "
-        f"{rel:.3e} of {PR_KERNEL_RTOL:g} x |rank| + {PR_KERNEL_FLOOR:g} (tol 1), rank sum "
-        f"{total:.9f} (tol 1e-05), iterations {it} and {pit} (tol +-{PR_ITER_SLACK}), l1 "
-        f"{float(delta):.3e} and {float(pdelta):.3e}")
-    if not (close and abs(it - pit) <= PR_ITER_SLACK):
-        raise AssertionError("the PageRank fixpoint kernel disagrees with fixpoint_plain")
+    pit = int(pit)
+    rows = {}
+    for name, run in designs.items():
+        r, delta, it = run()
+        err, rel, total, close = pr_ranks_agree(r, pr)
+        it = int(it)
+        say(f"pagerank {name} kernel vs fixpoint_plain, {where} (E = {e}, V = {nv}): max abs "
+            f"rank difference {err:.3e} (tol {PR_KERNEL_TOL:g}), largest difference {rel:.3e} "
+            f"of {PR_KERNEL_RTOL:g} x |rank| + {PR_KERNEL_FLOOR:g} (tol 1), rank sum "
+            f"{total:.9f} (tol 1e-05), iterations {it} and {pit} (tol +-{PR_ITER_SLACK}), l1 "
+            f"{float(delta):.3e} and {float(pdelta):.3e}")
+        if not (close and abs(it - pit) <= PR_ITER_SLACK):
+            raise AssertionError(f"the PageRank {name} kernel disagrees with fixpoint_plain "
+                                 f"at {where}")
+        rows[name] = {"max_abs_err": err, "rel_err_share": rel, "iterations": it}
+        del r
+    it = rows["pull"]["iterations"]
     deg = torch.zeros(nv, device=src.device).index_add_(
         0, src.long(), torch.ones(e, device=src.device))
     csr = torch.sparse_coo_tensor(torch.stack([dst.long(), src.long()]),
                                   1.0 / deg.clamp(min=1.0)[src.long()],
                                   (nv, nv)).coalesce().to_sparse_csr()
+    del deg
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=src.device)
     lead = KR_LEAD_CYCLES
-    kernel = lambda: pk.fixpoint(*args)  # noqa: E731
     plain = lambda: pk.fixpoint_plain(*args)  # noqa: E731
-    mv = lambda: torch.mv(csr, r)  # noqa: E731
-    turns = {"ms": [cold_ms(torch, kernel, flush, lead_cycles=lead)],
-             "plain_ms": [cold_ms(torch, plain, flush, iters=5, warmup=1, lead_cycles=lead)],
-             "mv_ms": [cold_ms(torch, mv, flush, lead_cycles=lead)]}
-    turns["mv_ms"].append(cold_ms(torch, mv, flush, lead_cycles=lead))
+    mv = lambda: torch.mv(csr, pr)  # noqa: E731
+
+    def cold(fn):
+        return cold_ms(torch, fn, flush, lead_cycles=lead)
+
+    turns = {"push": [cold(designs["push"])], "pull": [cold(designs["pull"])]}
+    turns["plain_ms"] = [cold_ms(torch, plain, flush, iters=5, warmup=1, lead_cycles=lead)]
+    turns["mv_ms"] = [cold(mv)]
+    split = {name: {"setup_ms": cold(lambda: run(0)), "one_iteration_ms": cold(lambda: run(1))}
+             for name, run in designs.items()}
+    turns["mv_ms"].append(cold(mv))
     turns["plain_ms"].append(cold_ms(torch, plain, flush, iters=5, warmup=1, lead_cycles=lead))
-    turns["ms"].append(cold_ms(torch, kernel, flush, lead_cycles=lead))
+    turns["pull"].append(cold(designs["pull"]))
+    turns["push"].append(cold(designs["push"]))
     del flush, csr
-    row = {name: sum(pair) / 2 for name, pair in turns.items()}
-    row.update({name + "_turns": pair for name, pair in turns.items()})
-    row["max_abs_err"] = err
-    row["rel_err_share"] = rel
-    row["iterations"] = it
+    for name, row in rows.items():
+        row["ms"] = sum(turns[name]) / 2
+        row["ms_turns"] = turns[name]
+        row.update(split[name])
+        row["first_iteration_ms"] = row["one_iteration_ms"] - row["setup_ms"]
+        row["ms_an_iteration"] = (row["ms"] - row["setup_ms"]) / max(row["iterations"], 1)
+        row["bound_ms"], row["bound_by"] = pr_fixpoint_bound(e, nv, row["iterations"])
+        row["iteration_bound_ms"] = (pr_iteration_bytes(row["iterations"], e, nv)
+                                     / HBM_BYTES_PER_S * 1e3)
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        row["iteration_bound_share"] = row["iteration_bound_ms"] / row["ms"]
+        # the edges can stay in L2 between iterations, so only the byte
+        # rule's bound is one a kernel cannot beat
+        if row["bound_share"] > 1.0:
+            raise AssertionError(f"the {name} fixpoint ran faster than its bound: the timing "
+                                 f"is wrong")
+    row = dict(rows["pull"])
+    row["push"] = rows["push"]
+    for name in ("plain_ms", "mv_ms"):
+        row[name] = sum(turns[name]) / 2
+        row[name + "_turns"] = turns[name]
     row["library_ms"] = row["mv_ms"] * it
-    row["bound_ms"], row["bound_by"] = pr_fixpoint_bound(e, nv, it)
-    row["iteration_bound_ms"] = pr_iteration_bytes(it, e, nv) / HBM_BYTES_PER_S * 1e3
-    row["bound_share"] = row["bound_ms"] / row["ms"]
-    row["iteration_bound_share"] = row["iteration_bound_ms"] / row["ms"]
-    row["ms_an_iteration"] = row["ms"] / it
-    row["per"] = (f"one fixpoint of config #4's last window: E = {e}, V = {nv}, {it} "
-                  f"iterations, cold L2; {smi}")
-    say("pagerank fixpoint time (cold L2, median of each call alone) " + json.dumps(row))
-    # the edges can stay in L2 between iterations, so only the byte rule's
-    # bound is one the kernel cannot beat
-    if row["bound_share"] > 1.0:
-        raise AssertionError("the fixpoint ran faster than its bound: the timing is wrong")
+    row["pull_over_push"] = row["ms"] / rows["push"]["ms"]
+    row["in_degrees"] = pr_in_degrees(torch, dst, nv)
+    row["per"] = (f"one fixpoint of {where}: E = {e}, V = {nv}, {it} iterations, cold L2; "
+                  f"{smi}")
+    say(f"pagerank fixpoint times, {where} (cold L2, median of each call alone) "
+        + json.dumps(row))
     return row
 
 
@@ -2215,9 +2272,9 @@ def phase_pagerank(torch, smi=None):
     finally:
         pk.fixpoint = real
     # the main path, counted
-    pk.LAUNCHES = 0
+    pk.LAUNCHES = pk.PUSH_LAUNCHES = 0
     runs = [_pr_pass(_pr_stream(src, dst)) for _ in range(STEADY_PASSES)]
-    launches = pk.LAUNCHES
+    launches, push_launches = pk.LAUNCHES, pk.PUSH_LAUNCHES
     times = [r[2] for r in runs]
     mid = sorted(range(len(runs)), key=lambda i: times[i])[len(runs) // 2]
     pr, ems, sec, reads = runs[mid]
@@ -2227,14 +2284,16 @@ def phase_pagerank(torch, smi=None):
             "iterations_per_window": iters, "host_reads_per_window": reads / len(ems),
             "host_reads_all": [r[3] for r in runs],
             "kernel_launches_per_window": launches / (STEADY_PASSES * n_win),
+            "push_launches": push_launches,
             "l1_delta": [float(e.l1_delta) for e in ems]}
     say("pagerank cell " + json.dumps(cell))
     if len(ems) != n_win:
         raise AssertionError(f"pagerank ran {len(ems)} windows")
-    if launches != STEADY_PASSES * n_win or any(r[3] for r in runs):
-        raise AssertionError(f"pagerank launched its fixpoint kernel {launches} times in "
-                             f"{STEADY_PASSES * n_win} windows, host reads "
-                             f"{[r[3] for r in runs]}: expected one launch and no read a window")
+    if launches != STEADY_PASSES * n_win or push_launches or any(r[3] for r in runs):
+        raise AssertionError(f"pagerank launched its fixpoint kernel {launches} times (the "
+                             f"push {push_launches}) in {STEADY_PASSES * n_win} windows, host "
+                             f"reads {[r[3] for r in runs]}: expected one launch, no push and "
+                             f"no read a window")
 
     t0 = time.perf_counter()
     want, want_iters = pagerank_oracle(src, dst, PR_WINDOW, PR_VERTICES)
@@ -2268,7 +2327,19 @@ def phase_pagerank(torch, smi=None):
     stream = datasets.stream_file(prefix_path, window=CountWindow(CC_WINDOW),
                                   vertex_dict=datasets.IdentityDict(CC_ID_BOUND),
                                   prefetch_depth=2, device="cuda")
-    prs, ems_s, sec_s, reads_s = _pr_pass(stream)
+    kept_s = []
+
+    def keep_s(*args):
+        kept_s[:] = args
+        return real(*args)
+
+    pk.fixpoint = keep_s
+    pk.LAUNCHES = pk.PUSH_LAUNCHES = 0
+    try:
+        prs, ems_s, sec_s, reads_s = _pr_pass(stream)
+    finally:
+        pk.fixpoint = real
+    launches_s, push_s = pk.LAUNCHES, pk.PUSH_LAUNCHES
     os.remove(prefix_path)
     rs, rd = rmat_oracle_edges(spec.surrogate_edges,
                                int(spec.surrogate_vscale).bit_length() - 1)
@@ -2280,15 +2351,20 @@ def phase_pagerank(torch, smi=None):
     scale = {"windows": len(ems_s), "edges_per_s": n_edges / sec_s,
              "ms_per_window": sec_s / len(ems_s) * 1e3, "iterations_per_window": iters_s,
              "oracle_iterations": want_iters_s, "host_reads_per_window": reads_s / len(ems_s),
-             "max_abs_rank_err": err_s}
+             "kernel_launches": launches_s, "push_launches": push_s, "max_abs_rank_err": err_s}
     say(f"pagerank scale pass ({CC_CORPUS} surrogate, its first {n_edges} edges, oracle "
         f"{time.perf_counter() - t1:.1f} s) " + json.dumps(scale))
-    if len(ems_s) != PR_SCALE_WINDOWS or not err_s <= PR_RANK_TOL or reads_s:
+    if (len(ems_s) != PR_SCALE_WINDOWS or not err_s <= PR_RANK_TOL or reads_s
+            or launches_s != PR_SCALE_WINDOWS or push_s):
         raise AssertionError("the PageRank scale pass disagrees with the float64 oracle (or "
-                             "read the device)")
+                             "read the device, or did not launch the kernel once a window)")
     cell["scale"] = scale
-    cell["kernel_row"] = pagerank_kernel_row(torch, kept, smi)
+    cell["kernel_row"] = pagerank_kernel_row(torch, kept, smi, "config #4's last window")
     cell["kernel_row"]["launches"] = launches
+    cell["kernel_row"]["push"]["launches"] = push_launches
+    cell["kernel_row_scale"] = pagerank_kernel_row(
+        torch, kept_s, smi, f"the scale pass's last window ({CC_CORPUS} surrogate)")
+    del kept_s
     cell["profile"] = profile_cell(
         torch, "pagerank", lambda: len(_pr_pass(_pr_stream(src, dst))[1]), PR_STEPS,
         pr_step_bytes(PR_WINDOW, PR_EDGES * (n_win + 1) // (2 * n_win), PR_VERTICES),
@@ -6018,31 +6094,42 @@ def main():
         "per": row["per"],
         "status": "ported",
     }
-    row = pagerank_result["kernel_row"]
-    pagerank_fixpoint = {
-        "name": "pagerank_fixpoint",
-        "route": "cuda",
-        "source": "gelly_streaming_tpu_torch/csrc/pagerank.cu",
-        "replaces": "gelly_streaming_tpu/library/pagerank.py:89",
-        "replaces_kind": "an XLA step (the fixpoint of _make_pr_window_body), not a Pallas "
-                         "kernel",
-        "launches": row["launches"],
-        "max_abs_err": row["max_abs_err"],
-        "ms": row["ms"],
-        "plain_ms": row["plain_ms"],
-        "bound_ms": row["bound_ms"],
-        "bound_by": row["bound_by"],
-        # one iteration of torch.mv on a sparse CSR matrix of the carry, times the
-        # iterations: no single PyTorch call computes the fixpoint
-        "library_ms": row["library_ms"],
-        "bound_share": row["bound_share"],
-        "iteration_bound_ms": row["iteration_bound_ms"],
-        "iteration_bound_share": row["iteration_bound_share"],
-        "iterations": row["iterations"],
-        "per": row["per"],
-        "status": "ported",
-    }
-    say(json.dumps({"kernels": [kernel, k_reach, pagerank_fixpoint]}))
+    rows = (pagerank_result["kernel_row"], pagerank_result["kernel_row_scale"])
+
+    def pr_entry(name, design, status, launches):
+        """A fixpoint design's entry: config #4's last window's figures,
+        then the scale pass's last window's under "scale"."""
+        four, scale = (r if design == "pull" else r["push"] for r in rows)
+        keys = ("max_abs_err", "ms", "setup_ms", "first_iteration_ms", "ms_an_iteration",
+                "bound_ms", "bound_by", "bound_share", "iteration_bound_ms",
+                "iteration_bound_share", "iterations", "ms_turns")
+        entry = {
+            "name": name,
+            "route": "cuda",
+            "source": "gelly_streaming_tpu_torch/csrc/pagerank.cu",
+            "replaces": "gelly_streaming_tpu/library/pagerank.py:89",
+            "replaces_kind": "an XLA step (the fixpoint of _make_pr_window_body), not a "
+                             "Pallas kernel",
+            "launches": launches,
+            "plain_ms": rows[0]["plain_ms"],
+            # one iteration of torch.mv on a sparse CSR matrix of the carry, times
+            # the pull's iterations: no single PyTorch call computes the fixpoint
+            "library_ms": rows[0]["library_ms"],
+        }
+        entry.update({k: four[k] for k in keys})
+        entry["scale"] = {k: scale[k] for k in keys}
+        entry["scale"].update(plain_ms=rows[1]["plain_ms"], library_ms=rows[1]["library_ms"],
+                              in_degrees=rows[1]["in_degrees"], per=rows[1]["per"])
+        entry.update(in_degrees=rows[0]["in_degrees"], per=rows[0]["per"], status=status)
+        return entry
+
+    pagerank_fixpoint = pr_entry("pagerank_fixpoint", "pull", "ported",
+                                 rows[0]["launches"])
+    # the first design, timed in turns with the pull; the main path never
+    # launches it
+    pagerank_push = pr_entry("pagerank_fixpoint_push", "push", "replaced",
+                             rows[0]["push"]["launches"])
+    say(json.dumps({"kernels": [kernel, k_reach, pagerank_fixpoint, pagerank_push]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

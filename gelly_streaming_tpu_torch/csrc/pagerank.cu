@@ -35,38 +35,86 @@
 // operation (__fmul_rn and __fadd_rn keep nvcc from contracting it into an
 // fma, which the torch form never does). r[s] / max(deg[s], 1) is divided
 // once a vertex in the phase that writes r[s] and gathered per edge, which
-// gives the same value as the reference's per-edge division. The scatter is a
-// float atomicAdd an edge, as the reference's .at[dst].add and the port's
-// index_add_ on a card: the order of the sums changes from run to run, so
-// ranks are compared within a tolerance, never bit for bit.
+// gives the same value as the reference's per-edge division.
 //
-// What bounds it. An iteration moves the edge columns (8 bytes an edge), one
-// gather and one atomic an edge, and about 20 bytes a vertex; at config #4's
-// 2^20 edges that is about 10 MB, which stays in the 50 MB L2 from one
-// iteration to the next. So the iterations are bound by the L2's atomics and
-// the gathers' latency, and by the two grid-wide barriers an iteration, not by
-// device memory. Hot targets serialize their atomics in L2.
+// Two designs live here. pagerank_fixpoint, the one the library launches,
+// PULLS: it builds a CSR of the window's edges by target once, inside the
+// launch, and sums each vertex's in-edges where its new rank is computed.
+// pagerank_fixpoint_push is the first design (a float atomicAdd an edge into
+// an accumulator every iteration); it is kept only so that chip_smoke.py and
+// one card test can time the two in turns in one process.
 //
-// The launch, phases split by cooperative_groups::this_grid().sync():
+// What bounds them on this card. Config #4's last window (E = 2^20 over 2^18
+// ids, in-degrees at most 31, 4.8 on average over the non-empty rows) stays in
+// the 50 MB L2 from one iteration to the next: an iteration is bound by L2
+// traffic and latency and by its grid barriers, not by device memory. The
+// push moves 8 bytes of edge columns, a gather and a float atomic an edge, and
+// crosses two barriers an iteration (the scatter must finish before a rank is
+// computed); on an H100 at 700 W it took 32 us an iteration there. At the
+// scale pass's last window (E = 2^23 over 2^21 ids, an R-MAT graph) the
+// columns (64 MB) no longer fit in L2 and the in-degrees are skewed: the
+// largest is 26,614, rows of 256 or more hold 2.9 M of the 8.4 M edges. There
+// the push's atomics at a hub serialize in its L2 slice, every iteration. The
+// pull spends two integer-atomic passes over the edges and a scan once a
+// window, then reads 4 bytes of sources and gathers one contribution an edge
+// an iteration, with no float atomic, and crosses one barrier an iteration,
+// because a vertex's sum is finished where its new rank is computed.
 //
-// 0. zero the degrees, the accumulator and the reduction slots;
-// 1. out-degrees by atomicAdd over src; the warm start's fill into r_out and
-//    its sum;
-// 2. the renormalization, each vertex's contribution r / max(deg, 1), and the
-//    first iteration's dangling mass;
-// 3. per iteration i: (a) acc[dst] += contrib[src] an edge; barrier; (b) each
-//    vertex's new rank, its contribution, its |new - r| into l1 slot i % 3 and
-//    (where it dangles) its mass into dangling slot (i + 1) % 3 for the next
-//    iteration, acc zeroed for the next iteration; barrier; every thread reads
-//    l1 slot i % 3, so all stop at the same iteration. Each kind of slot has
-//    three: phase (a) of iteration i zeroes l1 slot (i + 1) % 3, last read
-//    after the barrier that ended iteration i - 2, and dangling slot
-//    (i + 2) % 3, last read in phase (b) of iteration i - 1; so no slot is
-//    zeroed while a block may still read it. A block sums its threads' parts
-//    (warp shuffles, then shared memory) and adds one atomic a slot.
+// The pull's work split. A row (a target's in-edges) of at most kRowThread
+// entries is summed by one thread, in a grid-stride loop over the vertices.
+// A longer row of a seen vertex is cut into pieces of at most kPiece entries,
+// each summed by one warp (lane l takes entries l, l + 32, ...), so a lane
+// sums at most kPiece / 32 = kRowThread entries either way and no warp sums
+// much more than another; the rows of the light loop are at most kRowThread
+// long. kPiece = 1024 cuts the 26,614-entry hub into 26 pieces and a hub of
+// 2^16 into 64, so its sum spreads over as many warps, while a row of 33 to
+// 1024 entries is one piece, whose warp writes the vertex's update itself. A
+// row of several pieces is finished by the last of its pieces to arrive: each
+// writes its partial sum, fences (__threadfence) and adds one to the row's
+// arrival counter; the one that reads count - 1 back fences again, sums the
+// partials in piece order, writes the update and sets the counter to 0 for
+// the next iteration (whose increments follow the grid barrier).
 //
-// Values that the launch writes are read back with plain loads, never __ldg
-// (the non-coherent path), and the slots with __ldcg (from L2).
+// The pull, phases split by cooperative_groups::this_grid().sync():
+//
+// A. zero the out- and in-degree counts;
+// B. both counts by integer atomics over the edges, each edge's place in its
+//    target's row kept (the value its in-degree atomic returned); the warm
+//    start's fill into r and each block's part of its sum;
+// C. the renormalization (every block sums the blocks' parts in one order),
+//    each vertex's contribution into buffer 0, the first iteration's dangling
+//    mass; each block's count of entries and pieces over its range of
+//    vertices;
+// D. each block's offsets (the counts of the blocks before it), a block scan,
+//    then row_ptr, the piece list in vertex order and the arrival counters at
+//    0;
+// E. each source into col at its target's row_ptr plus its place (the
+//    atomics of B order a row's sources differently from run to run, so the
+//    sums do too);
+// then per iteration i, one pass over the pieces and the rows and one barrier.
+// The contributions are double-buffered: iteration i gathers from buffer
+// i % 2 and writes buffer (i + 1) % 2, which no one reads before the barrier
+// (its last reader was iteration i - 1, before the barrier that ended it).
+// Each block writes its sums of |new - r| and of the next dangling mass into
+// its own entry of slot i % 2 (a plain store, no float atomic); after the
+// barrier every block sums slot i % 2 over the blocks in one fixed order, so
+// every thread gets the same l1 bit for bit and all stop at the same
+// iteration. Slot i % 2 is read only between the barrier ending iteration i
+// and the one ending i + 1; its next writer is iteration i + 2, after that
+// barrier, so two slots suffice (one would let a fast block of iteration
+// i + 1 overwrite a sum that a slow block still reads). Set-up writes the first
+// iteration's dangling mass into slot 1, which iteration 1 writes again only
+// after the barrier that ends iteration 0.
+//
+// Loads. src, dst and ranks_in, never written, go through __ldg. What the
+// launch writes and later rewrites (the ranks, the contributions, the
+// in-degrees, the partials, the blocks' slots) is read with __ldcg, from L2,
+// past the SM's L1, which is not coherent with other SMs' writes. What the
+// set-up writes once and the iterations only read (the out-degrees, row_ptr,
+// col, the piece list) goes through __ldca, cached in L1: no SM reads those
+// lines before the barrier that ends their writing, so no L1 holds a stale
+// copy, and a thread's consecutive entries of col cost one L2 request, not
+// one each.
 
 #include <algorithm>
 #include <atomic>
@@ -79,14 +127,373 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
+
+// ---------------------------------------------------------------- the pull
+// a row of at most kRowThread entries is summed by one thread
+constexpr int kRowThread = 32;
+// a longer row is cut into pieces of at most kPiece entries, a warp each
+constexpr int kPiece = 1024;
+// the blocks' slots have room for this many blocks; the grid is no larger
+constexpr int kMaxGrid = 2048;
+
+struct PullArgs {
+  const int* src;         // [E]
+  const int* dst;         // [E]
+  const float* ranks_in;  // [nv], before the warm start; not written
+  float* ranks;           // [nv], the iterate, returned
+  float* contrib;         // [2 * nv], r / max(deg, 1), double-buffered
+  unsigned* deg;          // [nv], out-degrees
+  int* indeg;             // [nv], in-degrees
+  int* row_ptr;           // [nv + 1]
+  int* place;             // [E], each edge's place in its target's row
+  int* col;               // [E], the sources grouped by target
+  int* piece_row;         // [max_pieces], the vertex of each piece
+  int* piece_start;       // [max_pieces], its first entry in col
+  int* arrive;            // [max_pieces], at a row's first piece: arrivals
+  float* partial;         // [max_pieces], each piece's sum
+  float* b_total;         // [kMaxGrid], the warm start's sum, by block
+  int* b_entries;         // [kMaxGrid], col entries of the block's vertices
+  int* b_pieces;          // [kMaxGrid], pieces of the block's vertices
+  float* b_l1;            // [2 * kMaxGrid], slot i % 2 of iteration i
+  float* b_dm;            // [2 * kMaxGrid], the next dangling mass, likewise
+  float* delta_out;       // the last iteration's l1
+  int* iters_out;         // the iterations run
+  int E, nv, n_seen, max_iters;
+  float damping, tol;
+};
+
+// The bound on the pieces of E entries: a piece belongs to a row of more
+// than kRowThread entries (at most E / (kRowThread + 1) rows), which has one
+// piece for each kPiece entries or part of them.
+long long max_pieces(long long n_edges) {
+  return n_edges / (kRowThread + 1) + n_edges / kPiece + 1;
+}
+
+// The pull's scratch, in 4-byte words, in PullArgs' order.
+long long scratch_words(long long n_edges, long long nv) {
+  return 5 * nv + 1 + 2 * n_edges + 4 * max_pieces(n_edges) + 7LL * kMaxGrid;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_down_sync(kFull, x, o);
+  return x;
+}
+
+// The sum in every lane: each lane adds the same two values at each step
+// (a + b and b + a round alike), so every lane ends with the same bits.
+__device__ __forceinline__ float warp_all_sum(float x) {
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
+  return x;
+}
+
+// The block's sums of a and b in every thread, in one fixed order (so two
+// blocks given the same values get the same bits). Every thread calls it.
+__device__ __forceinline__ float2 block_all_sum2(float a, float b) {
+  __shared__ float2 part[kWarps];
+  a = warp_all_sum(a);
+  b = warp_all_sum(b);
+  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = make_float2(a, b);
+  __syncthreads();
+  float2 s = make_float2(0.f, 0.f);
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    s.x += part[w].x;
+    s.y += part[w].y;
+  }
+  __syncthreads();  // part is written again by the next call
+  return s;
+}
+
+// The sums over the grid's blocks of a[k] and b[k], k < gridDim.x, in every
+// thread, the same in every block.
+__device__ __forceinline__ float2 grid_all_sum2(const float* a, const float* b) {
+  float x = 0.f, y = 0.f;
+  for (int k = threadIdx.x; k < static_cast<int>(gridDim.x); k += kThreads) {
+    x += __ldcg(a + k);
+    y += __ldcg(b + k);
+  }
+  return block_all_sum2(x, y);
+}
+
+// The block's exclusive prefix of x (two int counts) in thread order, and
+// its total in *all. Every thread calls it.
+__device__ __forceinline__ int2 block_scan2(int2 x, int2* all) {
+  __shared__ int2 part[kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int2 inc = x;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int a = __shfl_up_sync(kFull, inc.x, o), b = __shfl_up_sync(kFull, inc.y, o);
+    if (lane >= o) {
+      inc.x += a;
+      inc.y += b;
+    }
+  }
+  if (lane == 31) part[warp] = inc;
+  __syncthreads();
+  int2 before = make_int2(0, 0), total = make_int2(0, 0);
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    if (w < warp) {
+      before.x += part[w].x;
+      before.y += part[w].y;
+    }
+    total.x += part[w].x;
+    total.y += part[w].y;
+  }
+  __syncthreads();
+  *all = total;
+  return make_int2(before.x + inc.x - x.x, before.y + inc.y - x.y);
+}
+
+// The pieces of a row of `in` entries of vertex v: none where a thread sums
+// it (or where v is not seen: its new rank is 0 whatever it receives).
+__device__ __forceinline__ int pieces_of(int in, long long v, int n_seen) {
+  return v < n_seen && in > kRowThread ? (in + kPiece - 1) / kPiece : 0;
+}
+
+// The sum of cur[col[j]] over j in [lo, hi) by one lane, `step` apart, in
+// order; four gathers in flight.
+__device__ __forceinline__ float gather_sum(const float* cur, const int* col, long long lo,
+                                            long long hi, int step) {
+  float s = 0.f;
+  long long j = lo;
+  for (; j + 3 * step < hi; j += 4 * step) {
+    int c[4];
+    float x[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) c[k] = __ldca(col + j + k * step);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) x[k] = __ldcg(cur + c[k]);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) s += x[k];
+  }
+  for (; j < hi; j += step) s += __ldcg(cur + __ldca(col + j));
+  return s;
+}
+
+// A thread's contiguous share of the block's contiguous range of vertices
+// (set-up phases C and D, so that a block's vertices are its scan's).
+__device__ __forceinline__ long long lmin(long long x, long long y) { return x < y ? x : y; }
+
+__device__ __forceinline__ void my_vertices(int nv, long long* lo, long long* hi) {
+  const long long per_block = (static_cast<long long>(nv) + gridDim.x - 1) / gridDim.x;
+  const long long b0 = blockIdx.x * per_block;
+  const long long b1 = lmin(nv, b0 + per_block);
+  const long long per_thread = (per_block + kThreads - 1) / kThreads;
+  *lo = lmin(b1, b0 + threadIdx.x * per_thread);
+  *hi = lmin(b1, *lo + per_thread);
+}
+
+__global__ void __launch_bounds__(kThreads) pagerank_fixpoint(PullArgs a) {
+  cg::grid_group grid = cg::this_grid();
+  const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long nthreads = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long gwarp = tid >> 5, nwarps = nthreads >> 5;
+  const int lane = threadIdx.x & 31;
+  const int nv = a.nv, n_seen = a.n_seen;
+  const float n = static_cast<float>(max(n_seen, 1));
+  const float d = a.damping;
+  const float teleport = __fdiv_rn(__fsub_rn(1.0f, d), n);
+
+  // A. zero the counts
+  for (long long v = tid; v < nv; v += nthreads) {
+    a.deg[v] = 0u;
+    a.indeg[v] = 0;
+  }
+  grid.sync();
+
+  // B. out- and in-degrees and the edges' places; the warm start's fill and
+  // its sum. Four places in flight a thread.
+  long long e = tid;
+  for (; e + 3 * nthreads < a.E; e += 4 * nthreads) {
+    int at4[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      atomicAdd(a.deg + __ldg(a.src + e + k * nthreads), 1u);
+      at4[k] = atomicAdd(a.indeg + __ldg(a.dst + e + k * nthreads), 1);
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) a.place[e + k * nthreads] = at4[k];
+  }
+  for (; e < a.E; e += nthreads) {
+    atomicAdd(a.deg + __ldg(a.src + e), 1u);
+    a.place[e] = atomicAdd(a.indeg + __ldg(a.dst + e), 1);
+  }
+  float part = 0.f;
+  for (long long v = tid; v < nv; v += nthreads) {
+    float x = __ldg(a.ranks_in + v);
+    if (v < n_seen && x == 0.f) x = __fdiv_rn(1.0f, n);
+    a.ranks[v] = x;
+    part += x;
+  }
+  float2 s = block_all_sum2(part, 0.f);
+  if (threadIdx.x == 0) a.b_total[blockIdx.x] = s.x;
+  grid.sync();
+
+  // C. renormalize, contributions, the first dangling mass; the block's
+  // entries and pieces
+  long long lo, hi;
+  my_vertices(nv, &lo, &hi);
+  const float norm = fmaxf(grid_all_sum2(a.b_total, a.b_total).x, 1e-30f);
+  part = 0.f;
+  int2 mine = make_int2(0, 0);
+  for (long long v = lo; v < hi; ++v) {
+    const float x = __fdiv_rn(__ldcg(a.ranks + v), norm);
+    const unsigned k = __ldcg(a.deg + v);
+    a.ranks[v] = x;
+    a.contrib[v] = __fdiv_rn(x, fmaxf(static_cast<float>(k), 1.0f));
+    if (v < n_seen && k == 0u) part += x;
+    const int in = __ldcg(a.indeg + v);
+    mine.x += in;
+    mine.y += pieces_of(in, v, n_seen);
+  }
+  s = block_all_sum2(part, 0.f);
+  int2 block;
+  block_scan2(mine, &block);
+  if (threadIdx.x == 0) {
+    a.b_dm[kMaxGrid + blockIdx.x] = s.x;  // slot 1: read by iteration 0
+    a.b_entries[blockIdx.x] = block.x;
+    a.b_pieces[blockIdx.x] = block.y;
+  }
+  grid.sync();
+
+  // D. row_ptr, the piece list
+  int2 before = make_int2(0, 0);
+  for (int k = threadIdx.x; k < static_cast<int>(blockIdx.x); k += kThreads) {
+    before.x += __ldcg(a.b_entries + k);
+    before.y += __ldcg(a.b_pieces + k);
+  }
+  int2 offset;
+  block_scan2(before, &offset);  // the counts of the blocks before this one
+  int n_pieces = 0;
+  for (int k = threadIdx.x; k < static_cast<int>(gridDim.x); k += kThreads) {
+    n_pieces += __ldcg(a.b_pieces + k);
+  }
+  int2 total;
+  block_scan2(make_int2(n_pieces, 0), &total);
+  n_pieces = total.x;
+  int2 at = block_scan2(mine, &total);
+  int entry = offset.x + at.x, piece = offset.y + at.y;
+  for (long long v = lo; v < hi; ++v) {
+    const int in = __ldcg(a.indeg + v);
+    a.row_ptr[v] = entry;
+    const int np = pieces_of(in, v, n_seen);
+    for (int j = 0; j < np; ++j) {
+      a.piece_row[piece + j] = static_cast<int>(v);
+      a.piece_start[piece + j] = entry + j * kPiece;
+    }
+    if (np > 1) a.arrive[piece] = 0;
+    entry += in;
+    piece += np;
+  }
+  if (tid == 0) a.row_ptr[nv] = a.E;
+  grid.sync();
+
+  // E. the sources into col, grouped by target
+  for (e = tid; e < a.E; e += nthreads) {
+    a.col[__ldca(a.row_ptr + __ldg(a.dst + e)) + __ldcg(a.place + e)] = __ldg(a.src + e);
+  }
+  grid.sync();
+
+  // the iterations
+  float dm = grid_all_sum2(a.b_dm + kMaxGrid, a.b_dm + kMaxGrid).x;
+  float delta = __int_as_float(0x7f800000);  // +inf, as before any iteration
+  int it = 0;
+  while (it < a.max_iters) {
+    const int slot = it & 1;
+    const float* cur = a.contrib + static_cast<long long>(slot) * nv;
+    float* nxt = a.contrib + static_cast<long long>(slot ^ 1) * nv;
+    const float dterm = __fdiv_rn(dm, n);
+    float lpart = 0.f, dnext = 0.f;
+    // vertex v's new rank from its sum: its l1 part, its contribution and
+    // (where it dangles) its mass for the next iteration
+    auto update = [&](long long v, float sum) {
+      const float r = __ldcg(a.ranks + v);
+      float x = 0.f;
+      if (v < n_seen) x = __fadd_rn(teleport, __fmul_rn(d, __fadd_rn(sum, dterm)));
+      lpart += fabsf(x - r);
+      const unsigned k = __ldca(a.deg + v);
+      a.ranks[v] = x;
+      nxt[v] = __fdiv_rn(x, fmaxf(static_cast<float>(k), 1.0f));
+      if (v < n_seen && k == 0u) dnext += x;
+    };
+    // the pieces, a warp each (the loop runs in step across the warp)
+    for (long long p = gwarp; p < n_pieces; p += nwarps) {
+      const int v = __ldca(a.piece_row + p);
+      const int start = __ldca(a.piece_start + p);
+      const int rs = __ldca(a.row_ptr + v), re = __ldca(a.row_ptr + v + 1);
+      const int end = start + min(kPiece, re - start);
+      const float sum = warp_sum(gather_sum(cur, a.col, start + lane, end, 32));
+      if (lane == 0) {
+        if (re - rs <= kPiece) {
+          update(v, sum);
+        } else {
+          a.partial[p] = sum;
+          __threadfence();
+          const long long first = p - (start - rs) / kPiece;
+          const int np = (re - rs + kPiece - 1) / kPiece;
+          if (atomicAdd(a.arrive + first, 1) == np - 1) {
+            __threadfence();
+            float total_sum = 0.f;
+            for (int q = 0; q < np; ++q) total_sum += __ldcg(a.partial + first + q);
+            a.arrive[first] = 0;
+            update(v, total_sum);
+          }
+        }
+      }
+    }
+    // the rows a thread sums, and the vertices no one sends to
+    for (long long v = tid; v < nv; v += nthreads) {
+      const int rs = __ldca(a.row_ptr + v), re = __ldca(a.row_ptr + v + 1);
+      const bool seen = v < n_seen;
+      if (seen && re - rs > kRowThread) continue;  // its pieces' warps update it
+      update(v, seen ? gather_sum(cur, a.col, rs, re, 1) : 0.f);
+    }
+    s = block_all_sum2(lpart, dnext);
+    if (threadIdx.x == 0) {
+      a.b_l1[slot * kMaxGrid + blockIdx.x] = s.x;
+      a.b_dm[slot * kMaxGrid + blockIdx.x] = s.y;
+    }
+    grid.sync();
+    s = grid_all_sum2(a.b_l1 + slot * kMaxGrid, a.b_dm + slot * kMaxGrid);
+    delta = s.x;
+    dm = s.y;
+    ++it;
+    if (delta <= a.tol) break;
+  }
+  if (tid == 0) {
+    *a.delta_out = delta;
+    *a.iters_out = it;
+  }
+}
+
+// ---------------------------------------------------------------- the push
+// (the first design, kept to be timed against the pull; the library never
+// launches it). Its phases: 0. zero the degrees, the accumulator and the
+// reduction slots; 1. out-degrees by atomicAdd over src, the warm start's fill
+// and its sum; 2. the renormalization, each vertex's contribution and the
+// first iteration's dangling mass; 3. per iteration i: (a) acc[dst] +=
+// contrib[src] an edge (a float atomicAdd, in an order that changes from run
+// to run); barrier; (b) each vertex's new rank, its contribution, its
+// |new - r| into l1 slot i % 3 and (where it dangles) its mass into dangling
+// slot (i + 1) % 3 for the next iteration, acc zeroed for the next
+// iteration; barrier; every thread reads l1 slot i % 3, so all stop at the
+// same iteration. Each kind of slot has three: phase (a) of iteration i
+// zeroes l1 slot (i + 1) % 3, last read after the barrier that ended
+// iteration i - 2, and dangling slot (i + 2) % 3, last read in phase (b) of
+// iteration i - 1; so no slot is zeroed while a block may still read it. A
+// block sums its threads' parts and adds one atomic a slot.
+
 // reduction slots of each kind: iteration i sums into slot i % kSlots
 constexpr int kSlots = 3;
 // the scratch's floats past its three vertex arrays: kSlots of l1, kSlots of
 // dangling mass, the warm start's sum
 constexpr int kSlotFloats = 2 * kSlots + 2;
 
-struct Args {
+struct PushArgs {
   const int* src;         // [E]
   const int* dst;         // [E]
   const float* ranks_in;  // [nv], before the warm start; not written
@@ -102,15 +509,10 @@ struct Args {
   float damping, tol;
 };
 
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_down_sync(kFull, x, o);
-  return x;
-}
-
 // The block's sums of a and b, in thread 0. Every thread of the block calls
 // it, so every shuffle runs with the whole warp.
 __device__ __forceinline__ float2 block_sum2(float a, float b) {
-  __shared__ float2 part[kThreads / 32];
+  __shared__ float2 part[kWarps];
   a = warp_sum(a);
   b = warp_sum(b);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -118,7 +520,7 @@ __device__ __forceinline__ float2 block_sum2(float a, float b) {
   __syncthreads();
   float2 s = make_float2(0.f, 0.f);
   if (warp == 0) {
-    s = lane < kThreads / 32 ? part[lane] : make_float2(0.f, 0.f);
+    s = lane < kWarps ? part[lane] : make_float2(0.f, 0.f);
     s.x = warp_sum(s.x);
     s.y = warp_sum(s.y);
   }
@@ -126,7 +528,7 @@ __device__ __forceinline__ float2 block_sum2(float a, float b) {
   return s;
 }
 
-__global__ void __launch_bounds__(kThreads) pagerank_fixpoint(Args a) {
+__global__ void __launch_bounds__(kThreads) pagerank_fixpoint_push(PushArgs a) {
   cg::grid_group grid = cg::this_grid();
   const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const long long nthreads = static_cast<long long>(gridDim.x) * blockDim.x;
@@ -231,16 +633,19 @@ __global__ void __launch_bounds__(kThreads) pagerank_fixpoint(Args a) {
   }
 }
 
-// The cooperative grid's most blocks on each card (blocks an SM times SMs),
-// read once a card: 0 until then.
+// ---------------------------------------------------------------- launching
+// The most blocks of a kernel's cooperative grid on each card (blocks an SM
+// times SMs), read once a card into that kernel's own cache (the two kernels
+// differ in registers, so one's occupancy must not size the other's grid):
+// 0 until then.
 constexpr int kMaxDevices = 64;
-std::atomic<int> g_max_blocks[kMaxDevices];
+std::atomic<int> g_pull_blocks[kMaxDevices];
+std::atomic<int> g_push_blocks[kMaxDevices];
 
-cudaError_t max_blocks(int device, int* out) {
+cudaError_t max_blocks(const void* kernel, std::atomic<int>* cache, int device, int* out) {
   if (device >= kMaxDevices) return cudaErrorInvalidDevice;
-  int blocks = g_max_blocks[device].load(std::memory_order_relaxed);
+  int blocks = cache[device].load(std::memory_order_relaxed);
   if (blocks == 0) {
-    const void* kernel = reinterpret_cast<const void*>(&pagerank_fixpoint);
     int per_sm = 0, sms = 0;
     cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
     if (e != cudaSuccess) return e;
@@ -248,7 +653,7 @@ cudaError_t max_blocks(int device, int* out) {
     if (e != cudaSuccess) return e;
     if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
     blocks = per_sm * sms;
-    g_max_blocks[device].store(blocks, std::memory_order_relaxed);
+    cache[device].store(blocks, std::memory_order_relaxed);
   }
   *out = blocks;
   return cudaSuccess;
@@ -263,25 +668,101 @@ cudaError_t select_device(int device) {
   return current == device ? cudaSuccess : cudaSetDevice(device);
 }
 
+bool bad_sizes(long long n_edges, int nv, int n_seen, int max_iters, int device) {
+  return n_edges < 0 || n_edges > INT_MAX || nv < 0 || nv == INT_MAX || n_seen < 0 ||
+         max_iters < 0 || device < 0;
+}
+
+// A cooperative launch of `kernel` with `args`, at most `cap` blocks and no
+// more than a thread an edge (or a vertex) needs; its error code.
+int launch(const void* kernel, std::atomic<int>* cache, void* args, long long n_edges, int nv,
+           int cap, int device, void* stream) {
+  int most = 0;
+  cudaError_t e = max_blocks(kernel, cache, device, &most);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long need =
+      (std::max({n_edges, static_cast<long long>(nv), 1LL}) + kThreads - 1) / kThreads;
+  const int blocks = static_cast<int>(std::min({static_cast<long long>(most), need,
+                                                 static_cast<long long>(cap)}));
+  void* params[] = {args};
+  e = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(kThreads), params, 0,
+                                  static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-extern "C" int pagerank_slot_floats() { return kSlotFloats; }
+// The pull's scratch in bytes for n_edges edges and nv rank slots.
+extern "C" long long pagerank_scratch_bytes(long long n_edges, int nv) {
+  return 4 * scratch_words(n_edges, nv);
+}
 
-// One window's warm start and fixpoint on `stream` of card `device`. src,
-// dst: [n_edges] int32, every id below nv; ranks_in: [nv] float32 (read
-// only); ranks_out: [nv] float32; scratch: 3 * nv + pagerank_slot_floats()
-// float32, any contents; delta: one float32; iters: one int32. Returns the
-// launch's error code (0 when it was accepted).
+// One window's warm start and fixpoint on `stream` of card `device`, pulled
+// over a CSR by target. src, dst: [n_edges] int32, every id below nv;
+// ranks_in: [nv] float32 (read only); ranks_out: [nv] float32; scratch:
+// pagerank_scratch_bytes(n_edges, nv) bytes, 4-byte aligned, any contents;
+// delta: one float32; iters: one int32. Returns the launch's error code (0
+// when it was accepted).
 extern "C" int pagerank_fixpoint_launch(const void* src, const void* dst, const void* ranks_in,
                                         void* ranks_out, void* scratch, void* delta, void* iters,
                                         long long n_edges, int nv, int n_seen, float damping,
                                         float tol, int max_iters, int device, void* stream) {
-  if (n_edges < 0 || n_edges > INT_MAX || nv < 0 || n_seen < 0 || max_iters < 0 || device < 0) {
+  if (bad_sizes(n_edges, nv, n_seen, max_iters, device)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t e = select_device(device);
   if (e != cudaSuccess) return static_cast<int>(e);
-  Args a;
+  const long long v = nv, mp = max_pieces(n_edges);
+  float* f = static_cast<float*>(scratch);
+  int* w = static_cast<int*>(scratch);
+  PullArgs a;
+  a.src = static_cast<const int*>(src);
+  a.dst = static_cast<const int*>(dst);
+  a.ranks_in = static_cast<const float*>(ranks_in);
+  a.ranks = static_cast<float*>(ranks_out);
+  a.contrib = f;
+  a.deg = reinterpret_cast<unsigned*>(w + 2 * v);
+  a.indeg = w + 3 * v;
+  a.row_ptr = w + 4 * v;
+  a.place = w + 5 * v + 1;
+  a.col = a.place + n_edges;
+  a.piece_row = a.col + n_edges;
+  a.piece_start = a.piece_row + mp;
+  a.arrive = a.piece_start + mp;
+  a.partial = reinterpret_cast<float*>(a.arrive + mp);
+  a.b_total = a.partial + mp;
+  a.b_entries = reinterpret_cast<int*>(a.b_total + kMaxGrid);
+  a.b_pieces = a.b_entries + kMaxGrid;
+  a.b_l1 = reinterpret_cast<float*>(a.b_pieces + kMaxGrid);
+  a.b_dm = a.b_l1 + 2 * kMaxGrid;
+  a.delta_out = static_cast<float*>(delta);
+  a.iters_out = static_cast<int*>(iters);
+  a.E = static_cast<int>(n_edges);
+  a.nv = nv;
+  a.n_seen = n_seen;
+  a.max_iters = max_iters;
+  a.damping = damping;
+  a.tol = tol;
+  return launch(reinterpret_cast<const void*>(&pagerank_fixpoint), g_pull_blocks, &a, n_edges,
+                nv, kMaxGrid, device, stream);
+}
+
+extern "C" int pagerank_slot_floats() { return kSlotFloats; }
+
+// The push design on the same operands: scratch is 3 * nv +
+// pagerank_slot_floats() float32, any contents.
+extern "C" int pagerank_fixpoint_push_launch(const void* src, const void* dst,
+                                             const void* ranks_in, void* ranks_out, void* scratch,
+                                             void* delta, void* iters, long long n_edges, int nv,
+                                             int n_seen, float damping, float tol, int max_iters,
+                                             int device, void* stream) {
+  if (bad_sizes(n_edges, nv, n_seen, max_iters, device)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t e = select_device(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  PushArgs a;
   float* f = static_cast<float*>(scratch);
   const size_t v = static_cast<size_t>(nv);
   a.src = static_cast<const int*>(src);
@@ -300,19 +781,8 @@ extern "C" int pagerank_fixpoint_launch(const void* src, const void* dst, const 
   a.max_iters = max_iters;
   a.damping = damping;
   a.tol = tol;
-  int most = 0;
-  e = max_blocks(device, &most);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  // no more blocks than a thread an edge (or a vertex) needs
-  const long long need =
-      (std::max({n_edges, static_cast<long long>(nv), 1LL}) + kThreads - 1) / kThreads;
-  const int blocks = static_cast<int>(std::min(static_cast<long long>(most), need));
-  const void* kernel = reinterpret_cast<const void*>(&pagerank_fixpoint);
-  void* args[] = {&a};
-  e = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(kThreads), args, 0,
-                                  static_cast<cudaStream_t>(stream));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
+  return launch(reinterpret_cast<const void*>(&pagerank_fixpoint_push), g_push_blocks, &a,
+                n_edges, nv, INT_MAX, device, stream);
 }
 
 extern "C" const char* pagerank_error_string(int code) {

@@ -38,8 +38,9 @@ What differs from the XLA reference, and why:
   (``src[n0:n0 + cap].copy_(bsrc)``), the capacity rule asserted, and the
   iteration reads only the first ``n_edges`` entries (the masked rest
   contributes nothing in the reference either).
-- The kernel's float atomics (like ``index_add_`` of floats on a card)
-  sum in an order that changes from run to run: compare ranks within a
+- The kernel sums each vertex's in-edges over a CSR whose rows its
+  integer atomics fill in an order that changes from run to run (as
+  ``index_add_`` of floats on a card does): compare ranks within a
   tolerance, never bitwise.
 - The K-window ``lax.scan`` of the group fold is a loop over the same
   one-window function (:func:`_window_step`), which both paths share.

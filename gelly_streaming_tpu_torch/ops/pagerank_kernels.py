@@ -12,13 +12,19 @@ runs as one device program with a ``lax.while_loop`` for its early exit.
 - On CUDA tensors :func:`fixpoint` checks its operands and makes one launch
   of the kernel in ``csrc/pagerank.cu`` (built at first use by
   :mod:`.cuda_build`), counted in :data:`LAUNCHES`: the warm start, the
-  out-degrees and every iteration run in it, on a persistent cooperative
-  grid, and it stops at the converged iteration. Nothing is read back to
-  the host: the ranks, the last L1 change and the iteration count come back
-  as device tensors. A CUDA call launches the kernel or raises. Its float
-  atomics sum in an order that changes from run to run, so under
-  ``torch.use_deterministic_algorithms(True)`` it raises, as PyTorch's own
-  nondeterministic CUDA operations do (and warns under ``warn_only``).
+  out-degrees, a CSR of the edges by target and every iteration run in it,
+  on a persistent cooperative grid, and it stops at the converged
+  iteration. Each vertex pulls the sum of its in-edges (no float atomic;
+  one grid barrier an iteration). Nothing is read back to the host: the
+  ranks, the last L1 change and the iteration count come back as device
+  tensors. A CUDA call launches the kernel or raises. The CSR's rows are
+  filled by integer atomics, so each row's sum runs in an order that
+  changes from run to run: under ``torch.use_deterministic_algorithms(True)``
+  it raises, as PyTorch's own nondeterministic CUDA operations do (and
+  warns under ``warn_only``). :func:`_fixpoint_push` launches the first
+  design (a float atomic an edge, two barriers an iteration), counted in
+  :data:`PUSH_LAUNCHES`; only ``chip_smoke.py`` and a card test call it, to
+  time the two designs in turns.
 - On CPU tensors it runs :func:`fixpoint_plain`, the torch form: the
   reference's chunks of ``chunk`` iterations with a freeze flag, read on the
   host once a chunk (counted in :data:`HOST_READS`). The tests and
@@ -43,6 +49,10 @@ from .cuda_build import device_index, load_library
 #: launches of the fixpoint kernel since import (or since a caller reset
 #: it): one a window on the card
 LAUNCHES = 0
+
+#: launches of the first (push) design through :func:`_fixpoint_push`,
+#: which the library never calls
+PUSH_LAUNCHES = 0
 
 #: device -> host reads of the window fixpoints: one a chunk of
 #: :func:`fixpoint_plain` (CPU tensors, the mesh path), none on the kernel
@@ -129,29 +139,47 @@ def fixpoint(src, dst, ranks, n_seen: int, damping: float, tol: float, chunk: in
 
 
 def _fixpoint_kernel(src, dst, ranks, n_seen: int, damping: float, tol: float, max_iters: int):
-    """The fixpoint on the card, for checked operands: new output tensors
-    and scratch (the contributions, the accumulator and the out-degrees,
-    ``[nv]`` each, then the kernel's reduction slots), one launch, no host
-    read."""
+    """The fixpoint on the card, for checked operands: scratch of the
+    library's ``pagerank_scratch_bytes`` (the two contribution buffers, the
+    degrees, the CSR, the piece list and the blocks' slots), one launch,
+    no host read. ``max_iters`` may be 0 (the warm start alone), which
+    :func:`fixpoint` never asks for."""
+    global LAUNCHES
     _refuse_nondeterministic()
     lib = _library()
-    nv = ranks.shape[0]
-    out = torch.empty_like(ranks)
-    scratch = torch.empty(3 * nv + lib.slot_floats, dtype=torch.float32, device=ranks.device)
-    delta = torch.empty((), dtype=torch.float32, device=ranks.device)
-    iters = torch.empty((), dtype=torch.int32, device=ranks.device)
-    _launch(lib, src, dst, ranks, out, scratch, delta, iters, n_seen, damping, tol, max_iters)
-    return out, delta, iters
+    scratch = torch.empty(lib.pagerank_scratch_bytes(src.shape[0], ranks.shape[0]),
+                          dtype=torch.uint8, device=ranks.device)
+    out = _launch(lib.pagerank_fixpoint_launch, lib, scratch, src, dst, ranks, n_seen, damping,
+                  tol, max_iters)
+    LAUNCHES += 1
+    return out
+
+
+def _fixpoint_push(src, dst, ranks, n_seen: int, damping: float, tol: float, max_iters: int):
+    """The first design on the card (a float atomic an edge, two barriers
+    an iteration), for timing against :func:`_fixpoint_kernel` on checked
+    operands: scratch of the contributions, the accumulator and the
+    out-degrees (``[nv]`` each) and its reduction slots, one launch counted
+    in :data:`PUSH_LAUNCHES`."""
+    global PUSH_LAUNCHES
+    _refuse_nondeterministic()
+    lib = _library()
+    scratch = torch.empty(3 * ranks.shape[0] + lib.slot_floats, dtype=torch.float32,
+                          device=ranks.device)
+    out = _launch(lib.pagerank_fixpoint_push_launch, lib, scratch, src, dst, ranks, n_seen,
+                  damping, tol, max_iters)
+    PUSH_LAUNCHES += 1
+    return out
 
 
 def _refuse_nondeterministic() -> None:
     """Raise (or warn, under ``warn_only``) when deterministic algorithms
-    are on: the kernel's float atomics sum in a varying order."""
+    are on: the kernels sum in an order that varies from run to run."""
     if not torch.are_deterministic_algorithms_enabled():
         return
     msg = ("pagerank_kernels.fixpoint on CUDA tensors does not have a deterministic "
-           "implementation (float atomics), but torch.use_deterministic_algorithms(True) "
-           "was set")
+           "implementation (its CSR is filled by atomics), but "
+           "torch.use_deterministic_algorithms(True) was set")
     if torch.is_deterministic_algorithms_warn_only_enabled():
         warnings.warn(msg, UserWarning, stacklevel=3)
     else:
@@ -189,32 +217,37 @@ def _check(src, dst, ranks, n_seen: int, chunk: int, max_chunks: int) -> None:
                          f"2^31 iterations, got {chunk}, {max_chunks}")
 
 
-def _launch(lib, src, dst, ranks, out, scratch, delta, iters, n_seen: int, damping: float,
-            tol: float, max_iters: int) -> None:
-    """One fixpoint on the current stream of the operands' card, counted."""
-    global LAUNCHES
+def _launch(fn, lib, scratch, src, dst, ranks, n_seen: int, damping: float, tol: float,
+            max_iters: int):
+    """One fixpoint by the launcher ``fn`` on the current stream of the
+    operands' card, into new ``(ranks, delta, iters)`` tensors; raises when
+    the launch was refused."""
     device = ranks.device
+    out = torch.empty_like(ranks)
+    delta = torch.empty((), dtype=torch.float32, device=device)
+    iters = torch.empty((), dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        code = lib.pagerank_fixpoint_launch(
-            src.data_ptr(), dst.data_ptr(), ranks.data_ptr(), out.data_ptr(),
-            scratch.data_ptr(), delta.data_ptr(), iters.data_ptr(), src.shape[0],
-            ranks.shape[0], n_seen, damping, tol, max_iters, device_index(device), stream)
+        code = fn(src.data_ptr(), dst.data_ptr(), ranks.data_ptr(), out.data_ptr(),
+                  scratch.data_ptr(), delta.data_ptr(), iters.data_ptr(), src.shape[0],
+                  ranks.shape[0], n_seen, damping, tol, max_iters, device_index(device), stream)
     if code != 0:
         msg = lib.pagerank_error_string(code).decode()
         raise RuntimeError(f"pagerank fixpoint: the launch failed: {msg} (cudaError {code})")
-    LAUNCHES += 1
+    return out, delta, iters
 
 
 def _library() -> ctypes.CDLL:
-    """The kernel's library; at first use its C signatures are declared and
-    its scratch's slot count (``slot_floats``) read once."""
+    """The kernels' library; at first use its C signatures are declared and
+    the push's slot count (``slot_floats``) read once."""
     lib = load_library("pagerank")
-    fn = lib.pagerank_fixpoint_launch
-    if fn.argtypes is None:
-        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [ptr] * 7 + [ctypes.c_longlong, i32, i32, f32, f32, i32, i32, ptr]
-        fn.restype = i32
+    if lib.pagerank_fixpoint_launch.argtypes is None:
+        ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+        for fn in (lib.pagerank_fixpoint_launch, lib.pagerank_fixpoint_push_launch):
+            fn.argtypes = [ptr] * 7 + [i64, i32, i32, f32, f32, i32, i32, ptr]
+            fn.restype = i32
+        lib.pagerank_scratch_bytes.argtypes = [i64, i32]
+        lib.pagerank_scratch_bytes.restype = i64
         lib.pagerank_slot_floats.argtypes = []
         lib.pagerank_slot_floats.restype = i32
         lib.slot_floats = lib.pagerank_slot_floats()

@@ -43,12 +43,16 @@ each leaves all zero; equal to the one-launch-a-hop search with no host
 sync; launched on its operands' card, refusing a malformed CSR before any
 launch, and the k = 3 spanner searching in several batches a window on the
 card equal to the CPU without a host sync, and PageRank's fixpoint kernel
-(``csrc/pagerank.cu``, one launch a window): against its plain version at
-config #4's last window, with a hub of in-degree 2^16, with every vertex
-dangling and at the cap (ranks within 1e-6, iterations within 2); one launch
-a window and no host read through the entry point; no host sync in the
-window step; launched on its operands' card; refused under deterministic
-algorithms; and superbatch 4 within 1e-6 of superbatch 1.
+(``csrc/pagerank.cu``, one launch a window, pulling over a CSR by
+target): against its plain version at config #4's last window, with a hub
+of in-degree 2^16 (cut into 64 pieces), with every vertex dangling, at the
+cap, with rows of one piece's length and one more, and with in-edges into
+padding rows (ranks within 1e-6, iterations within 2); against the first
+(push) design on the same operands, and both with no iteration equal to
+the warm start; one launch a window, no push launch and no host read
+through the entry point; no host sync in the window step; launched on its
+operands' card; refused under deterministic algorithms; and superbatch 4
+within 1e-6 of superbatch 1.
 
 Every test here is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is false. The file imports only torch, numpy
@@ -1474,14 +1478,16 @@ def _ranks_close(r, p):
     return bool(((r - p).abs() <= 1e-4 * p.abs() + 1e-10).all())
 
 
-def _fixpoint_equal(card, src, dst, ranks, n_seen, tol=1e-6, chunk=10, max_chunks=5, rtol=0.0):
+def _fixpoint_equal(card, src, dst, ranks, n_seen, tol=1e-6, chunk=10, max_chunks=5, rtol=0.0,
+                    reference=torch.float32):
     """One kernel launch against the plain version on the same card
-    tensors: ranks within 1e-6 (plus ``rtol`` of the plain rank, for a
-    vertex whose rank sums many float32 terms) and each within 1e-4 of
-    itself (plus 1e-10: at 2^18 vertices a rank is about 1e-6, as small as
-    the absolute bound), the ranks' sum within 1e-5 of the plain ranks'
-    (float32 rounding at a hub loses mass in both, so neither need sum to
-    1), iterations within 2, the input ranks unchanged."""
+    tensors (run in ``reference``, float32 or float64): ranks within 1e-6
+    (plus ``rtol`` of the plain rank, for a vertex whose rank sums many
+    float32 terms) and each within 1e-4 of itself (plus 1e-10: at 2^18
+    vertices a rank is about 1e-6, as small as the absolute bound), the
+    ranks' sum within 1e-5 of the plain ranks' (float32 rounding at a hub
+    loses mass, so neither need sum to 1), iterations within 2, the input
+    ranks unchanged."""
     from gelly_streaming_tpu_torch.ops import pagerank_kernels as pk
 
     held = ranks.clone()
@@ -1489,7 +1495,8 @@ def _fixpoint_equal(card, src, dst, ranks, n_seen, tol=1e-6, chunk=10, max_chunk
     r, delta, it = pk.fixpoint(src, dst, ranks, n_seen, 0.85, tol, chunk, max_chunks)
     torch.cuda.synchronize(card)
     assert pk.LAUNCHES == before + 1
-    pr, pdelta, pit = pk.fixpoint_plain(src, dst, ranks, n_seen, 0.85, tol, chunk, max_chunks)
+    pr, pdelta, pit = pk.fixpoint_plain(src, dst, ranks.to(reference), n_seen, 0.85, tol, chunk,
+                                        max_chunks)
     assert r.device == card and delta.device == card and it.device == card
     assert r.dtype == torch.float32 and delta.dtype == torch.float32 and it.dtype == torch.int32
     assert torch.equal(ranks, held) and r.data_ptr() != ranks.data_ptr()
@@ -1513,13 +1520,14 @@ def test_pagerank_kernel_matches_plain_at_config_4s_last_window(card):
 
 
 def test_pagerank_kernel_with_a_hub_of_in_degree_65536(card):
-    """Vertex 0 receives 2^16 edges: its atomics serialize in L2. Its rank
-    (about 0.25) is a sum of 2^16 float32 terms, whose order alone moves
-    it by 1.5e-6 (the plain version on the CPU over the same edges
-    shuffled), so the hub's rank is held within 2^-14 of the plain one's
-    (1.5e-5 at 0.25), every other rank within 1e-6. (Each of those adds
-    rounds at the hub's ulp, so in float32 the L1 change stalls near 3e-4
-    and both forms run to the cap at either tol.)"""
+    """Vertex 0 receives 2^16 edges: 64 pieces of 1024, each summed by a
+    warp, the last to arrive adding the partials in piece order. The plain
+    version is the reference here in float64: in float32 its one-by-one
+    adds into the hub's sum of about 0.25 round at the hub's ulp, and 2^16
+    such adds of near-equal terms drift by about 4e-4 of the rank (the L1
+    change then stalls near 3e-4 and runs to the cap), while the kernel's
+    sums of 32 terms a lane, a warp's tree and 64 partials stay within the
+    1e-6 bound of float64 and converge when it does."""
     rng = np.random.default_rng(17)
     nv = 1 << 17
     src = np.concatenate([np.arange(1, 1 + (1 << 16)), rng.integers(0, nv, 1 << 16)])
@@ -1527,7 +1535,7 @@ def test_pagerank_kernel_with_a_hub_of_in_degree_65536(card):
     ranks = torch.zeros(nv, device=card)
     t = [torch.from_numpy(a.astype(np.int32)).to(card) for a in (src, dst)]
     for tol in (1e-4, 1e-6):
-        r, _, _ = _fixpoint_equal(card, *t, ranks, nv, tol=tol, rtol=2**-14)
+        r, _, _ = _fixpoint_equal(card, *t, ranks, nv, tol=tol, reference=torch.float64)
         assert int(r.argmax()) == 0
 
 
@@ -1552,16 +1560,71 @@ def test_pagerank_kernel_reaches_the_cap(card):
     assert int(it) == 12
 
 
+# csrc/pagerank.cu's split: rows of more than ROW_THREAD entries are cut
+# into pieces of at most PIECE
+PR_ROW_THREAD, PR_PIECE = 32, 1024
+
+
+def test_pagerank_kernel_with_rows_of_a_piece_and_one_more(card):
+    """Rows of 32 and 33 entries (a thread's, a warp's), of 1024 (one
+    piece), 1025 (two) and 3073 (four) beside random edges, all seen; then
+    the same with the long rows past ``n_seen``, whose ranks stay 0."""
+    rng = np.random.default_rng(23)
+    nv = 1 << 14
+    lens = {5: PR_ROW_THREAD, 6: PR_ROW_THREAD + 1, 7: PR_PIECE, 8: PR_PIECE + 1,
+            9: 3 * PR_PIECE + 1}
+    src = np.concatenate([rng.integers(0, nv, sum(lens.values())), rng.integers(0, nv, 1 << 16)])
+    dst = np.concatenate([np.repeat(list(lens), list(lens.values())),
+                          rng.integers(16, nv, 1 << 16)])
+    order = rng.permutation(len(src))
+    t = [torch.from_numpy(a[order].astype(np.int32)).to(card) for a in (src, dst)]
+    for tol in (1e-4, 1e-6):
+        _fixpoint_equal(card, *t, torch.zeros(nv, device=card), nv, tol=tol)
+    # the same long rows into padding slots (past n_seen): no pieces, ranks 0
+    pad = dst.copy()
+    pad[:sum(lens.values())] += nv
+    t = [torch.from_numpy(a[order].astype(np.int32)).to(card) for a in (src, pad)]
+    r, _, _ = _fixpoint_equal(card, *t, torch.zeros(nv + 16, device=card), nv)
+    assert float(r[nv:].abs().max()) == 0.0
+
+
+def test_pagerank_pull_matches_the_push_design(card):
+    """The library's kernel (the pull) and the first design (the push,
+    reached only through its private entry) on config #4's last window:
+    ranks within 1e-6 and 1e-4 of each other relative to the push's,
+    iterations within 2; each design counted in its own counter; and with no
+    iteration both return the warm start."""
+    from gelly_streaming_tpu_torch.ops import pagerank_kernels as pk
+
+    src, dst, ranks, n_seen = _last_window_operands(card)
+    launches, push = pk.LAUNCHES, pk.PUSH_LAUNCHES
+    r, _, it = pk._fixpoint_kernel(src, dst, ranks, n_seen, 0.85, 1e-6, 50)
+    q, _, qit = pk._fixpoint_push(src, dst, ranks, n_seen, 0.85, 1e-6, 50)
+    torch.cuda.synchronize(card)
+    assert pk.LAUNCHES == launches + 1 and pk.PUSH_LAUNCHES == push + 1
+    assert float((r - q).abs().max()) <= 1e-6 and _ranks_close(r, q)
+    assert abs(int(it) - int(qit)) <= 2
+    active = torch.arange(ranks.shape[0], device=card) < n_seen
+    warm = torch.where(active & (ranks == 0), 1.0 / torch.tensor(float(n_seen), device=card),
+                       ranks)
+    warm = warm / warm.sum()
+    for run in (pk._fixpoint_kernel, pk._fixpoint_push):
+        w, delta, it0 = run(src, dst, ranks, n_seen, 0.85, 1e-6, 0)
+        assert int(it0) == 0 and float(delta) == float("inf")
+        assert _ranks_close(w, warm) and float((w - warm).abs().max()) <= 1e-9
+
+
 def test_pagerank_makes_one_launch_a_window_and_no_host_read(card):
     from gelly_streaming_tpu_torch.library import IncrementalPageRank
     from gelly_streaming_tpu_torch.ops import pagerank_kernels as pk
 
     src, dst = _zipf(13, 1 << 12, 1 << 15)
     for superbatch in (1, 4):
-        pk.LAUNCHES = pk.HOST_READS = 0
+        pk.LAUNCHES = pk.HOST_READS = pk.PUSH_LAUNCHES = 0
         ems = list(IncrementalPageRank(superbatch=superbatch).run(
             _pr_stream(src, dst, 1 << 12, 1 << 12, card)))
         assert len(ems) == 8 and pk.LAUNCHES == 8 and pk.HOST_READS == 0
+        assert pk.PUSH_LAUNCHES == 0
 
 
 def test_pagerank_window_step_makes_no_host_sync(card):

@@ -49,7 +49,15 @@ RANK_TOL = 1e-6
 # each rank also within RANK_RTOL of itself, plus RANK_FLOOR
 RANK_RTOL, RANK_FLOOR = 1e-4, 1e-10
 SUM_TOL = 1e-5
-CASES = ("skewed", "dangling", "partial_seen", "one_edge", "no_new_edges")
+CASES = ("skewed", "dangling", "partial_seen", "one_edge", "no_new_edges", "piece_rows")
+# the pull model's split, small so that rows split at NV = 256: a row of at
+# most ROW_THREAD entries is one thread's, a longer one is cut into pieces
+# of at most PIECE entries, a warp each
+ROW_THREAD, PIECE = 2, 8
+# csrc/pagerank.cu's kRowThread, kPiece, kMaxGrid
+KERNEL_ROW_THREAD, KERNEL_PIECE, KERNEL_MAX_GRID = 32, 1024, 2048
+# "piece_rows": the targets of rows of exactly these lengths
+PIECE_ROWS = {10: PIECE, 11: PIECE + 1, 12: 3 * PIECE + 1, 13: ROW_THREAD, 14: ROW_THREAD + 1}
 
 
 @functools.lru_cache(maxsize=None)
@@ -58,7 +66,7 @@ def _jax_step(chunk, max_chunks):
 
 
 def kernel_model(src, dst, ranks, n_seen, damping, tol, max_iters):
-    """The kernel's loop in numpy float32: warm start, out-degrees, then
+    """The push kernel's loop in numpy float32: warm start, out-degrees, then
     iterations until the L1 change is at most ``tol`` (that iteration
     included) or ``max_iters``. Returns ``(ranks, l1, iterations)``."""
     f = np.float32
@@ -87,6 +95,85 @@ def kernel_model(src, dst, ranks, n_seen, damping, tol, max_iters):
     return r, float(delta), it
 
 
+def pull_layout(src, dst, nv, n_seen, row_thread, piece):
+    """The pull kernel's set-up in a fixed order: ``(row_ptr, col, pieces,
+    first)``: the CSR by target (each row's sources in edge order; the
+    kernel's order changes from run to run), the pieces in vertex order as
+    ``(vertex, first entry)`` and each piece's row's first piece. A seen
+    vertex's row longer than ``row_thread`` has a piece for each ``piece``
+    entries or part of them; other rows have none."""
+    indeg = np.bincount(dst, minlength=nv)
+    row_ptr = np.zeros(nv + 1, np.int64)
+    row_ptr[1:] = np.cumsum(indeg)
+    col = src[np.argsort(dst, kind="stable")]
+    count = np.where((np.arange(nv) < n_seen) & (indeg > row_thread), -(-indeg // piece), 0)
+    vertex = np.repeat(np.arange(nv), count)
+    first = np.repeat(np.cumsum(count) - count, count)
+    start = row_ptr[vertex] + (np.arange(len(vertex)) - first) * piece
+    return row_ptr, col, list(zip(vertex.tolist(), start.tolist())), first
+
+
+def _warp_sum(x):
+    """A warp's sum of ``x`` in float32: lane l adds entries l, l + 32, ...
+    in order, then the shuffle tree (offsets 16 to 1) into lane 0."""
+    lanes = np.zeros(32, np.float32)
+    for i in range(0, len(x), 32):
+        part = x[i:i + 32]
+        lanes[:len(part)] += part
+    for o in (16, 8, 4, 2, 1):
+        lanes[:32 - o] = lanes[:32 - o] + lanes[o:]
+    return lanes[0]
+
+
+def pull_model(src, dst, ranks, n_seen, damping, tol, max_iters, row_thread=ROW_THREAD,
+               piece=PIECE):
+    """The pull kernel in numpy float32: the warm start, the out-degrees,
+    :func:`pull_layout`, then iterations until the L1 change is at most
+    ``tol`` (that iteration included) or ``max_iters``. An iteration
+    gathers from one contribution buffer and writes the other; a thread
+    sums a short row in order, a warp each piece of a long one
+    (:func:`_warp_sum`), and a row's pieces add up in piece order. Returns
+    ``(ranks, l1, iterations)``."""
+    f = np.float32
+    nv = len(ranks)
+    n = f(max(n_seen, 1))
+    d = f(damping)
+    active = np.arange(nv) < n_seen
+    r = np.where(active & (ranks == 0), f(1) / n, ranks).astype(f)
+    r = (r / max(r.sum(dtype=f), f(1e-30))).astype(f)
+    deg = np.maximum(np.bincount(src, minlength=nv), 1).astype(f)
+    dangling = active & (np.bincount(src, minlength=nv) == 0)
+    row_ptr, col, pieces, first = pull_layout(src, dst, nv, n_seen, row_thread, piece)
+    lens = np.diff(row_ptr)
+    by_thread = np.where(active & (lens <= row_thread), lens, 0)
+    teleport = (f(1) - d) / n
+    contrib = [(r / deg).astype(f), np.zeros(nv, f)]
+    dm = r[dangling].sum(dtype=f)
+    delta, it = f(np.inf), 0
+    while it < max_iters:
+        cur = contrib[it % 2]
+        sums = np.zeros(nv, f)
+        for k in range(by_thread.max(initial=0)):
+            on = k < by_thread
+            sums[on] += cur[col[row_ptr[:-1][on] + k]]
+        partial = [_warp_sum(cur[col[s:min(s + piece, row_ptr[v + 1])]]) for v, s in pieces]
+        for p, (v, _) in enumerate(pieces):
+            if first[p] == p:  # the row's pieces, in order
+                total = f(0)
+                for q in range(p, p + -(-lens[v] // piece)):
+                    total += partial[q]
+                sums[v] = total
+        new = np.where(active, teleport + d * (sums + dm / n), f(0)).astype(f)
+        delta = np.abs(new - r).sum(dtype=f)
+        contrib[(it + 1) % 2] = (new / deg).astype(f)
+        dm = new[dangling].sum(dtype=f)
+        r = new
+        it += 1
+        if delta <= f(tol):
+            break
+    return r, float(delta), it
+
+
 def _windows(case, seed):
     """The case's windows as (src, dst) int32 blocks."""
     rng = np.random.default_rng(seed)
@@ -102,6 +189,11 @@ def _windows(case, seed):
         return [block(200, hi_src=64, hi_dst=200) for _ in range(3)]
     if case == "partial_seen":  # ids below 90 of 256 slots
         return [block(150, hi_src=90, hi_dst=90) for _ in range(3)]
+    if case == "piece_rows":  # PIECE_ROWS' lengths in window 0, other targets after
+        s0 = rng.integers(0, NV, sum(PIECE_ROWS.values())).astype(np.int32)
+        t0 = np.repeat(np.array(list(PIECE_ROWS), np.int32), list(PIECE_ROWS.values()))
+        return [(s0, t0)] + [(rng.integers(0, NV, 150).astype(np.int32),
+                              rng.integers(20, NV, 150).astype(np.int32)) for _ in range(2)]
     if case == "one_edge":
         return [block(1), block(150), block(1), block(1)]
     return [block(200), block(0), block(100), block(0)]  # no_new_edges
@@ -176,10 +268,54 @@ def test_fixpoint_plain_matches_the_kernel_model(case, tol):
                        f"{case} window {w}")
 
 
+@pytest.mark.parametrize("tol", [1e-4, 1e-5])
+@pytest.mark.parametrize("case", CASES)
+def test_pull_model_matches_the_jax_window_step(case, tol):
+    for w, (operands, want) in enumerate(_run_windows(case, 3, tol)):
+        src, dst, ranks, n_seen = operands
+        got = pull_model(src, dst, ranks, n_seen, DAMPING, tol, CHUNK * MAX_CHUNKS)
+        _assert_window(got, want, tol, CHUNK * MAX_CHUNKS, f"{case} window {w}")
+
+
+@pytest.mark.parametrize("tol", [1e-4, 1e-5])
+@pytest.mark.parametrize("case", CASES)
+def test_fixpoint_plain_matches_the_pull_model(case, tol):
+    for w, (operands, _) in enumerate(_run_windows(case, 4, tol)):
+        src, dst, ranks, n_seen = operands
+        want = pull_model(src, dst, ranks, n_seen, DAMPING, tol, CHUNK * MAX_CHUNKS)
+        r, delta, it = pk.fixpoint_plain(*_torch_operands(operands), DAMPING, tol, CHUNK,
+                                         MAX_CHUNKS)
+        _assert_window((r.numpy(), float(delta), int(it)), want, tol, CHUNK * MAX_CHUNKS,
+                       f"{case} window {w}")
+
+
+def test_pull_layout_cuts_long_rows_into_pieces():
+    """Rows of ROW_THREAD entries or fewer have no piece; longer ones one
+    for each PIECE entries or part of them (P, P + 1, 3P + 1 entries: 1, 2
+    and 4 pieces), in vertex order, each inside its row and starting a
+    PIECE apart; rows of vertices past ``n_seen`` have none; the CSR holds
+    each row's sources; at the kernel's split no row here is cut."""
+    src, dst, _, n_seen = _run_windows("piece_rows", 3, 1e-4)[-1][0]
+    row_ptr, col, pieces, first = pull_layout(src, dst, NV, n_seen, ROW_THREAD, PIECE)
+    lens = np.diff(row_ptr)
+    assert all(lens[v] == k for v, k in PIECE_ROWS.items())
+    count = np.bincount([v for v, _ in pieces], minlength=NV)
+    assert [count[v] for v in PIECE_ROWS] == [1, 2, 4, 0, 1]
+    assert np.array_equal(count, np.where(lens > ROW_THREAD, -(-lens // PIECE), 0))
+    assert [v for v, _ in pieces] == sorted(v for v, _ in pieces)
+    for p, (v, start) in enumerate(pieces):
+        assert row_ptr[v] <= start < row_ptr[v + 1]
+        assert start - row_ptr[v] == (p - first[p]) * PIECE
+    for v in range(NV):
+        assert sorted(col[row_ptr[v]:row_ptr[v + 1]]) == sorted(src[dst == v])
+    assert all(v < 12 for v, _ in pull_layout(src, dst, NV, 12, ROW_THREAD, PIECE)[2])
+    assert pull_layout(src, dst, NV, n_seen, KERNEL_ROW_THREAD, KERNEL_PIECE)[2] == []
+
+
 @pytest.mark.parametrize("case", ["skewed", "dangling"])
 def test_cap_reached_at_tol_zero(case):
     """tol 0: every window runs the cap, chunk * max_chunks iterations, in
-    the reference, the model and the plain version."""
+    the reference, both models and the plain version."""
     chunk, max_chunks = 4, 3
     cap = chunk * max_chunks
     for w, (operands, want) in enumerate(_run_windows(case, 5, 0.0, chunk, max_chunks)):
@@ -187,6 +323,8 @@ def test_cap_reached_at_tol_zero(case):
         src, dst, ranks, n_seen = operands
         got = kernel_model(src, dst, ranks, n_seen, DAMPING, 0.0, cap)
         _assert_window(got, want, 0.0, cap, f"{case} window {w} model")
+        got = pull_model(src, dst, ranks, n_seen, DAMPING, 0.0, cap)
+        _assert_window(got, want, 0.0, cap, f"{case} window {w} pull model")
         r, delta, it = pk.fixpoint_plain(*_torch_operands(operands), DAMPING, 0.0, chunk,
                                          max_chunks)
         _assert_window((r.numpy(), float(delta), int(it)), want, 0.0, cap,
@@ -207,9 +345,16 @@ def test_wrapper_sends_cpu_tensors_to_the_plain_version():
     assert pk.LAUNCHES == launches
 
 
+def _scratch_bytes(n_edges, nv):
+    """``pagerank_scratch_bytes``: csrc/pagerank.cu's scratch_words, in bytes."""
+    pieces = n_edges // (KERNEL_ROW_THREAD + 1) + n_edges // KERNEL_PIECE + 1
+    return 4 * (5 * nv + 1 + 2 * n_edges + 4 * pieces + 7 * KERNEL_MAX_GRID)
+
+
 class _StandIn:
-    """The kernel library's C interface, computed by :func:`kernel_model`
-    through the operands' pointers (as the kernel reads and writes them)."""
+    """The kernel library's C interface, computed by :func:`pull_model` at
+    the kernel's split (and the push by :func:`kernel_model`) through the
+    operands' pointers, as the kernels read and write them."""
 
     def __init__(self, code=0):
         self.code = code
@@ -219,19 +364,36 @@ class _StandIn:
     def _array(ptr, n, ctype):
         return np.ctypeslib.as_array((ctype * max(n, 1)).from_address(ptr))[:n]
 
-    def pagerank_fixpoint_launch(self, src, dst, ranks_in, ranks_out, scratch, delta, iters,
-                                 n_edges, nv, n_seen, damping, tol, max_iters, device, stream):
-        self.calls.append(dict(n_edges=n_edges, nv=nv, n_seen=n_seen, max_iters=max_iters))
+    def _run(self, model, design, src, dst, ranks_in, ranks_out, delta, iters, n_edges, nv,
+             n_seen, damping, tol, max_iters):
+        self.calls.append(dict(design=design, n_edges=n_edges, nv=nv, n_seen=n_seen,
+                               max_iters=max_iters))
         if self.code:
             return self.code
         s = self._array(src, n_edges, ctypes.c_int32)
         t = self._array(dst, n_edges, ctypes.c_int32)
         r_in = self._array(ranks_in, nv, ctypes.c_float)
-        r, l1, it = kernel_model(s, t, r_in.copy(), n_seen, damping, tol, max_iters)
+        r, l1, it = model(s, t, r_in.copy(), n_seen, damping, tol, max_iters)
         self._array(ranks_out, nv, ctypes.c_float)[:] = r
         self._array(delta, 1, ctypes.c_float)[0] = l1
         self._array(iters, 1, ctypes.c_int32)[0] = it
         return 0
+
+    def pagerank_fixpoint_launch(self, src, dst, ranks_in, ranks_out, scratch, delta, iters,
+                                 n_edges, nv, n_seen, damping, tol, max_iters, device, stream):
+        model = functools.partial(pull_model, row_thread=KERNEL_ROW_THREAD, piece=KERNEL_PIECE)
+        return self._run(model, "pull", src, dst, ranks_in, ranks_out, delta, iters, n_edges,
+                         nv, n_seen, damping, tol, max_iters)
+
+    def pagerank_fixpoint_push_launch(self, src, dst, ranks_in, ranks_out, scratch, delta,
+                                      iters, n_edges, nv, n_seen, damping, tol, max_iters,
+                                      device, stream):
+        return self._run(kernel_model, "push", src, dst, ranks_in, ranks_out, delta, iters,
+                         n_edges, nv, n_seen, damping, tol, max_iters)
+
+    def pagerank_scratch_bytes(self, n_edges, nv):
+        self.calls.append(dict(scratch=(n_edges, nv)))
+        return _scratch_bytes(n_edges, nv)
 
     def pagerank_error_string(self, code):
         return b"a refused launch"
@@ -260,7 +422,9 @@ def test_card_path_makes_one_launch_into_new_tensors(stand_in):
         r, delta, it = pk._fixpoint_kernel(src, dst, ranks, n_seen, DAMPING, 1e-5,
                                            CHUNK * MAX_CHUNKS)
         assert pk.LAUNCHES == before + 1
+        assert stand_in.calls[-2] == dict(scratch=(src.shape[0], NV))
         call = stand_in.calls[-1]
+        assert call["design"] == "pull"
         assert call["n_edges"] == src.shape[0] and call["nv"] == NV
         assert call["max_iters"] == CHUNK * MAX_CHUNKS and call["n_seen"] == n_seen
         assert r.data_ptr() != ranks.data_ptr() and torch.equal(ranks, held)
@@ -274,10 +438,44 @@ def test_card_path_makes_one_launch_into_new_tensors(stand_in):
 def test_card_path_raises_on_a_refused_launch_uncounted(stand_in):
     stand_in.code = 720  # cudaErrorCooperativeLaunchTooLarge
     (operands, _), = _run_windows("skewed", 8, 1e-4)[:1]
-    before = pk.LAUNCHES
+    before, push = pk.LAUNCHES, pk.PUSH_LAUNCHES
     with pytest.raises(RuntimeError, match="a refused launch"):
         pk._fixpoint_kernel(*_torch_operands(operands), DAMPING, 1e-4, 50)
-    assert pk.LAUNCHES == before and len(stand_in.calls) == 1
+    with pytest.raises(RuntimeError, match="a refused launch"):
+        pk._fixpoint_push(*_torch_operands(operands), DAMPING, 1e-4, 50)
+    assert pk.LAUNCHES == before and pk.PUSH_LAUNCHES == push
+    assert [c.get("design") for c in stand_in.calls] == [None, "pull", "push"]
+
+
+def test_card_path_push_is_counted_apart(stand_in):
+    """The first design's private entry: one launch of the push, counted
+    in PUSH_LAUNCHES and not in LAUNCHES, into new tensors, with the
+    values of the push model."""
+    for w, (operands, want) in enumerate(_run_windows("skewed", 10, 1e-5)):
+        src, dst, ranks, n_seen = _torch_operands(operands)
+        held = ranks.clone()
+        before, push = pk.LAUNCHES, pk.PUSH_LAUNCHES
+        r, delta, it = pk._fixpoint_push(src, dst, ranks, n_seen, DAMPING, 1e-5,
+                                         CHUNK * MAX_CHUNKS)
+        assert pk.LAUNCHES == before and pk.PUSH_LAUNCHES == push + 1
+        assert stand_in.calls[-1]["design"] == "push"
+        assert r.data_ptr() != ranks.data_ptr() and torch.equal(ranks, held)
+        _assert_window((r.numpy(), float(delta), int(it)), want, 1e-5, CHUNK * MAX_CHUNKS,
+                       f"window {w}")
+
+
+@pytest.mark.parametrize("design", ["pull", "push"])
+def test_card_path_with_no_iteration_returns_the_warm_start(design, stand_in):
+    """max_iters 0 (the set-up alone, which chip_smoke.py times): the warm
+    start's ranks, l1 +inf, 0 iterations."""
+    (operands, _), = _run_windows("partial_seen", 11, 1e-4)[1:2]
+    src, dst, ranks, n_seen = _torch_operands(operands)
+    run = pk._fixpoint_kernel if design == "pull" else pk._fixpoint_push
+    r, delta, it = run(src, dst, ranks, n_seen, DAMPING, 1e-4, 0)
+    active = torch.arange(NV) < n_seen
+    want = torch.where(active & (ranks == 0), 1.0 / torch.tensor(float(n_seen)), ranks)
+    assert torch.allclose(r, want / want.sum(), rtol=1e-6, atol=0.0)
+    assert float(delta) == float("inf") and int(it) == 0
 
 
 @contextlib.contextmanager
@@ -437,3 +635,20 @@ def test_smoke_busy_share_counts_the_pass_from_its_mark():
     ])
     busy = chip_smoke.profile_pass(None, None, 0.01, prof=prof, since=100.0)
     assert busy == pytest.approx(500e-6 / 0.01)
+
+
+def test_smoke_pr_pass_counts_the_fixpoints_host_reads(monkeypatch):
+    """``chip_smoke._pr_pass`` returns ``pagerank_kernels.HOST_READS`` over
+    its pass, so phase 9's "no host read a window" checks can fail: on CPU
+    tensors (the plain version) one read a chunk of each window."""
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "PR_WINDOW", 256)
+    monkeypatch.setattr(chip_smoke, "PR_VERTICES", 512)
+    rng = np.random.default_rng(21)
+    src, dst = (rng.integers(0, 512, 1024).astype(np.int32) for _ in range(2))
+    pk.HOST_READS = 7
+    pr, ems, _, reads = chip_smoke._pr_pass(chip_smoke._pr_stream(src, dst, device="cpu"))
+    assert len(ems) == 4
+    assert reads > 0 and reads == sum(-(-int(e.iterations) // pr.chunk) for e in ems)
+    assert reads == pk.HOST_READS

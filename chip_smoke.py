@@ -204,9 +204,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    triangle count T, is at least 100; the final estimate must lie within 4
    binomial standard errors of T; every window's state must equal the
    port's on the CPU fed the same uniforms, and the incidence estimator's
-   output the broadcast one's. The scan form on 2^12 edges over 2^16
-   vertices against the CPU the same way, with its ms per edge. Edges/s,
-   ms a window, busy share, ``sampling.window`` device ms and launches.
+   output the broadcast one's. Edges/s, ms a window, busy share,
+   ``sampling.window`` device ms and launches. The scan form (the route of
+   every id space above 46,340; one launch of ``csrc/reservoir_scan.cu`` a
+   draw batch): (a) its first 2^10 edges over 2^16 vertices at k = 2^12,
+   one launch, every state equal to the CPU's fed the same uniforms and to
+   the plain version's on the card, with the ms per edge of both; (b) the
+   whole stream over 2^16 vertices at the reference's 10,000 samples in
+   windows of 2^20 (2477 draw batches): a warm pass and the median of 3
+   (edges/s, sample-steps/s, ms a window), then a counted pass with the
+   kernel's count set to 0 just before (one launch and two draws a batch,
+   host reads a window); the estimate within 4 standard errors of T at
+   ``p = T / (m (2^16 - 2))``, the incidence estimator equal; the kernel
+   against its plain version on window 0's first 2^12 edges at k = 10,000,
+   bit for bit; (c) one draw batch (1677 edges) timed cold in turns with
+   the plain version and the two draws, beside the byte bound
+   ``8nk + 8n + 28k``; and the profile of a pass (busy share,
+   ``sampling.scan`` device ms with the kernel's ctypes launches).
 15. iterative cc — the first 4 windows (2^18 edges each) of
    ``make_stream(1 << 18, 1 << 20, seed=21)`` through ``IdentityDict`` (the
    incremental host path) and through ``device_encode`` (the diff path on
@@ -556,6 +570,12 @@ SMP_SCAN_EDGES = 1 << 10  # 1 << 12 until phase 23 joined (PERF.md section 4)
 SMP_SCAN_VERTICES = 1 << 16  # above the vectorized form's 46340
 SMP_SCAN_K = 1 << 12
 SMP_STEPS = ("sampling.window",)  # the scan form's range is "sampling.scan"
+# the full scan pass: the whole stream over the scan's id space at the
+# reference's CLI default of samples (gelly_streaming_tpu/library/sampling.py:
+# 204-205, after BroadcastTriangleCount.java:216-217)
+SMP_SCAN_FULL_K = 10_000
+SMP_SCAN_CHECK_EDGES = 1 << 12  # window 0's edges held against the plain version
+SMP_FOREIGN = {"sampling.scan": ("reservoir_scan", "sampling_kernels")}
 # phase 15: iterative CC
 ICC_VERTICES = 1 << 18
 ICC_EDGES = 1 << 20
@@ -3310,10 +3330,13 @@ def sampling_window_bytes(e, k):
 
 
 def sampling_scan_bytes(e, k):
-    """Bytes of the scan over a window of ``e`` edges: per edge the two [k]
-    uniforms read and the sample columns (three int32, two bool) read and
-    written."""
-    return e * (8 * k + 2 * 14 * k)
+    """Bytes the scan of ``e`` edges through ``k`` samples must move: the
+    two ``[e, k]`` float32 uniforms and the int32 edge columns read once,
+    the sample columns (three int32, two bool) read once and written once.
+    The step's work needs the state only once: the torch form read and
+    wrote it every edge, which a kernel keeping it in registers does not,
+    so that traffic is the form's, not the work's."""
+    return 8 * e * k + 8 * e + 28 * k
 
 
 def _recording(cls, device):
@@ -3400,6 +3423,8 @@ def phase_sampling(torch):
         raise AssertionError("the vectorized estimator on the card disagrees with the CPU")
 
     # the scan form: an id space above the vectorized limit
+    from gelly_streaming_tpu_torch.ops import sampling_kernels as sk
+
     ss, sd = src[:SMP_SCAN_EDGES], dst[:SMP_SCAN_EDGES]
 
     def scan_run(c, **kw):
@@ -3411,15 +3436,32 @@ def phase_sampling(torch):
         return e, o, time.perf_counter() - t
 
     scan_run(cls)  # warm
+    sk.LAUNCHES = 0
     es, os_, secs = scan_run(cls)
+    launches = sk.LAUNCHES
     ec, oc, _ = scan_run(_recording(sampling.BroadcastTriangleCount, "cpu"), replay=es.drawn)
     same_s = _states_equal(es.states, ec.states) and os_ == oc
+    # the plain version on the card, on the same edges and uniforms
+    ids = [torch.from_numpy(a.astype(np.int32)).cuda() for a in (ss, sd)]
+    uniforms = [u.cuda() for u in es.drawn]
+    state0 = sampling.init_sampler_state(SMP_SCAN_K, "cuda")
+    sk.reservoir_scan_plain(state0, 0, *ids, SMP_SCAN_VERTICES, *uniforms)  # warm
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    plain, _ = sk.reservoir_scan_plain(state0, 0, *ids, SMP_SCAN_VERTICES, *uniforms)
+    torch.cuda.synchronize()
+    plain_secs = time.perf_counter() - t
+    same_p = all(np.array_equal(plain[f].cpu().numpy(), es.states[-1][f]) for f in plain)
+    del uniforms
     cell["scan"] = {"edges": SMP_SCAN_EDGES, "vertex_count": SMP_SCAN_VERTICES,
                     "samples": SMP_SCAN_K, "ms_per_edge": secs * 1e3 / SMP_SCAN_EDGES,
-                    "equal_to_cpu": same_s}
+                    "plain_ms_per_edge": plain_secs * 1e3 / SMP_SCAN_EDGES,
+                    "kernel_launches": launches, "equal_to_cpu": same_s,
+                    "plain_on_card_equal": same_p}
     say("sampling scan " + json.dumps(cell["scan"]))
-    if not same_s:
-        raise AssertionError("the scan estimator on the card disagrees with the CPU")
+    if not (same_s and same_p and launches == 1):
+        raise AssertionError("the scan estimator on the card disagrees with the CPU or with "
+                             "the plain version, or did not launch the kernel once")
     say("sampling cell " + json.dumps({f: x for f, x in cell.items() if f != "profile"}))
     cell["profile"] = profile_cell(torch, "sampling", one_pass, SMP_STEPS,
                                    {"sampling.window": sampling_window_bytes(SMP_WINDOW, k)})
@@ -3430,8 +3472,152 @@ def phase_sampling(torch):
 
     cell["profile_scan"] = profile_cell(
         torch, "sampling scan", scan_pass, ("sampling.scan",),
-        {"sampling.scan": sampling_scan_bytes(SMP_SCAN_EDGES, SMP_SCAN_K)})
+        {"sampling.scan": sampling_scan_bytes(SMP_SCAN_EDGES, SMP_SCAN_K)}, foreign=SMP_FOREIGN)
+    cell["scan_full"] = _scan_full_pass(torch, edges, tri)
     return cell
+
+
+def _scan_batches(m, window, k):
+    """Each draw batch's edges over a stream of ``m`` edges in windows of
+    ``window``: ``library/sampling.py``'s ``_SCAN_DRAW_ELEMS // k`` a batch."""
+    from gelly_streaming_tpu_torch.library import sampling
+
+    step = max(1, sampling._SCAN_DRAW_ELEMS // k)
+    out = []
+    for a in range(0, m, window):
+        w = min(window, m - a)
+        out += [min(step, w - b) for b in range(0, w, step)]
+    return out
+
+
+def _scan_full_pass(torch, edges, tri):
+    """Phase 14 (b)-(c): the whole stream through the scan route (vertex
+    count ``SMP_SCAN_VERTICES``, ``SMP_SCAN_FULL_K`` samples, windows of
+    ``SMP_WINDOW``), its checks, and the kernel's row: the kernel against
+    the plain version on window 0's first ``SMP_SCAN_CHECK_EDGES`` edges,
+    then one draw batch timed cold in turns with the plain version and the
+    two draws."""
+    from gelly_streaming_tpu_torch import CountWindow
+    from gelly_streaming_tpu_torch.library import sampling
+    from gelly_streaming_tpu_torch.ops import sampling_kernels as sk
+
+    m, v, k = len(edges[0]), SMP_SCAN_VERTICES, SMP_SCAN_FULL_K
+    batches = _scan_batches(m, SMP_WINDOW, k)
+    windows = -(-m // SMP_WINDOW)
+
+    class Counted(sampling.BroadcastTriangleCount):
+        draws = 0
+
+        def _draw(self, *shape):
+            Counted.draws += 1
+            return super()._draw(*shape)
+
+    def run(c=sampling.BroadcastTriangleCount):
+        est = c(vertex_count=v, samples=k, window=CountWindow(SMP_WINDOW), seed=SMP_SEED,
+                device="cuda")
+        out = list(est.run(edges))
+        torch.cuda.synchronize()
+        return est, out
+
+    def one_pass():
+        run()
+        return windows
+
+    full = timed_passes(torch, one_pass, m)
+    full["sample_steps_per_s"] = full["edges_per_s"] * k
+    # the counted run: the main path with the counts at 0
+    sk.LAUNCHES = 0
+    Counted.draws = 0
+    est = Counted(vertex_count=v, samples=k, window=CountWindow(SMP_WINDOW), seed=SMP_SEED,
+                  device="cuda")
+    with warnings.catch_warnings(record=True) as log:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = list(est.run(edges))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    launches, draws = sk.LAUNCHES, Counted.draws
+    full.update(samples=k, vertex_count=v, batches=len(batches), kernel_launches=launches,
+                kernel_launches_per_window=launches / windows, draws_per_window=draws / windows,
+                host_reads_per_window=_n_syncs(log) / windows)
+    p = tri / (m * (v - 2))
+    se = m * (v - 2) / k * np.sqrt(k * p * (1 - p))
+    final = out[-1][1] if out else 0
+    full.update(triangles=tri, estimate=final, beta=est._last_beta, standard_error=se,
+                expected_beta=k * p, emissions=len(out))
+    inc, out_i = run(sampling.IncidenceSamplingTriangleCount)
+    same_i = out_i == out and all(torch.equal(inc._state[f], est._state[f]) for f in est._state)
+    full["incidence_equal"] = same_i
+    say("sampling scan full pass " + json.dumps(full))
+    say(f"sampling scan estimate {final} against {tri} (scipy): {abs(final - tri) / se:.2f} "
+        f"standard errors at p = T / (m (V - 2)) = {p:.3e}")
+    if launches != len(batches) or draws != 2 * len(batches):
+        raise AssertionError(f"the scan pass made {launches} kernel launches and {draws} draws "
+                             f"for {len(batches)} batches")
+    if not (abs(final - tri) <= SMP_SE * se and est._edge_count == m):
+        raise AssertionError("the scan pass's estimate is outside its bound")
+    if not same_i:
+        raise AssertionError("the incidence estimator's scan disagrees with the broadcast one")
+    del est, inc
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SMP_SEED)
+    n = SMP_SCAN_CHECK_EDGES
+    uc = torch.rand((n, k), generator=gen, device="cuda")
+    ut = torch.rand((n, k), generator=gen, device="cuda")
+    s, d = (torch.from_numpy(a[:n].astype(np.int32)).cuda() for a in edges)
+    state0 = sampling.init_sampler_state(k, "cuda")
+    got, _ = sk.reservoir_scan(state0, 0, s, d, v, uc, ut)
+    want, _ = sk.reservoir_scan_plain(state0, 0, s, d, v, uc, ut)
+    err = max(float((got[f].long() - want[f].long()).abs().max()) for f in got)
+    say(f"sampling reservoir_scan vs reservoir_scan_plain on window 0's first {n} edges at "
+        f"k = {k}: max abs difference {err} (tol 0: equal bit for bit); beta "
+        f"{int((got['src_found'] & got['trg_found']).sum())}")
+    if err != 0:
+        raise AssertionError("the reservoir scan kernel disagrees with its plain version")
+    # one draw batch of the main path, after the checked edges
+    b = batches[0]
+    args = (got, n, s[:b], d[:b], v, uc[:b], ut[:b])
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+
+    def kernel():
+        return sk.reservoir_scan(*args)
+
+    def plain():
+        return sk.reservoir_scan_plain(*args)
+
+    def draws_fn():
+        return (torch.rand((b, k), generator=gen, device="cuda"),
+                torch.rand((b, k), generator=gen, device="cuda"))
+
+    turns = {"ms": [], "plain_ms": [], "draws_ms": []}
+    for name in ("ms", "plain_ms", "draws_ms", "draws_ms", "plain_ms", "ms"):
+        fn = {"ms": kernel, "plain_ms": plain, "draws_ms": draws_fn}[name]
+        # the plain version takes most of a second a call (launch-bound)
+        iters, warmup = (3, 1) if name == "plain_ms" else (TIMED_LAUNCHES, 3)
+        turns[name].append(cold_ms(torch, fn, flush, iters=iters, warmup=warmup,
+                                   lead_cycles=KR_LEAD_CYCLES))
+    del flush, uc, ut
+    bytes_ms = sampling_scan_bytes(b, k) / HBM_BYTES_PER_S * 1e3
+    # a float32 compare a sample-step (the product only where a coin came up)
+    ops_ms = b * k / PEAK_OPS_PER_S["float32"] * 1e3
+    row = {f: sum(x) / len(x) for f, x in turns.items()}
+    row.update({f + "_turns": x for f, x in turns.items()})
+    row.update(max_abs_err=err, bound_ms=max(bytes_ms, ops_ms),
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations", ops_bound_ms=ops_ms,
+               library_ms=None, launches=launches)
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    row["per"] = f"one draw batch: {b} edges x {k} samples after {n} edges, V = {v}, cold L2"
+    say("sampling reservoir_scan times (cold L2, median of each call alone) " + json.dumps(row))
+    if row["bound_share"] > 1.0:
+        raise AssertionError("the reservoir scan ran faster than its bound: the timing is wrong")
+    full["kernel_row"] = row
+    nbytes = sum(sampling_scan_bytes(x, k) for x in batches) / windows
+    full["profile"] = profile_cell(torch, "sampling scan full", one_pass, ("sampling.scan",),
+                                   {"sampling.scan": nbytes}, foreign=SMP_FOREIGN)
+    return full
 
 
 def phase_iterative_cc(torch):
@@ -6035,7 +6221,7 @@ def main():
     timed("exact triangles", phase_exact_triangles, torch)
     spanner_result = timed("spanner", phase_spanner, torch, smi)
     timed("device-encode", phase_device_encode, torch)
-    timed("sampling", phase_sampling, torch)
+    sampling_result = timed("sampling", phase_sampling, torch)
     timed("iterative cc", phase_iterative_cc, torch)
     timed("durability", phase_durability, torch, cc_oracle)
     timed("autok", phase_autok, torch)
@@ -6129,7 +6315,29 @@ def main():
     # launches it
     pagerank_push = pr_entry("pagerank_fixpoint_push", "push", "replaced",
                              rows[0]["push"]["launches"])
-    say(json.dumps({"kernels": [kernel, k_reach, pagerank_fixpoint, pagerank_push]}))
+    scan = sampling_result["scan_full"]["kernel_row"]
+    reservoir_scan = {
+        "name": "reservoir_scan",
+        "route": "cuda",
+        "source": "gelly_streaming_tpu_torch/csrc/reservoir_scan.cu",
+        "replaces": "gelly_streaming_tpu/library/sampling.py:50",
+        "replaces_kind": "an XLA step (lax.scan), not a Pallas kernel",
+        "launches": scan["launches"],
+        "max_abs_err": scan["max_abs_err"],
+        "ms": scan["ms"],
+        "plain_ms": scan["plain_ms"],
+        "bound_ms": scan["bound_ms"],
+        "bound_by": scan["bound_by"],
+        # no PyTorch call folds a reservoir over an edge sequence
+        "library_ms": None,
+        "draws_ms": scan["draws_ms"],
+        "bound_share": scan["bound_share"],
+        "ms_turns": scan["ms_turns"],
+        "per": f"{scan['per']}; {smi}",
+        "status": "ported",
+    }
+    say(json.dumps({"kernels": [kernel, k_reach, pagerank_fixpoint, pagerank_push,
+                                reservoir_scan]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

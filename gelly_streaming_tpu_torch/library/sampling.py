@@ -22,9 +22,11 @@ them:
   uniform window position, and draws a uniform third vertex; the
   closing-edge flags are last-occurrence queries, answered by a binary
   search over the window's sorted canonical pairs.
-- :func:`_window_scan` (larger id spaces) folds the window edge by edge,
-  with vector operations over the ``k`` samples: on the card it is bound
-  by its launches, about twenty an edge.
+- :func:`_window_scan` (larger id spaces) folds the window edge by edge
+  through every sample: ``ops/sampling_kernels.py:reservoir_scan``, one
+  launch of a hand-written kernel a draw batch of edges on the card (a
+  thread a sample), its plain torch form (about 35 launches an edge) on
+  the CPU. The window's raw ids go to the card once, as int32.
 
 Both take their uniforms as arguments: ``u_coin``/``u_third`` per edge for
 the scan, ``u_keep``/``r_sel``/``r_third`` per window for the vectorized
@@ -49,6 +51,8 @@ What differs from the XLA reference, and why:
   the same key and ``pos``.
 - The only device read per window is ``beta_sum``, which the change-only
   emission needs.
+- The scan raises on raw ids outside ``[0, 2^31)``, which the reference's
+  int32 columns would wrap.
 
 Estimates use RAW vertex ids: like the reference, the third vertex is
 drawn from a caller-supplied id space ``[0, vertex_count)``.
@@ -62,8 +66,10 @@ import numpy as np
 import torch
 
 from ..core.device import DEFAULT_DEVICE, resolve_device
+from ..core.edgeblock import to_device
 from ..core.window import CountWindow, WindowPolicy, Windower
 from ..obs import trace as _trace
+from ..ops.sampling_kernels import _f32, reservoir_scan
 
 _BIG = int(np.iinfo(np.int32).max)
 
@@ -85,47 +91,34 @@ def init_sampler_state(n_samples: int, device) -> dict:
     }
 
 
-def _f32(x) -> float:
-    """``x`` rounded to float32, as a Python float (exact in float32)."""
-    return float(np.float32(x))
-
-
-def _window_scan(state: dict, edge_count: int, src: np.ndarray, dst: np.ndarray,
+def _window_scan(state: dict, edge_count: int, src, dst,
                  vertex_count: int, u_coin: torch.Tensor, u_third: torch.Tensor):
     """Fold a window's valid edges, one by one, through all reservoir
     states.
 
-    ``src``/``dst``: the window's raw ids (host int arrays, valid edges
-    only); ``u_coin``/``u_third``: ``[len(src), k]`` float32 uniforms on
-    the state's device, one row per edge (the coin flip and the
-    third-vertex draw). Returns ``(state, new_edge_count)``; ``state`` is
-    not written."""
+    ``src``/``dst``: the window's raw ids, valid edges only: host int
+    arrays (checked to lie in ``[0, 2^31)`` and uploaded as int32) or int32
+    tensors on the state's device; ``u_coin``/``u_third``: ``[len(src), k]``
+    float32 uniforms on the state's device, one row per edge (the coin flip
+    and the third-vertex draw). Returns ``(state, new_edge_count)``;
+    ``state`` is not written."""
     with _trace.span("sampling.scan"):
-        st = dict(state)
-        m = int(edge_count)
-        for i, (s, d) in enumerate(zip(src.tolist(), dst.tolist())):
-            m += 1
-            # coin-flip 1/m per sample: replace the reservoir edge
-            coin = u_coin[i] < _f32(np.float32(1.0) / np.float32(m))
-            # third vertex uniform over [0, V) \ {s, d}
-            u1, u2 = min(s, d), max(s, d)
-            distinct = u1 != u2
-            n_valid = vertex_count - 1 - int(distinct)
-            c0 = torch.clamp_max((u_third[i] * _f32(n_valid)).to(torch.int32), n_valid - 1)
-            c = c0 + (c0 >= u1).to(torch.int32)
-            if distinct:
-                c = c + (c >= u2).to(torch.int32)
-            st["src"] = torch.where(coin, s, st["src"])
-            st["trg"] = torch.where(coin, d, st["trg"])
-            st["third"] = torch.where(coin, c, st["third"])
-            # closing-edge checks (undirected match, reference :108-121)
-            hit_src = ((st["src"] == s) & (st["third"] == d)) | (
-                (st["third"] == s) & (st["src"] == d))
-            hit_trg = ((st["trg"] == s) & (st["third"] == d)) | (
-                (st["third"] == s) & (st["trg"] == d))
-            st["src_found"] = (st["src_found"] & ~coin) | hit_src
-            st["trg_found"] = (st["trg_found"] & ~coin) | hit_trg
-        return st, m
+        device = state["src"].device
+        if not isinstance(src, torch.Tensor):
+            src, dst = _upload_ids(src, dst, device)
+        return reservoir_scan(state, edge_count, src, dst, vertex_count, u_coin, u_third)
+
+
+def _upload_ids(src, dst, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Host raw ids as two contiguous int32 tensors on ``device``, in one
+    upload (pinned and asynchronous on a card); raises ValueError unless
+    every id lies in ``[0, 2^31)``."""
+    ids = np.stack([np.asarray(src), np.asarray(dst)])
+    if ids.size and (ids.min() < 0 or ids.max() > _BIG):
+        raise ValueError(f"raw vertex ids must lie in [0, 2^31), got "
+                         f"[{ids.min()}, {ids.max()}]")
+    both = to_device(ids.astype(np.int32), torch.device(device))
+    return both[0], both[1]
 
 
 def _window_vectorized(state: dict, edge_count: int, src: torch.Tensor,
@@ -270,8 +263,8 @@ class BroadcastTriangleCount:
             )
             self._last_beta = int(beta_sum)
         else:
-            s = vdict.decode(cache[0]).astype(np.int64)
-            d = vdict.decode(cache[1]).astype(np.int64)
+            # the window's raw ids go up once; a launch a draw batch
+            s, d = _upload_ids(vdict.decode(cache[0]), vdict.decode(cache[1]), self.device)
             step = max(1, _SCAN_DRAW_ELEMS // max(k, 1))
             for a in range(0, n, step):
                 b = min(a + step, n)

@@ -52,7 +52,11 @@ padding rows (ranks within 1e-6, iterations within 2); against the first
 the warm start; one launch a window, no push launch and no host read
 through the entry point; no host sync in the window step; launched on its
 operands' card; refused under deterministic algorithms; and superbatch 4
-within 1e-6 of superbatch 1.
+within 1e-6 of superbatch 1, and the sampling estimators' reservoir scan
+kernel (``csrc/reservoir_scan.cu``, one launch a draw batch): equal to its
+plain version bit for bit for k in {1, 33, 10000}, batches of 1 and 1677
+edges, an edge count across 2^24 and an id space above 2^24, and a whole
+scan-route run on the card equal to its CPU replay, one launch a batch.
 
 Every test here is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is false. The file imports only torch, numpy
@@ -1695,3 +1699,100 @@ def test_pagerank_superbatch_4_within_1e6_of_1_on_card(card):
         got[k] = (pr._carry[2], [int(e.iterations) for e in ems])
     assert float((got[1][0] - got[4][0]).abs().max()) <= 1e-6
     assert max(abs(a - b) for a, b in zip(got[1][1], got[4][1])) <= 2
+
+
+def _scan_operands(card, k, n, m0, v, seed):
+    """A batch for the reservoir scan: ``n`` edges among 12 ids (self-loops
+    and a repeated edge included; for ``v`` above 2^24 some ids at its top),
+    a carried state, and uniforms with a quarter of the coins one ulp below
+    their threshold (so coins come up at any ``m0``)."""
+    from gelly_streaming_tpu_torch.library import sampling
+
+    rng = np.random.default_rng(seed)
+    s = rng.integers(0, 12, n)
+    d = rng.integers(0, 12, n)
+    d[::5] = s[::5]
+    s[1::7], d[1::7] = s[0], d[0]
+    if v > 1 << 24:
+        s[2::4] = v - 1 - rng.integers(0, 3, len(s[2::4]))
+    thr = (np.float32(1.0) / np.arange(m0 + 1, m0 + n + 1).astype(np.float32))[:, None]
+    coin = rng.random((n, k), dtype=np.float32)
+    low = rng.random((n, k)) < 0.25
+    coin[low] = np.broadcast_to(np.nextafter(thr, np.float32(0)), (n, k))[low]
+    third = rng.random((n, k), dtype=np.float32)
+    st = {f: x.to(card) for f, x in sampling.init_sampler_state(k, "cpu").items()}
+    st["src"][::2] = 0
+    st["trg"][::2] = 1
+    st["third"][::2] = 2
+    return (st, m0, torch.from_numpy(s.astype(np.int32)).to(card),
+            torch.from_numpy(d.astype(np.int32)).to(card), v,
+            torch.from_numpy(coin).to(card), torch.from_numpy(third).to(card))
+
+
+@pytest.mark.parametrize("v, m0", [(1 << 16, 0), ((1 << 24) + 3, (1 << 24) - 800)])
+@pytest.mark.parametrize("n", [1, 1677])
+@pytest.mark.parametrize("k", [1, 33, 10_000])
+def test_reservoir_scan_kernel_matches_plain_on_card(card, k, n, v, m0):
+    """The kernel against its plain version on the card, fed the same
+    uniforms: every column equal bit for bit, the inputs unchanged."""
+    from gelly_streaming_tpu_torch.ops import sampling_kernels as sk
+
+    args = _scan_operands(card, k, n, m0, v, seed=k + n)
+    held = {f: x.clone() for f, x in args[0].items()}
+    before = sk.LAUNCHES
+    got, m = sk.reservoir_scan(*args)
+    assert sk.LAUNCHES == before + 1 and m == m0 + n
+    want, m_plain = sk.reservoir_scan_plain(*args)
+    torch.cuda.synchronize()
+    assert m_plain == m
+    for f in held:
+        assert torch.equal(args[0][f], held[f]), f
+        assert got[f].dtype == held[f].dtype and torch.equal(got[f], want[f]), f
+    if n > 1:
+        assert bool((got["src"] != held["src"]).any())
+
+
+def test_broadcast_triangle_count_scan_route_on_card_matches_cpu(card, monkeypatch):
+    """A whole run over an id space above the vectorized limit on the card
+    (the kernel, one launch a draw batch) equals its replay on the CPU fed
+    the same uniforms: every window's state and every emission."""
+    from gelly_streaming_tpu_torch.library import sampling
+    from gelly_streaming_tpu_torch.ops import sampling_kernels as sk
+
+    k = 1000
+    monkeypatch.setattr(sampling, "_SCAN_DRAW_ELEMS", 300 * k)  # 300 edges a batch
+    rng = np.random.default_rng(31)
+    edges = [(int(a), int(b), 0.0) for a, b in rng.integers(0, 24, (1400, 2))]
+
+    class Recording(sampling.BroadcastTriangleCount):
+        def __init__(self, device, replay=None):
+            super().__init__(vertex_count=60_000, samples=k, window=gt.CountWindow(512),
+                             seed=5, device=device)
+            self.drawn = [] if replay is None else list(replay)
+            self.replay = replay is not None
+            self.states = []
+
+        def _draw(self, *shape):
+            if self.replay:
+                return self.drawn.pop(0)
+            u = super()._draw(*shape)
+            self.drawn.append(u.cpu())
+            return u
+
+        def _window(self, block, vdict):
+            n = super()._window(block, vdict)
+            self.states.append({f: x.cpu() for f, x in self._state.items()})
+            return n
+
+    before = sk.LAUNCHES
+    on_card = Recording(card)
+    got = list(on_card.run(edges))
+    launches = sk.LAUNCHES - before
+    on_cpu = Recording("cpu", replay=on_card.drawn)
+    want = list(on_cpu.run(edges))
+    assert launches == 2 + 2 + 2  # windows of 512, 512 and 376 edges in batches of 300
+    assert got == want and len(on_card.states) == 3
+    for a, b in zip(on_card.states, on_cpu.states):
+        for f in a:
+            assert torch.equal(a[f], b[f]), f
+    assert on_card._edge_count == 1400

@@ -218,9 +218,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``p = T / (m (2^16 - 2))``, the incidence estimator equal; the kernel
    against its plain version on window 0's first 2^12 edges at k = 10,000,
    bit for bit; (c) one draw batch (1677 edges) timed cold in turns with
-   the plain version and the two draws, beside the byte bound
-   ``8nk + 8n + 28k``; and the profile of a pass (busy share,
-   ``sampling.scan`` device ms with the kernel's ctypes launches).
+   the plain version and the two draws, beside the closed form's byte
+   bound ``4nk + 8n + 32k`` (the kernel reads the coins once and the third
+   draws only at each sample's last replacement) and the edge-by-edge
+   rule ``8nk + 8n + 28k``, and a cold ``torch.amax`` over the batch's
+   coins (a streaming read of the ``4nk`` bytes, a yardstick of the cold
+   method); and the profile of a pass (busy share,
+   ``sampling.scan`` device ms with the kernel's ctypes launches, bytes by
+   the closed form).
 15. iterative cc — the first 4 windows (2^18 edges each) of
    ``make_stream(1 << 18, 1 << 20, seed=21)`` through ``IdentityDict`` (the
    incremental host path) and through ``device_encode`` (the diff path on
@@ -3339,6 +3344,14 @@ def sampling_scan_bytes(e, k):
     return 8 * e * k + 8 * e + 28 * k
 
 
+def sampling_scan_closed_bytes(e, k):
+    """Bytes the scan's closed form must move: a sample's state after a
+    batch depends on its last replacement alone, so the ``[e, k]`` coins
+    are read once, the third draws only there (``k`` of them), the int32
+    edge columns once, the sample columns read and written once."""
+    return 4 * e * k + 8 * e + 32 * k
+
+
 def _recording(cls, device):
     """An estimator class that records its uniforms and its state after
     every window (``replay`` feeds recorded uniforms back instead)."""
@@ -3472,7 +3485,8 @@ def phase_sampling(torch):
 
     cell["profile_scan"] = profile_cell(
         torch, "sampling scan", scan_pass, ("sampling.scan",),
-        {"sampling.scan": sampling_scan_bytes(SMP_SCAN_EDGES, SMP_SCAN_K)}, foreign=SMP_FOREIGN)
+        {"sampling.scan": sampling_scan_closed_bytes(SMP_SCAN_EDGES, SMP_SCAN_K)},
+        foreign=SMP_FOREIGN)
     cell["scan_full"] = _scan_full_pass(torch, edges, tri)
     return cell
 
@@ -3592,29 +3606,38 @@ def _scan_full_pass(torch, edges, tri):
         return (torch.rand((b, k), generator=gen, device="cuda"),
                 torch.rand((b, k), generator=gen, device="cuda"))
 
-    turns = {"ms": [], "plain_ms": [], "draws_ms": []}
-    for name in ("ms", "plain_ms", "draws_ms", "draws_ms", "plain_ms", "ms"):
-        fn = {"ms": kernel, "plain_ms": plain, "draws_ms": draws_fn}[name]
+    def coins_read():
+        # a yardstick, not the function: one streaming read of the coins
+        return torch.amax(uc[:b])
+
+    turns = {"ms": [], "plain_ms": [], "draws_ms": [], "coins_read_ms": []}
+    for name in ("ms", "plain_ms", "draws_ms", "coins_read_ms", "coins_read_ms", "draws_ms",
+                 "plain_ms", "ms"):
+        fn = {"ms": kernel, "plain_ms": plain, "draws_ms": draws_fn,
+              "coins_read_ms": coins_read}[name]
         # the plain version takes most of a second a call (launch-bound)
         iters, warmup = (3, 1) if name == "plain_ms" else (TIMED_LAUNCHES, 3)
         turns[name].append(cold_ms(torch, fn, flush, iters=iters, warmup=warmup,
                                    lead_cycles=KR_LEAD_CYCLES))
     del flush, uc, ut
-    bytes_ms = sampling_scan_bytes(b, k) / HBM_BYTES_PER_S * 1e3
+    bytes_ms = sampling_scan_closed_bytes(b, k) / HBM_BYTES_PER_S * 1e3
+    # the edge-by-edge form's rule: both uniform matrices read whole
+    edge_by_edge_ms = sampling_scan_bytes(b, k) / HBM_BYTES_PER_S * 1e3
     # a float32 compare a sample-step (the product only where a coin came up)
     ops_ms = b * k / PEAK_OPS_PER_S["float32"] * 1e3
     row = {f: sum(x) / len(x) for f, x in turns.items()}
     row.update({f + "_turns": x for f, x in turns.items()})
     row.update(max_abs_err=err, bound_ms=max(bytes_ms, ops_ms),
                bound_by="bytes" if bytes_ms >= ops_ms else "operations", ops_bound_ms=ops_ms,
-               library_ms=None, launches=launches)
+               library_ms=None, launches=launches, bound_ms_edge_by_edge_rule=edge_by_edge_ms)
     row["bound_share"] = row["bound_ms"] / row["ms"]
+    row["bound_share_edge_by_edge_rule"] = edge_by_edge_ms / row["ms"]
     row["per"] = f"one draw batch: {b} edges x {k} samples after {n} edges, V = {v}, cold L2"
     say("sampling reservoir_scan times (cold L2, median of each call alone) " + json.dumps(row))
     if row["bound_share"] > 1.0:
         raise AssertionError("the reservoir scan ran faster than its bound: the timing is wrong")
     full["kernel_row"] = row
-    nbytes = sum(sampling_scan_bytes(x, k) for x in batches) / windows
+    nbytes = sum(sampling_scan_closed_bytes(x, k) for x in batches) / windows
     full["profile"] = profile_cell(torch, "sampling scan full", one_pass, ("sampling.scan",),
                                    {"sampling.scan": nbytes}, foreign=SMP_FOREIGN)
     return full
@@ -6331,7 +6354,12 @@ def main():
         # no PyTorch call folds a reservoir over an edge sequence
         "library_ms": None,
         "draws_ms": scan["draws_ms"],
+        "coins_read_ms": scan["coins_read_ms"],
         "bound_share": scan["bound_share"],
+        "bound_ms_edge_by_edge_rule": scan["bound_ms_edge_by_edge_rule"],
+        "bound_share_edge_by_edge_rule": scan["bound_share_edge_by_edge_rule"],
+        "design": "one cooperative launch a draw batch: the coin matrix read in parallel "
+                  "for each sample's last replacement, then its closing pairs after it",
         "ms_turns": scan["ms_turns"],
         "per": f"{scan['per']}; {smi}",
         "status": "ported",

@@ -9,9 +9,11 @@ an XLA step in the JAX package (a ``lax.scan``, not a Pallas kernel).
 
 - On CUDA tensors :func:`reservoir_scan` checks its operands and makes one
   launch of the kernel in ``csrc/reservoir_scan.cu`` (built at first use by
-  :mod:`.cuda_build`), counted in :data:`LAUNCHES`: a thread a sample walks
-  the batch's edges with the sample's state in registers. A CUDA call
-  launches the kernel or raises.
+  :mod:`.cuda_build`), counted in :data:`LAUNCHES`: a cooperative grid
+  reads the whole ``[n, k]`` coin matrix in parallel for each sample's last
+  replacement, then searches the edges after it for the sample's closing
+  pairs, into a scratch buffer allocated here. A CUDA call launches the
+  kernel or raises.
 - On CPU tensors it runs :func:`reservoir_scan_plain`, the torch form, an
   edge at a time over the ``[k]`` state (about 35 launches an edge on a
   card). The tests and ``chip_smoke.py`` hold the kernel against it.
@@ -105,13 +107,19 @@ def _scan_kernel(state: dict, edge_count: int, src, dst, vertex_count: int, u_co
     device = src.device
     out = {name: torch.empty_like(state[name]) for name, _ in FIELDS}
     n, k = u_coin.shape
+    index = device_index(device)
+    words = lib.reservoir_scan_scratch_words(n, k, index)
+    if words < 0:
+        msg = lib.reservoir_scan_error_string(-words).decode()
+        raise RuntimeError(f"reservoir scan: no plan for the launch: {msg} (cudaError {-words})")
+    scratch = torch.empty(words, dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         code = lib.reservoir_scan_launch(
             *(state[name].data_ptr() for name, _ in FIELDS),
             *(out[name].data_ptr() for name, _ in FIELDS),
             src.data_ptr(), dst.data_ptr(), u_coin.data_ptr(), u_third.data_ptr(),
-            edge_count, n, k, vertex_count, device_index(device), stream)
+            scratch.data_ptr(), words, edge_count, n, k, vertex_count, index, stream)
     if code != 0:
         msg = lib.reservoir_scan_error_string(code).decode()
         raise RuntimeError(f"reservoir scan: the launch failed: {msg} (cudaError {code})")
@@ -167,8 +175,10 @@ def _library() -> ctypes.CDLL:
     lib = load_library("reservoir_scan")
     if lib.reservoir_scan_launch.argtypes is None:
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.reservoir_scan_launch.argtypes = [ptr] * 14 + [i64, i32, i32, i32, i32, ptr]
+        lib.reservoir_scan_launch.argtypes = [ptr] * 15 + [i64, i64, i32, i32, i32, i32, ptr]
         lib.reservoir_scan_launch.restype = i32
+        lib.reservoir_scan_scratch_words.argtypes = [i32, i32, i32]
+        lib.reservoir_scan_scratch_words.restype = i64
         err = lib.reservoir_scan_error_string
         err.argtypes = [i32]
         err.restype = ctypes.c_char_p

@@ -55,8 +55,10 @@ operands' card; refused under deterministic algorithms; and superbatch 4
 within 1e-6 of superbatch 1, and the sampling estimators' reservoir scan
 kernel (``csrc/reservoir_scan.cu``, one launch a draw batch): equal to its
 plain version bit for bit for k in {1, 33, 10000}, batches of 1 and 1677
-edges, an edge count across 2^24 and an id space above 2^24, and a whole
-scan-route run on the card equal to its CPU replay, one launch a batch.
+edges, an edge count across 2^24 and an id space above 2^24, at k = 10,000
+with almost no coin (m0 = 2^30), at k = 1 over 2^16 edges with a tail of
+closing pairs past the second grid barrier, and a whole scan-route run on
+the card equal to its CPU replay, one launch a batch.
 
 Every test here is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is false. The file imports only torch, numpy
@@ -1701,11 +1703,11 @@ def test_pagerank_superbatch_4_within_1e6_of_1_on_card(card):
     assert max(abs(a - b) for a, b in zip(got[1][1], got[4][1])) <= 2
 
 
-def _scan_operands(card, k, n, m0, v, seed):
+def _scan_operands(card, k, n, m0, v, seed, low=0.25):
     """A batch for the reservoir scan: ``n`` edges among 12 ids (self-loops
     and a repeated edge included; for ``v`` above 2^24 some ids at its top),
-    a carried state, and uniforms with a quarter of the coins one ulp below
-    their threshold (so coins come up at any ``m0``)."""
+    a carried state, and uniforms with a share ``low`` of the coins one ulp
+    below their threshold (so coins come up at any ``m0``)."""
     from gelly_streaming_tpu_torch.library import sampling
 
     rng = np.random.default_rng(seed)
@@ -1717,7 +1719,7 @@ def _scan_operands(card, k, n, m0, v, seed):
         s[2::4] = v - 1 - rng.integers(0, 3, len(s[2::4]))
     thr = (np.float32(1.0) / np.arange(m0 + 1, m0 + n + 1).astype(np.float32))[:, None]
     coin = rng.random((n, k), dtype=np.float32)
-    low = rng.random((n, k)) < 0.25
+    low = rng.random((n, k)) < low
     coin[low] = np.broadcast_to(np.nextafter(thr, np.float32(0)), (n, k))[low]
     third = rng.random((n, k), dtype=np.float32)
     st = {f: x.to(card) for f, x in sampling.init_sampler_state(k, "cpu").items()}
@@ -1750,6 +1752,71 @@ def test_reservoir_scan_kernel_matches_plain_on_card(card, k, n, v, m0):
         assert got[f].dtype == held[f].dtype and torch.equal(got[f], want[f]), f
     if n > 1:
         assert bool((got["src"] != held["src"]).any())
+
+
+def test_reservoir_scan_kernel_without_coins_on_card(card):
+    """k = 10,000 at m0 = 2^30, uniforms as drawn: almost no coin comes up,
+    so the fields stay and the carried pairs (0, 2) and (1, 2) of the even
+    samples set their flags; equal to the plain version bit for bit."""
+    from gelly_streaming_tpu_torch.ops import sampling_kernels as sk
+
+    args = _scan_operands(card, 10_000, 1677, 1 << 30, 1 << 16, seed=43, low=0.0)
+    held = {f: x.clone() for f, x in args[0].items()}
+    got, _ = sk.reservoir_scan(*args)
+    want, _ = sk.reservoir_scan_plain(*args)
+    torch.cuda.synchronize()
+    for f in held:
+        assert torch.equal(got[f], want[f]), f
+    kept = (got["src"] == held["src"]) & (got["trg"] == held["trg"]) & (
+        got["third"] == held["third"])
+    assert int((~kept).sum()) <= 2
+    assert bool(got["src_found"][::2][kept[::2]].all())
+    assert not bool(got["src_found"][1::2][kept[1::2]].any())
+
+
+def _third_np(a, b, ut, v):
+    """The third vertex of edge ``(a, b)`` from the float32 draw ``ut``."""
+    u1, u2 = min(a, b), max(a, b)
+    nv = v - 1 - (u1 != u2)
+    c = min(int(np.float32(ut) * np.float32(nv)), nv - 1)
+    c += c >= u1
+    c += (u1 != u2) and c >= u2
+    return c
+
+
+def test_reservoir_scan_kernel_long_tail_on_card(card):
+    """k = 1 at 2^16 edges (the estimators' batch at small k): the last
+    replacement at edge 100, its closing pair with trg at edge 2000 (inside
+    the tail's first chunk of 4096) and with src at the batch's end (a
+    later chunk, past the second grid barrier). The plain version runs on
+    the CPU copy: 2^16 edges of it on the card take half a minute."""
+    from gelly_streaming_tpu_torch.library import sampling
+    from gelly_streaming_tpu_torch.ops import sampling_kernels as sk
+
+    k, n, v, last = 1, 1 << 16, 1 << 16, 100
+    rng = np.random.default_rng(47)
+    s = rng.integers(0, 12, n).astype(np.int32)
+    d = rng.integers(0, 12, n).astype(np.int32)
+    thr = (np.float32(1.0) / np.arange(1, n + 1).astype(np.float32))[:, None]
+    coin = rng.random((n, k), dtype=np.float32)
+    coin[last + 1:] = np.nextafter(thr[last + 1:], np.float32(1))
+    coin[last] = np.nextafter(thr[last], np.float32(0))
+    third = rng.random((n, k), dtype=np.float32)
+    c = _third_np(int(s[last]), int(d[last]), third[last, 0], v)
+    s[2000], d[2000] = c, d[last]
+    s[n - 3], d[n - 3] = s[last], c
+    cpu = (sampling.init_sampler_state(k, "cpu"), 0, torch.from_numpy(s), torch.from_numpy(d),
+           v, torch.from_numpy(coin), torch.from_numpy(third))
+    args = ({f: x.to(card) for f, x in cpu[0].items()}, 0,
+            *(t.to(card) if torch.is_tensor(t) else t for t in cpu[2:]))
+    before = sk.LAUNCHES
+    got, m = sk.reservoir_scan(*args)
+    assert sk.LAUNCHES == before + 1 and m == n
+    want, _ = sk.reservoir_scan_plain(*cpu)
+    for f in want:
+        assert torch.equal(got[f].cpu(), want[f]), f
+    assert int(got["src"][0]) == s[last] and int(got["third"][0]) == c
+    assert bool(got["src_found"][0]) and bool(got["trg_found"][0])
 
 
 def test_broadcast_triangle_count_scan_route_on_card_matches_cpu(card, monkeypatch):

@@ -225,6 +225,7 @@ class SummaryAggregation(GroupFoldable, abc.ABC):
             "engine.dispatch",
             {"vcap": vcap, "edges_capacity": int(block.capacity)}
             if _trace.on() else None,
+            device=block.src.device,
         ):
             part = self._make_partial_fn(vcap, mesh)(
                 block.src, block.dst, block.val, block.mask)
@@ -269,6 +270,7 @@ class SummaryAggregation(GroupFoldable, abc.ABC):
             self._summary = self.grow_state(self._summary, self._vcap, vcap)
             self._vcap = vcap
         self._summary = self._window_step(self._summary, block, vcap, mesh)
+        _trace.window_done(block.cut_ns, self._device)
 
     def run(self, stream) -> Iterator[Any]:
         """Drive the aggregation over the stream's windows

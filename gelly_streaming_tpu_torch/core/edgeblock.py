@@ -31,6 +31,7 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
+from ..obs import trace as _trace
 from .device import resolve_device
 
 #: dtype of the edge value column
@@ -49,14 +50,16 @@ def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """Copy a host array to ``device``: an owned copy on the CPU; on a
     CUDA device one copy into pinned memory, then asynchronously on the
     current stream (PyTorch does not reuse the pinned buffer before the
-    copy is done)."""
+    copy is done). Timed as the span ``window.upload`` (the host copy and
+    the copy's enqueue; ``bytes`` while tracing is on)."""
     a = np.asarray(a)
-    dtype = torch.from_numpy(np.zeros(0, a.dtype)).dtype
-    host = torch.empty(a.shape, dtype=dtype, pin_memory=device.type == "cuda")
-    host.numpy()[...] = a
-    if device.type == "cpu":
-        return host
-    return host.to(device, non_blocking=True)
+    with _trace.span("window.upload", {"bytes": int(a.nbytes)} if _trace.on() else None):
+        dtype = torch.from_numpy(np.zeros(0, a.dtype)).dtype
+        host = torch.empty(a.shape, dtype=dtype, pin_memory=device.type == "cuda")
+        host.numpy()[...] = a
+        if device.type == "cpu":
+            return host
+        return host.to(device, non_blocking=True)
 
 
 # Shared device buffers for the per-window constants: the mask (True for the
@@ -97,7 +100,9 @@ class EdgeBlock:
 
     All tensors share the same leading dimension (the capacity) and one
     device. ``n_vertices`` is the vertex-table capacity this block's
-    compact ids index into.
+    compact ids index into. ``cut_ns``: when the windowing code had read
+    the window's last edge, on the tracer's clock (``obs.trace.stamp``);
+    None while tracing is off.
     """
 
     src: torch.Tensor  # int32[capacity]
@@ -105,6 +110,7 @@ class EdgeBlock:
     val: Any  # float32[capacity], or a pytree of [capacity, ...] tensors
     mask: torch.Tensor  # bool[capacity]
     n_vertices: int = 0
+    cut_ns: Optional[int] = None
 
     @property
     def capacity(self) -> int:
@@ -124,6 +130,7 @@ class EdgeBlock:
         device,
         capacity: Optional[int] = None,
         val_dtype=VAL_DTYPE,
+        cut_ns: Optional[int] = None,
     ) -> "EdgeBlock":
         """Build a block of capacity ``bucket_capacity(n)`` (or
         ``capacity``) on ``device`` from host arrays of compact int32 ids,
@@ -151,6 +158,7 @@ class EdgeBlock:
             val=val_d,
             mask=_cached_mask(cap, n, device),
             n_vertices=int(n_vertices),
+            cut_ns=cut_ns,
         )
 
     def to_host(self):

@@ -202,6 +202,7 @@ class Windower:
         """Encode one window's raw columns and upload the padded block to
         the stream's device."""
         n = raw_src.shape[0]
+        cut_ns = _trace.stamp()  # the window's cut: its last edge is read
         # the span covers the whole host pack: encode + pad + upload
         with _trace.span(
             "window.pack",
@@ -211,7 +212,7 @@ class Windower:
             # before dst per edge), matching the reference's per-record
             # processing.
             src, dst = self.vertex_dict.encode_pair(raw_src, raw_dst)
-            return self._encoded_block(src, dst, val)
+            return self._encoded_block(src, dst, val, cut_ns)
 
     def _block_from_encoded(
         self, src: np.ndarray, dst: np.ndarray, val: Optional[np.ndarray]
@@ -220,19 +221,20 @@ class Windower:
         native parse + encode path: the vertex dict was updated
         upstream)."""
         n = src.shape[0]
+        cut_ns = _trace.stamp()
         with _trace.span(
             "window.pack",
             {"edges": int(n), "encoded": True} if _trace.on() else None,
         ):
             src = np.ascontiguousarray(src, np.int32)
             dst = np.ascontiguousarray(dst, np.int32)
-            return self._encoded_block(src, dst, val)
+            return self._encoded_block(src, dst, val, cut_ns)
 
-    def _encoded_block(self, src, dst, val) -> EdgeBlock:
+    def _encoded_block(self, src, dst, val, cut_ns) -> EdgeBlock:
         """Upload one window of compact ids and attach its host columns."""
         block = EdgeBlock.from_arrays(
             src, dst, val, n_vertices=self.vertex_dict.capacity,
-            device=self.device, val_dtype=self.val_dtype,
+            device=self.device, val_dtype=self.val_dtype, cut_ns=cut_ns,
         )
         n = len(src)
         host_val = (

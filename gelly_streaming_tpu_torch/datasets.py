@@ -482,7 +482,7 @@ def _device_encoded_blocks(path, is_binary, policy, vdict, chunk_edges,
                 val = _decode_vals(lut, to_device(cp, device))
         return EdgeBlock(
             src=si, dst=di, val=val, mask=_cached_mask(cap, n, device),
-            n_vertices=vdict.capacity,
+            n_vertices=vdict.capacity, cut_ns=_trace.stamp(),
         )
 
     def emit(s, d, v):

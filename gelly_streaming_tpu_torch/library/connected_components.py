@@ -241,6 +241,7 @@ class _CCMixin:
             # sync() waits on _summary; keep it aimed at the live carry
             self._summary = {"labels": self._canon}
             self._sync_ref = self._canon
+            _trace.window_done(block.cut_ns, self._device)
             yield Components.from_forest(self._canon, self._log, vdict)
         if self.transient_state:
             self._reset_transient()

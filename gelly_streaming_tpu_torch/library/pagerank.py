@@ -108,7 +108,7 @@ def _window_step(carry, bsrc, bdst, n_edges0: int, n_new: int, n_seen: int,
         src[n_edges0:n_edges0 + cap].copy_(bsrc)
         dst[n_edges0:n_edges0 + cap].copy_(bdst)
         n_edges = n_edges0 + n_new
-        with _trace.span("pagerank.fixpoint"):
+        with _trace.span("pagerank.fixpoint", device=ranks.device):
             if mesh is None:
                 ranks, delta, iters = pagerank_kernels.fixpoint(
                     src[:n_edges], dst[:n_edges], ranks, n_seen, damping, tol, chunk,
@@ -246,7 +246,9 @@ class IncrementalPageRank(GroupFoldable):
             # a device-transformed block: no host ids to advance the
             # watermark from; the live dict is the only source
             self._n_seen = max(self._n_seen, len(self._vdict))
-        return self._step(block.src, block.dst, n_new, self._n_seen, block.n_vertices)
+        out = self._step(block.src, block.dst, n_new, self._n_seen, block.n_vertices)
+        _trace.window_done(block.cut_ns, self._device)
+        return out
 
     # ---- GroupFoldable declaration (summaries/groupfold.py) ---------- #
     def group_supported(self, group) -> bool:

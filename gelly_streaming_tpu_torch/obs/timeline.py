@@ -37,6 +37,13 @@ point's neighborhood should not need grep). Values are absolute unix
 timestamps, or run-relative seconds when prefixed with ``+``
 (``--since +12 --until +14`` shows the two seconds after +12s, in the
 same clock the rendered ``+...s`` column uses).
+
+An event is placed at its start where it carries one (a span's ``t0_ns``,
+on the tracer's shared clock) and at its ``ts`` otherwise, so a span sits
+where it began, beside what ran meanwhile. A device span's
+``<name>.device`` event renders as a line of its own (tag ``DEVICE``): the
+card's time for the stage, placed among the host spans open at its start,
+so a device gap shows beside the host span that left it.
 """
 
 from __future__ import annotations
@@ -200,18 +207,25 @@ def load_run(root: str) -> List[dict]:
                     **(doc.get("attrs") or {}),
                 },
             })
-    events.sort(key=lambda e: float(e.get("ts") or 0.0))
+    events.sort(key=when)
     return events
+
+
+def when(e: dict) -> float:
+    """Where an event is placed, in Unix seconds: its start (``t0_ns``)
+    where it carries one, else its ``ts``; 0.0 for neither."""
+    t0_ns = e.get("t0_ns")
+    if isinstance(t0_ns, int) and t0_ns:
+        return t0_ns / 1e9
+    ts = e.get("ts")
+    return float(ts) if isinstance(ts, (int, float)) else 0.0
 
 
 def run_t0(events: Iterable[dict]) -> float:
     """The run's earliest real timestamp (0.0 when none) — the zero
     point of the rendered ``+...s`` column and of relative ``--since``/
     ``--until`` values."""
-    stamps = [
-        float(e["ts"]) for e in events
-        if isinstance(e.get("ts"), (int, float)) and e["ts"]
-    ]
+    stamps = [t for t in map(when, events) if t]
     return min(stamps) if stamps else 0.0
 
 
@@ -231,8 +245,7 @@ def filter_events(
     for e in events:
         if trace is not None and e.get("trace") != trace:
             continue
-        ts = e.get("ts")
-        ts = float(ts) if isinstance(ts, (int, float)) else 0.0
+        ts = when(e)
         if since is not None and ts < since:
             continue
         if until is not None and ts > until:
@@ -263,7 +276,9 @@ def render(events: Iterable[dict], *, all_events: bool = False,
                                   else None)
         if tag is None and not all_events:
             continue
-        ts = float(e.get("ts") or 0.0)
+        if kind == "span" and name.endswith(".device"):
+            tag = "DEVICE"
+        ts = when(e)
         shard = e.get("shard") or "-"
         head = f"+{max(0.0, ts - t0):8.3f}s  [{shard:>12}] " \
                f"{tag or kind.upper():<10} {name}{_fmt_labels(e)}"

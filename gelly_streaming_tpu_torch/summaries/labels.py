@@ -23,7 +23,8 @@ emitted window holds its state, and a later window must not change it.
 
 The reference's ``lax.while_loop`` on ``jnp.any(...)`` is a Python loop
 here that reads its condition to the host on every turn; the turns and
-the reads are counted (:data:`FIXPOINT_TURNS`, :data:`HOST_READS`).
+the reads are counted (:data:`FIXPOINT_TURNS`, :data:`HOST_READS`), and
+each counted read is timed as one ``cc.host_read`` span.
 """
 
 from __future__ import annotations
@@ -51,7 +52,8 @@ def any_on_host(flags: torch.Tensor) -> bool:
     global HOST_READS, FIXPOINT_TURNS
     HOST_READS += 1
     FIXPOINT_TURNS += 1
-    return bool(flags.any())
+    with _trace.span("cc.host_read"):
+        return bool(flags.any())
 
 
 def count_host_read() -> None:
@@ -144,9 +146,11 @@ def grow_labels(state: Dict[str, torch.Tensor],
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
     """A host copy of a carry tensor (a counted host read on a card)."""
-    if t.device.type != "cpu":
-        count_host_read()
-    return t.cpu().numpy()
+    if t.device.type == "cpu":
+        return t.numpy()
+    count_host_read()
+    with _trace.span("cc.host_read"):
+        return t.cpu().numpy()
 
 
 # --------------------------------------------------------------------------- #

@@ -1863,3 +1863,156 @@ def test_broadcast_triangle_count_scan_route_on_card_matches_cpu(card, monkeypat
         for f in a:
             assert torch.equal(a[f], b[f]), f
     assert on_card._edge_count == 1400
+
+
+# --------------------------------------------------------------------- #
+# The tracer's device spans on torch.profiler's clock (obs/trace.py)
+# --------------------------------------------------------------------- #
+class _SpanSink:
+    def __init__(self):
+        self.events = []
+
+    def emit(self, event):
+        self.events.append(event)
+
+    def named(self, name):
+        return sorted((e for e in self.events if e["name"] == name), key=lambda e: e["t0_ns"])
+
+
+def _records(prof):
+    """``(name, start ns, end ns, on the card)`` of every profiler record,
+    on the profiler's own clock (Unix ns)."""
+    return [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns(),
+             "CUDA" in str(e.device_type()))
+            for e in prof.profiler.kineto_results.events()]
+
+
+def _traced_profile(card, work):
+    """``work()`` under ``torch.profiler`` (host and card) with the tracer
+    on and its ranges annotated, the trace primed with small launches (a
+    trace can lose its first device records). Returns (profile, sink)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gelly_streaming_tpu_torch.obs import trace
+
+    sink = _SpanSink()
+    primer = torch.zeros(1, device=card)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(128):
+            primer.add_(1)
+        torch.cuda.synchronize(card)
+        trace.add_sink(sink)
+        trace.enable(torch_annotations=True)
+        try:
+            work()
+            torch.cuda.synchronize(card)
+        finally:
+            trace.disable()
+            trace.remove_sink(sink)
+    return prof, sink
+
+
+def test_span_t0_ns_is_its_profiler_range_start(card):
+    """A host span's ``t0_ns`` lies within 100 us of the start of its own
+    ``record_function`` range in the profiler's records."""
+    from gelly_streaming_tpu_torch.obs import trace
+
+    x = torch.ones(1 << 20, device=card)
+
+    def work():
+        for i in range(16):
+            with trace.span(f"probe.{i}"):
+                x.mul_(1.0001)
+
+    prof, sink = _traced_profile(card, work)
+    starts = {name: s for name, s, _, dev in _records(prof) if not dev and name.startswith("probe.")}
+    assert len(starts) == 16
+    for i in range(16):
+        (e,) = sink.named(f"probe.{i}")
+        assert abs(e["t0_ns"] - starts[f"probe.{i}"]) <= 100_000, (i, e["t0_ns"] - starts[f"probe.{i}"])
+
+
+def test_pagerank_fixpoint_device_span_is_the_profilers_kernel(card):
+    """Three windows' fixpoints over 2^23 edges from uniform ranks, all 50
+    iterations (tolerance 0; about 10 ms a launch), each enqueued behind a
+    spin of about a millisecond, as a pipelined stream's launches wait
+    behind the work before them: each ``pagerank.fixpoint.device`` starts
+    within 0.5 ms of its ``pagerank_fixpoint`` kernel in the profiler's
+    records, on the same base, and lasts within 3 % of it. (On an idle
+    stream the span's time also holds the host's launch latency after its
+    start event.)"""
+    from gelly_streaming_tpu_torch.library import pagerank as tpr
+
+    nv, ne = 1 << 21, 1 << 23
+    src, dst = _zipf(23, nv, ne)
+    bs, bd = torch.from_numpy(src).to(card), torch.from_numpy(dst).to(card)
+    n_seen = 1 + int(max(src.max(), dst.max()))
+
+    def window():
+        carry = (torch.zeros(ne, dtype=torch.int32, device=card),
+                 torch.zeros(ne, dtype=torch.int32, device=card),
+                 torch.zeros(nv, device=card))
+        return tpr._window_step(carry, bs, bd, 0, ne, n_seen, 0.85, 0.0, 10, 5)
+
+    def windows():
+        for _ in range(3):
+            torch.cuda._sleep(2_000_000)
+            window()
+
+    window()  # the kernel's build and first launch
+    torch.cuda.synchronize(card)
+    prof, sink = _traced_profile(card, windows)
+    kernels = sorted((s, e) for name, s, e, dev in _records(prof)
+                     if dev and "pagerank_fixpoint" in name and "push" not in name)
+    devs = sink.named("pagerank.fixpoint.device")
+    assert len(kernels) == len(devs) == 3
+    for (ks, ke), d in zip(kernels, devs):
+        assert abs(d["t0_ns"] - ks) <= 500_000, d["t0_ns"] - ks
+        assert abs(d["dur_s"] * 1e9 - (ke - ks)) <= 0.03 * (ke - ks), (d["dur_s"], ke - ks)
+
+
+def test_cc_device_encode_stream_emits_every_device_record_on_card(card, tmp_path):
+    """CC over a ``.gbin`` with the device encode on the prefetch thread:
+    one ``engine.dispatch.device`` and one ``window.latency`` a window (the
+    encode is a host span only), nothing dropped, each ``.device`` event
+    inside its host span's lifetime or after it, and each latency at least
+    its window's carry on the card."""
+    from gelly_streaming_tpu_torch.library import ConnectedComponents
+    from gelly_streaming_tpu_torch.obs import trace
+    from gelly_streaming_tpu_torch.obs.registry import get_registry
+
+    src, dst = _zipf(29, 1 << 16, 1 << 18)
+    path = str(tmp_path / "cc.gbin")
+    gt.datasets.write_binary(path, src, dst)
+
+    def dropped():
+        return sum(i.value for _, i in get_registry().find("trace.device_spans_dropped"))
+
+    def run():
+        stream = gt.datasets.stream_file(path, window=gt.CountWindow(1 << 14), device_encode=True,
+                                         min_vertex_capacity=1 << 16, prefetch_depth=2,
+                                         device=card)
+        return sum(1 for _ in stream.aggregate(ConnectedComponents()))
+
+    run()
+    before = dropped()
+    sink = _SpanSink()
+    trace.add_sink(sink)
+    trace.enable()
+    try:
+        n = run()
+        torch.cuda.synchronize(card)
+    finally:
+        trace.disable()
+        trace.remove_sink(sink)
+    assert n == 16 and dropped() == before
+    dispatch = sink.named("engine.dispatch.device")
+    assert len(dispatch) == len(sink.named("engine.dispatch")) == n
+    assert len(sink.named("dict.encode")) == n and sink.named("dict.encode.device") == []
+    lat = sink.named("window.latency")
+    assert len(lat) == n
+    host = {e["sid"]: e for e in sink.named("engine.dispatch")}
+    for d in dispatch:
+        assert d["t0_ns"] >= host[d["parent"]]["t0_ns"] - 100_000
+    for d, w in zip(dispatch, lat):
+        assert w["dur_s"] >= d["dur_s"] and w["t0_ns"] <= d["t0_ns"]

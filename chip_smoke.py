@@ -188,15 +188,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``ConnectedComponents()``, ``sync()`` timed. Device-encoded blocks carry
    no host columns, so the carry is the dense one (as in the reference).
    One warm pass, the median of 3: edges/s, p50/p95, the CC fold's host
-   reads a window. The last window's partition, decoded to raw ids, must
+   reads and its kernel's launches a window (``csrc/cc_fold.cu``; each
+   pass must make one launch and no host read a window). The last
+   window's partition, decoded to raw ids, must
    equal scipy's; window 0's compact ids the host ``VertexDict``'s; the
    ingest's window loop (parse, upload, encode) makes 0 host syncs; the
    ``probe`` ends non-negative and equal to the ids seen. A profiled pass
    (no prefetch, so the encode's ranges are in the trace) gives the busy
    share and ``dict.encode``'s device ms and launches a window against
-   ``dict_encode_bytes``. Then the corpus's first 2 windows mapped to
-   sparse int32 ids (an injective affine map mod 2^31 - 1) must encode as
-   the host dict does.
+   ``dict_encode_bytes``, and ``engine.dispatch``'s with the fold kernel's
+   ctypes launches credited by name, against ``cc_fold_bytes``. Then the
+   corpus's first 2 windows mapped to sparse int32 ids (an injective affine
+   map mod 2^31 - 1) must encode as the host dict does. After it, the fold
+   kernel alone at the benchmark's CC shapes (a scale-23 R-MAT stream in
+   compact ids, 128 windows of 2^20 edges over 2^23 labels): each window
+   between CUDA events, one window with a cold L2 and a 2^20-edge path fed
+   in reverse, against the ``cc_fold_bytes`` bound; every 16th window
+   bit-equal to the plain composition, which is timed there too.
 14. sampling — ``make_stream(1 << 15, 1 << 22, seed=19)`` made
    duplicate-free and loop-free, in windows of 2^20 over ``vertex_count =
    1 << 15`` (the vectorized form). k is the least power of two at which
@@ -231,8 +239,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    incremental host path) and through ``device_encode`` (the diff path on
    the card): after each window the labels accumulated from the emissions
    must equal scipy's least raw id of each component, and the two paths
-   each other; ms a window of each, and a profile of each (``icc.*``
-   ranges).
+   each other; ms a window of each with the fold kernel's launches a
+   window, and a profile of each (``icc.*`` ranges, the fold's ctypes
+   launches credited to ``engine.dispatch``).
 16. durability — the headline cell of phase 5 under the resilience layer:
    (a) through ``example/common.supervised_emissions`` with a barrier
    every 4 windows, 3 kept, and ``FaultPlan(kill_at_window=9,
@@ -561,8 +570,18 @@ SPAN_PREFIXES = ("cc.", "window.", "engine.", "ingest.", "degree.", "tri.", "seg
 # (bench.py: bench_cc_e2e_device, bench_cc_e2e_device_text)
 DE_HINT = 1 << 10  # the growth form's pre-sizing hint
 DE_STEPS = ("dict.encode", "engine.dispatch", "cc.propagate")
+# the dense carry's window fold, a ctypes launch inside engine.dispatch
+DE_FOREIGN = {"engine.dispatch": ("cc_fold_window", "cc_kernels")}
 DE_SPARSE_WINDOWS = 2  # windows of the corpus mapped to sparse int32 ids
 DE_SPARSE_PRIME = (1 << 31) - 1  # the map x -> (a x + b) mod p is injective
+# the dense carry's window fold (csrc/cc_fold.cu) at the benchmark's CC cell's
+# shapes: a Graph500 scale-23 stream (2^27 edges, A/B/C 0.57/0.19/0.19) in
+# compact ids, 2^20-edge windows over a 2^23 table
+CCF_SCALE = 23
+CCF_WINDOW = 1 << 20
+CCF_WINDOWS = 128
+CCF_SEED = 23
+CCF_PLAIN_EVERY = 16  # the plain composition timed and compared at these windows
 # phase 14: the sampling triangle estimators
 SMP_VERTICES = 1 << 15
 SMP_EDGES = 1 << 22
@@ -3167,13 +3186,14 @@ def _de_pass(torch, path, form, prefetch=2):
     or ``bench_cc_e2e_device_text`` (``growth``: the text file), ``sync()``
     inside the timed region."""
     from gelly_streaming_tpu_torch.library import ConnectedComponents
-    from gelly_streaming_tpu_torch.ops import device_dict
+    from gelly_streaming_tpu_torch.ops import cc_kernels, device_dict
     from gelly_streaming_tpu_torch.summaries import labels
 
     stream = _de_stream(path, form, prefetch)
     agg = ConnectedComponents()
     labels.HOST_READS = labels.FIXPOINT_TURNS = 0
     device_dict.ENCODES = 0
+    cc_kernels.LAUNCHES = 0
     lat, last = [], None
     t0 = last_t = time.perf_counter()
     for last in stream.aggregate(agg):
@@ -3189,6 +3209,7 @@ def _de_pass(torch, path, form, prefetch=2):
         "p50_ms": float(np.percentile(lat_ms, 50)), "p95_ms": float(np.percentile(lat_ms, 95)),
         "carry": agg._cc_mode, "encodes": device_dict.ENCODES,
         "host_reads_per_window": labels.HOST_READS / n_win,
+        "cc_fold_launches_per_window": cc_kernels.LAUNCHES / n_win,
         "table_capacity": stream.vertex_dict.capacity,
     }, last, stream
 
@@ -3227,6 +3248,11 @@ def phase_device_encode(torch):
         if cell["windows"] != n_edges // CC_WINDOW or cell["encodes"] != cell["windows"]:
             raise AssertionError(f"device-encode {form}: {cell['windows']} windows, "
                                  f"{cell['encodes']} encodes")
+        # the dense carry's fold: one launch and no host read a window
+        folds = [r["cc_fold_launches_per_window"] for r in results]
+        if any(f != 1.0 for f in folds) or cell["host_reads_per_window"] != 0:
+            raise AssertionError(f"device-encode {form}: {folds} fold launches and "
+                                 f"{cell['host_reads_per_window']} host reads a window")
         # correctness: the last window's partition in raw ids against scipy
         last, stream = passes[mid][1], passes[mid][2]
         vd = stream.vertex_dict
@@ -3266,10 +3292,19 @@ def phase_device_encode(torch):
         say(f"device-encode {form} profile ({r['windows']} windows, no prefetch, "
             f"{wall * 1e3:.1f} ms):")
         cell["busy_share"] = profile_pass(torch, lambda: None, wall, prof=prof)
+        vcap = st.vertex_dict.capacity
         steps = step_rows(prof, DE_STEPS, r["windows"],
-                          {"dict.encode": dict_encode_bytes(CC_WINDOW, st.vertex_dict.capacity)})
+                          {"dict.encode": dict_encode_bytes(CC_WINDOW, vcap),
+                           "engine.dispatch": cc_fold_bytes(CC_WINDOW, vcap)})
+        # the fold's ctypes launch sits under no PyTorch operation: credit it
+        # to its range by name
+        captured = _captured_kernels(prof, DE_FOREIGN)
+        _add_foreign_kernels(steps, DE_FOREIGN, captured, r["windows"])
+        cell["trace_fold_launches"] = captured["engine.dispatch"][0]
+        cell["counted_fold_launches"] = round(r["cc_fold_launches_per_window"] * r["windows"])
         say(f"device-encode {form} steps (device ms, launches and bytes' bound per window; "
-            "dict.encode bound at the final table capacity) " + json.dumps(steps))
+            "dict.encode and engine.dispatch bounds at the final table capacity) "
+            + json.dumps(steps))
         cell["steps"] = steps
         cells[form] = cell
         del passes
@@ -3327,6 +3362,13 @@ def exact_triangles(src, dst, n):
     return int(round((lo @ lo).multiply(lo).sum()))
 
 
+def cc_fold_bytes(e, v):
+    """Bytes of one window's fold into a ``v``-label table: the int32
+    columns (8e) and the mask (e) read, the carried labels read and the new
+    ones written (8v), the touched flags read and written (2v)."""
+    return 9 * e + 10 * v
+
+
 def sampling_window_bytes(e, k):
     """Bytes of one vectorized window update: the window's src, dst (int32)
     and mask read; the three [k] uniforms read; the sample columns (three
@@ -3381,6 +3423,105 @@ def _recording(cls, device):
 def _states_equal(a, b):
     return len(a) == len(b) and all(
         all(np.array_equal(x[f], y[f]) for f in x) for x, y in zip(a, b))
+
+
+def _ccf_stream(torch):
+    """The fold's stream on the card (the benchmark's generator): R-MAT ids
+    relabelled to compact ids in the order of first appearance (edge by
+    edge, source before target), as the device dictionary numbers them."""
+    from graphbench.generate import rmat
+
+    dev = torch.device("cuda")
+    n, v = CCF_WINDOW * CCF_WINDOWS, 1 << CCF_SCALE
+    src, dst = (c.long() for c in rmat(n, CCF_SCALE, 0.57, 0.19, 0.19, CCF_SEED, dev))
+    pos = torch.arange(n, dtype=torch.int64, device=dev)
+    first = torch.full((v,), 2 * n, dtype=torch.int64, device=dev)
+    first.scatter_reduce_(0, src, 2 * pos, "amin")
+    first.scatter_reduce_(0, dst, 2 * pos + 1, "amin")
+    del pos
+    rank = torch.empty(v, dtype=torch.int64, device=dev)
+    rank[torch.argsort(first)] = torch.arange(v, dtype=torch.int64, device=dev)
+    return rank[src].to(torch.int32), rank[dst].to(torch.int32), v
+
+
+def phase_cc_fold(torch, smi=None):
+    """The dense carry's window fold at the CC cell's shapes: every window
+    of the stream through the kernel, each between its own CUDA events (the
+    table warm in L2 from the window before, as in the stream), bit-equal to
+    the plain composition at every ``CCF_PLAIN_EVERY``-th window, where the
+    plain composition is timed too; one mid-stream window with a cold L2;
+    and a worst case, a 2^20-edge path fed in reverse (one chain of 2^20
+    hooks)."""
+    from gelly_streaming_tpu_torch.ops import cc_kernels
+    from gelly_streaming_tpu_torch.summaries import labels
+
+    src, dst, v = _ccf_stream(torch)
+    mask = torch.ones(CCF_WINDOW, dtype=torch.bool, device="cuda")
+    state = labels.init_labels(v, "cuda")
+    launches = cc_kernels.LAUNCHES
+    cc_kernels.fold_window(state["labels"], state["touched"], src[:CCF_WINDOW],
+                           dst[:CCF_WINDOW], mask)  # the build and the first launch
+    torch.cuda.synchronize()
+    pairs, plain, equal, mid = [], [], [], None
+    lab, tch = state["labels"], state["touched"]
+    for w in range(CCF_WINDOWS):
+        s, d = src[w * CCF_WINDOW:(w + 1) * CCF_WINDOW], dst[w * CCF_WINDOW:(w + 1) * CCF_WINDOW]
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = cc_kernels.fold_window(lab, tch, s, d, mask)
+        end.record()
+        pairs.append((start, end))
+        if w % CCF_PLAIN_EVERY == CCF_PLAIN_EVERY - 1:
+            torch.cuda.synchronize()
+            p0, p1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            reads = labels.HOST_READS
+            t0 = time.perf_counter()
+            p0.record()
+            want = cc_kernels.fold_window_plain(lab, tch, s, d, mask)
+            p1.record()
+            torch.cuda.synchronize()
+            plain.append({"window": w, "device_ms": p0.elapsed_time(p1),
+                          "host_ms": (time.perf_counter() - t0) * 1e3,
+                          "host_reads": labels.HOST_READS - reads})
+            equal.append(bool(torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])))
+        if w == CCF_WINDOWS // 2:
+            mid = (lab, tch, s, d)
+        lab, tch = out
+    torch.cuda.synchronize()
+    launched = cc_kernels.LAUNCHES - launches
+    ms = [a.elapsed_time(b) for a, b in pairs]
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
+    cold = cold_ms(torch, lambda: cc_kernels.fold_window(*mid, mask), flush)
+    bound_ms = cc_fold_bytes(CCF_WINDOW, v) / HBM_BYTES_PER_S * 1e3
+    seen = int(tch.sum())
+    comps = int((lab[tch] == torch.arange(v, device="cuda")[tch]).sum())
+    row = {
+        "name": "cc_fold_window", "smi": smi, "per": f"window: E = {CCF_WINDOW}, V = {v}",
+        "ms_mean": statistics.fmean(ms), "ms_median": statistics.median(ms),
+        "ms_first": ms[0], "ms_max": max(ms), "cold_ms": cold,
+        "bound_ms": bound_ms, "bound_by": "bytes (8E + E + 8V + 2V)",
+        "bound_share_mean": bound_ms / statistics.fmean(ms),
+        "plain": plain, "plain_device_ms_mean": statistics.fmean(p["device_ms"] for p in plain),
+        "plain_host_ms_mean": statistics.fmean(p["host_ms"] for p in plain),
+        "library_ms": None, "equal_to_plain": equal,
+        "launches": launched, "vertices_seen": seen, "components": comps,
+    }
+    # the worst case: one reversed path of CCF_WINDOW hooks into a fresh table
+    i = torch.arange(CCF_WINDOW - 1, -1, -1, dtype=torch.int32, device="cuda")
+    fresh = labels.init_labels(v, "cuda")
+    path_args = (fresh["labels"], fresh["touched"], i, i + 1, mask)
+    row["reverse_path_ms"] = cuda_ms(torch, lambda: cc_kernels.fold_window(*path_args),
+                                     iters=3, warmup=1)
+    got = cc_kernels.fold_window(*path_args)[0]
+    row["reverse_path_flat_and_one_component"] = bool(
+        (got[: CCF_WINDOW + 1] == 0).all() and torch.equal(got[CCF_WINDOW + 1:],
+                                                           fresh["labels"][CCF_WINDOW + 1:]))
+    say("cc fold kernel " + json.dumps(row))
+    if not all(equal) or not row["reverse_path_flat_and_one_component"]:
+        raise AssertionError("cc fold: the kernel disagrees with the plain composition")
+    if launched != CCF_WINDOWS + 1:
+        raise AssertionError(f"cc fold: {launched} launches for {CCF_WINDOWS + 1} folds")
+    return row
 
 
 def phase_sampling(torch):
@@ -3646,6 +3787,7 @@ def _scan_full_pass(torch, edges, tri):
 def phase_iterative_cc(torch):
     from gelly_streaming_tpu_torch import CountWindow, SimpleEdgeStream, datasets, native
     from gelly_streaming_tpu_torch.library import IterativeConnectedComponents
+    from gelly_streaming_tpu_torch.ops import cc_kernels
 
     src, dst = make_stream(ICC_VERTICES, ICC_EDGES, seed=ICC_SEED)
     path = os.path.join(datasets.cache_dir(), "smoke_icc.txt")
@@ -3671,12 +3813,14 @@ def phase_iterative_cc(torch):
             torch.cuda.synchronize()
         return icc, out
 
-    got, times = {}, {}
+    got, times, folds = {}, {}, {}
     for name in ("incremental", "diff"):
         one_pass(name)  # warm
+        cc_kernels.LAUNCHES = 0
         t0 = time.perf_counter()
         icc, out = one_pass(name)
         times[name] = (time.perf_counter() - t0) * 1e3 / len(out)
+        folds[name] = cc_kernels.LAUNCHES / len(out)
         got[name] = (icc, out)
     labels = np.full(ICC_VERTICES, -1, np.int64)
     ok = all(got[n][0]._mode == n for n in got) and len(got["diff"][1]) == n_win
@@ -3688,7 +3832,7 @@ def phase_iterative_cc(torch):
         want = oracle_labels(src[:z].astype(np.int64), dst[:z].astype(np.int64), ICC_VERTICES)
         seen = np.unique(np.concatenate([src[:z], dst[:z]]))
         ok &= np.array_equal(labels[seen], want[seen]) and int((labels >= 0).sum()) == len(seen)
-    cell = {"windows": n_win, "ms_per_window": times,
+    cell = {"windows": n_win, "ms_per_window": times, "cc_fold_launches_per_window": folds,
             "modes": {n: got[n][0]._mode for n in got}, "emitted": [len(x) for x in got["diff"][1]],
             "equal": bool(ok)}
     say("iterative cc cell " + json.dumps(cell))
@@ -3696,7 +3840,7 @@ def phase_iterative_cc(torch):
         raise AssertionError("iterative CC: the paths disagree or differ from scipy")
     cell["profile"] = {
         name: profile_cell(torch, f"iterative cc {name}", lambda n=name: len(one_pass(n)[1]),
-                           ICC_STEPS, {})
+                           ICC_STEPS, {}, foreign=DE_FOREIGN)
         for name in ("incremental", "diff")
     }
     os.remove(path)
@@ -6243,9 +6387,10 @@ def main():
     timed("bipartiteness", phase_bipartiteness, torch)
     timed("exact triangles", phase_exact_triangles, torch)
     spanner_result = timed("spanner", phase_spanner, torch, smi)
-    timed("device-encode", phase_device_encode, torch)
+    de_result = timed("device-encode", phase_device_encode, torch)
+    fold_row = timed("cc fold", phase_cc_fold, torch, smi)
     sampling_result = timed("sampling", phase_sampling, torch)
-    timed("iterative cc", phase_iterative_cc, torch)
+    icc_result = timed("iterative cc", phase_iterative_cc, torch)
     timed("durability", phase_durability, torch, cc_oracle)
     timed("autok", phase_autok, torch)
     timed("eventtime", phase_eventtime, torch)
@@ -6364,8 +6509,37 @@ def main():
         "per": f"{scan['per']}; {smi}",
         "status": "ported",
     }
+    cc_fold_window = {
+        "name": "cc_fold_window",
+        "route": "cuda",
+        "source": "gelly_streaming_tpu_torch/csrc/cc_fold.cu",
+        "replaces": "gelly_streaming_tpu/summaries/labels.py: label_combine(state, "
+                    "cc_fold(init_labels(V), ...))",
+        "replaces_kind": "an XLA step (two lax.while_loop fixpoints), not a Pallas kernel",
+        # the kernel phase's direct calls, then the main path's: the
+        # device-encoded CC passes and the iterative CC's diff pass
+        "launches": fold_row["launches"],
+        "launches_per_window_device_encode": {
+            form: de_result[form]["cc_fold_launches_per_window"] for form in de_result},
+        "launches_per_window_iterative_cc": icc_result["cc_fold_launches_per_window"],
+        "max_abs_err": 0.0 if all(fold_row["equal_to_plain"]) else None,
+        "ms": fold_row["ms_mean"],
+        "ms_median": fold_row["ms_median"],
+        "cold_ms": fold_row["cold_ms"],
+        "plain_ms": fold_row["plain_device_ms_mean"],
+        "bound_ms": fold_row["bound_ms"],
+        "bound_by": fold_row["bound_by"],
+        # no PyTorch call folds edges into a union-find
+        "library_ms": None,
+        "bound_share": fold_row["bound_share_mean"],
+        "reverse_path_ms": fold_row["reverse_path_ms"],
+        "design": "one cooperative launch a window: copy the carried table, a lock-free "
+                  "union-find over the window's lanes, then a compress pass",
+        "per": f"{fold_row['per']}; {smi}",
+        "status": "ported",
+    }
     say(json.dumps({"kernels": [kernel, k_reach, pagerank_fixpoint, pagerank_push,
-                                reservoir_scan]}))
+                                reservoir_scan, cc_fold_window]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -227,9 +227,15 @@ class SummaryAggregation(GroupFoldable, abc.ABC):
             if _trace.on() else None,
             device=block.src.device,
         ):
-            part = self._make_partial_fn(vcap, mesh)(
-                block.src, block.dst, block.val, block.mask)
-            return self.combine(summary, part)
+            return self._fold_window(summary, block, vcap, mesh)
+
+    def _fold_window(self, summary: Any, block: EdgeBlock, vcap: int, mesh) -> Any:
+        """The body of a window step: the one-window fold, then ``combine``
+        into the carried summary. An aggregation with a fused form of the
+        two overrides this."""
+        part = self._make_partial_fn(vcap, mesh)(
+            block.src, block.dst, block.val, block.mask)
+        return self.combine(summary, part)
 
     def _superbatch_step(
         self, summary: Any, sblock: StackedEdgeBlock, vcap: int, mesh=None

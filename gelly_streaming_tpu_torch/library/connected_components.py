@@ -18,12 +18,17 @@ that contract here (``carry=``, default ``"auto"``):
   MIRROR updated by one O(touched) scatter. On a card its group commit
   downloads the mirror and uploads the new one: correct, and slow, so
   ``auto`` never picks it there.
-- **Dense labels** (``summaries/labels.py``): full-table min-label
-  fixpoint + pointer-graph combine. Used for streams whose blocks carry
-  no host columns (the windowed carries' touched set is host-computed)
-  and on ``carry="dense"``. A stream can downgrade to dense mid-run
-  (either windowed carry canonicalizes to flat labels); it never needs to
-  upgrade back.
+- **Dense labels** (``summaries/labels.py``): a flat label table over
+  the whole vertex capacity. Used for streams whose blocks carry no host
+  columns (the windowed carries' touched set is host-computed: a
+  device-encoded stream) and on ``carry="dense"``. On one card a window
+  folds into the table in ONE launch of a union-find kernel
+  (``cc_kernels.fold_window``, ``csrc/cc_fold.cu``) that reads nothing to the
+  host; under a mesh and on the CPU it is the engine's per-shard fold
+  (a full-table min-label fixpoint) and pointer-graph combine, each
+  fixpoint reading its loop condition to the host every turn. A stream
+  can downgrade to dense mid-run (either windowed carry canonicalizes to
+  flat labels); it never needs to upgrade back.
 
 Emission gives a lazy
 :class:`~gelly_streaming_tpu_torch.summaries.labels.Components` view per
@@ -67,6 +72,7 @@ import torch
 from ..aggregate.summary import SummaryBulkAggregation, SummaryTreeReduce
 from ..core.edgeblock import to_device
 from ..obs import trace as _trace
+from ..ops import cc_kernels
 from ..summaries.forest import (
     MirrorReplay,
     TouchLog,
@@ -141,6 +147,17 @@ class _CCMixin:
 
     def transform(self, state, vdict) -> Components:
         return Components.from_labels(state, vdict)
+
+    def _fold_window(self, summary, block, vcap, mesh):
+        """The dense window step: on one card the fused fold, one launch
+        (:func:`~gelly_streaming_tpu_torch.ops.cc_kernels.fold_window`);
+        under a mesh (the per-shard ``update`` and the cross-shard
+        ``combine``) and on the CPU, the engine's ``update`` + ``combine``."""
+        if mesh is None and block.src.device.type == "cuda":
+            labels, touched = cc_kernels.fold_window(
+                summary["labels"], summary["touched"], block.src, block.dst, block.mask)
+            return {"labels": labels, "touched": touched}
+        return super()._fold_window(summary, block, vcap, mesh)
 
     # ---- windowed-carry run loop ---- #
     def _adopt_device(self, stream) -> None:

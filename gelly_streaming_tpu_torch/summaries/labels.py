@@ -24,7 +24,11 @@ emitted window holds its state, and a later window must not change it.
 The reference's ``lax.while_loop`` on ``jnp.any(...)`` is a Python loop
 here that reads its condition to the host on every turn; the turns and
 the reads are counted (:data:`FIXPOINT_TURNS`, :data:`HOST_READS`), and
-each counted read is timed as one ``cc.host_read`` span.
+each counted read is timed as one ``cc.host_read`` span. On one card the
+carry's window step, ``label_combine(state, cc_fold(init_labels(V), ...))``,
+runs no such loop: ``ops/cc_kernels.py:fold_window`` gives the same table
+in one launch of a union-find kernel (``csrc/cc_fold.cu``), with no turn
+and no read.
 """
 
 from __future__ import annotations

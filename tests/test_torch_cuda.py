@@ -62,7 +62,8 @@ the card equal to its CPU replay, one launch a batch.
 
 Every test here is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is false. The file imports only torch, numpy
-and the port, so it also runs on a machine without JAX::
+and the port (and, at ogbn-products' widths, the benchmark's plain torch
+reference), so it also runs on a machine without JAX::
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
@@ -232,6 +233,91 @@ def test_device_table_loop_makes_no_host_sync(card):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert len(outs) == 4 and bool(torch.isfinite(outs[-1]).all())
+
+
+#: ogbn-products' published widths (OGB's GraphSAGE baseline)
+PRODUCTS_DIMS = [100, 256, 256, 47]
+
+
+def _products_inputs(card, seed, v, e, hub_degree):
+    """Seeded bf16 weights (He scaled, biases not zero, drawn here in plain
+    torch) and N(0, 1) features at the published widths, and ``e`` uniform
+    messages over ``v`` ids of which ``hub_degree`` go to id 7."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    params = []
+    for f, o in zip(PRODUCTS_DIMS[:-1], PRODUCTS_DIMS[1:]):
+        layer = {k: (torch.randn((f, o), generator=g, device=card) * (2.0 / f) ** 0.5)
+                 .to(torch.bfloat16) for k in ("w_self", "w_nbr")}
+        layer["b"] = (0.1 * torch.randn(o, generator=g, device=card)).to(torch.bfloat16)
+        params.append(layer)
+    table = torch.randn((v, PRODUCTS_DIMS[0]), generator=g, device=card).to(torch.bfloat16)
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, v, e).astype(np.int32)
+    dst = rng.integers(0, v, e).astype(np.int32)
+    dst[rng.choice(e, hub_degree, replace=False)] = 7
+    return params, table, src, dst
+
+
+def _products_reference_and_limits():
+    """The benchmark's plain reference (``graphbench/reference/sage.py``,
+    plain torch) and the ``sage_products_w8m`` cell's limits."""
+    import json
+    import os
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from graphbench.reference import sage
+
+    with open(os.path.join(root, "graphbench", "workloads", "sage_products_w8m.json")) as f:
+        return sage, json.load(f)["limits"]
+
+
+def test_products_widths_take_the_tensor_cores_in_every_layer(card):
+    """ogbn-products' widths [100, 256, 256, 47] over 2^21 ids, one window
+    of 2^20 messages with a hub of in-degree 5,000: the window launches
+    "tc" three times and "simt" never (widths 100 and 47 are padded to 104
+    and 48), yields the 47 published columns, and its table is within the
+    benchmark cell's limits of the plain float32 reference."""
+    ref, limits = _products_reference_and_limits()
+    v = 1 << 21
+    params, table, src, dst = _products_inputs(card, 25, v, 1 << 20, 5000)
+    stream = gt.SimpleEdgeStream((src, dst), window=gt.CountWindow(1 << 20),
+                                 vertex_dict=IdentityDict(v), device=card)
+    before = dict(sage_kernels.LAUNCHES_BY_VARIANT)
+    outs = list(StreamingGraphSAGE(params, PRODUCTS_DIMS[0]).run(
+        stream, TableFeatureSource(table, device=card)))
+    torch.cuda.synchronize()
+    after = sage_kernels.LAUNCHES_BY_VARIANT
+    assert (after["tc"] - before["tc"], after["simt"] - before["simt"]) == (3, 0)
+    assert len(outs) == 1 and tuple(outs[0].shape) == (v, 47)
+    s, d = torch.from_numpy(src).to(card), torch.from_numpy(dst).to(card)
+    want = ref.forward(table, params, s, d)
+    rel, hub = ref.gaps(outs[0], want, ref.hubs(d, v, 4096))
+    assert rel <= limits["emb_rel_l2"] and hub <= limits["hub_rel_gap"], (rel, hub)
+
+
+def test_products_window_fits_in_20_gb_at_2_27_held_messages(card):
+    """One window of 2^27 messages over 2^21 ids at the published widths:
+    the sliced float32 aggregation keeps the run's peak device memory, the
+    stream's own block included, under 20 GB (the bf16 form of the same
+    mean built [E, F] messages over the whole capacity: 68.7 GB a tensor
+    at F = 256)."""
+    v, e = 1 << 21, 1 << 27
+    params, table, src, dst = _products_inputs(card, 26, v, e, 5000)
+    stream = gt.SimpleEdgeStream((src, dst), window=gt.CountWindow(e),
+                                 vertex_dict=IdentityDict(v), device=card)
+    del src, dst
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(card)
+    outs = list(StreamingGraphSAGE(params, PRODUCTS_DIMS[0]).run(
+        stream, TableFeatureSource(table, device=card)))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(card)
+    assert len(outs) == 1 and bool(torch.isfinite(outs[0].float()).all())
+    assert peak < 20e9, peak
 
 
 # --------------------------------------------------------------------- #

@@ -47,6 +47,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    "simt" never; the last window's embeddings are held against a reference
    composed on the card from the plain functions; then edges/s, ms per
    window and where the time goes.
+4b. sage aggregate — the SAGE mean kernel (``csrc/sage_aggregate.cu``
+   behind ``ops/sage_aggregate.py:segment_mean``) at the
+   ``sage_products_w8m`` cell's last window: the cell's R-MAT stream (scale
+   21, 123,718,280 messages, made on the card by ``graphbench.generate``)
+   carried as a ``MessageCSR`` in its 15 windows of 2^23 (each append timed;
+   the last checked against a stable sort of the whole stream), then at F =
+   104 and 256 in bf16 the kernel's time against its ``E (4 + 2F) + 2VF``
+   byte bound, two launches bit-identical, the plain version's time and
+   agreement, and the edge-list composition it replaces
+   (``models/graphsage.py:mean_aggregate``, the ``library_ms``).
 5. cc      — streaming Connected Components, the headline cell of
    ``bench.py:bench_cc_e2e``: the ``livejournal`` surrogate (R-MAT scale 21,
    2^24 edges, made here by the port's ``ensure_corpus`` and cached under the
@@ -447,6 +457,15 @@ WINDOW = 1 << 18
 N_WINDOWS = 4
 DIMS = [128, 256, 128]
 STREAM_SEED = 13
+
+# phase 4b: the sage_products_w8m cell's stream and its widths
+SA_SCALE = 21
+SA_EDGES = 123_718_280
+SA_WINDOW = 1 << 23
+SA_RMAT = (0.57, 0.19, 0.19)
+SA_WIDTHS = (104, 256)
+SA_SEED = 25
+SA_TIMED = 5  # launches of the kernel timed at each width
 
 # streaming CC, the headline cell (bench.py: CORPUS, WINDOW, ID_BOUND)
 CC_CORPUS = "livejournal"
@@ -1024,25 +1043,38 @@ def _run_slice(torch, src, dst, params, table, mesh=None):
 
 
 def phase_slice(torch, kernel_rows):
+    from gelly_streaming_tpu_torch.models import graphsage
     from gelly_streaming_tpu_torch.models.graphsage import mean_aggregate
+    from gelly_streaming_tpu_torch.ops import sage_aggregate as sa
     from gelly_streaming_tpu_torch.ops import sage_kernels as sk
 
     src, dst = make_stream(N_VERTICES, WINDOW * N_WINDOWS, seed=STREAM_SEED)
     params, table = _sage_params(torch)
 
     # the main path, counted: every window's layers go through the
-    # tensor-core kernel
+    # tensor-core kernel, and every layer's mean is one launch of the mean
+    # kernel that reads every held message
+    layers = len(DIMS) - 1
     sk.LAUNCHES = 0
     sk.LAUNCHES_BY_VARIANT.update(tc=0, simt=0)
+    sa.LAUNCHES = sa.MESSAGES_PULLED = 0
+    aggregated = graphsage.MESSAGES_AGGREGATED
     outs = _run_slice(torch, src, dst, params, table)
     torch.cuda.synchronize()
     launches = sk.LAUNCHES
     by_variant = dict(sk.LAUNCHES_BY_VARIANT)
+    mean_launches, pulled = sa.LAUNCHES, sa.MESSAGES_PULLED
+    aggregated = graphsage.MESSAGES_AGGREGATED - aggregated
     say(f"slice: {len(outs)} windows, fused_sage_matmul launches {launches} {by_variant} "
-        f"(expected tc {2 * N_WINDOWS}, simt 0)")
-    if len(outs) != N_WINDOWS or by_variant != {"tc": 2 * N_WINDOWS, "simt": 0}:
-        raise AssertionError("the main path did not launch the tensor-core kernel twice "
-                             "per window, and only it")
+        f"(expected tc {layers * N_WINDOWS}, simt 0); sage_segment_mean launches "
+        f"{mean_launches} (expected {layers * N_WINDOWS}), messages pulled {pulled} of "
+        f"{aggregated} aggregated")
+    if len(outs) != N_WINDOWS or by_variant != {"tc": layers * N_WINDOWS, "simt": 0}:
+        raise AssertionError("the main path did not launch the tensor-core kernel once "
+                             "a layer, and only it")
+    if mean_launches != layers * N_WINDOWS or pulled != aggregated or not pulled:
+        raise AssertionError("the main path did not take every layer's mean with one "
+                             "launch of the mean kernel over every held message")
     for out in outs:
         if tuple(out.shape) != (N_VERTICES, DIMS[-1]) or not bool(torch.isfinite(out).all()):
             raise AssertionError(f"bad embeddings: shape {tuple(out.shape)}")
@@ -1080,6 +1112,8 @@ def phase_slice(torch, kernel_rows):
     kernel_window_ms = sum(r["kernel_ms"] for r in kernel_rows)
     result = {
         "launches": launches,
+        "mean_launches": mean_launches,
+        "messages_pulled_share": pulled / aggregated,
         "edges_per_s": WINDOW * N_WINDOWS / wall,
         "ms_per_window": ms_window,
         "pass_s": times,
@@ -1089,6 +1123,119 @@ def phase_slice(torch, kernel_rows):
     }
     say("slice " + json.dumps(result))
     profile_pass(torch, lambda: _run_slice(torch, src, dst, params, table), wall)
+    return result
+
+
+def _event_ms(torch, fn):
+    """Device ms of one call of ``fn`` between two CUDA events, and its
+    result."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), out
+
+
+def _workers_spanned(torch, sa, csr, row, f):
+    """How many workers' runs of the last bfloat16 launch at width ``f``
+    hold messages of ``row``: the kernel's merge-path split of its rows
+    and messages into equal runs (``csrc/sage_aggregate.cu``), which at
+    the cell's size takes every worker its scratch holds."""
+    workers = next(w for (_, dtype, width), (w, _, _) in sa._SCRATCH.items()
+                   if dtype == 0 and width == f)
+    per = -(-(csr.n_rows + csr.n) // workers)
+    start, end = int(csr.row_ptr[row]), int(csr.row_ptr[row + 1])
+    # the row's messages lie at path items [row + start, row + end)
+    return (row + end - 1) // per - (row + start) // per + 1
+
+
+def phase_sage_aggregate(torch, smi=None, device="cuda"):
+    """Phase 4b: the SAGE mean kernel at the sage_products_w8m cell's last
+    window (module docstring). Returns the kernel's row."""
+    from graphbench import generate
+
+    from gelly_streaming_tpu_torch.models.graphsage import mean_aggregate
+    from gelly_streaming_tpu_torch.ops import sage_aggregate as sa
+
+    v = 1 << SA_SCALE
+    src, dst = generate.rmat(SA_EDGES, SA_SCALE, *SA_RMAT, SA_SEED, device)
+    csr = sa.MessageCSR(device=device)
+    append_ms = []
+    for a in range(0, SA_EDGES, SA_WINDOW):
+        b = min(a + SA_WINDOW, SA_EDGES)
+        ms, _ = _event_ms(torch, lambda: csr.append(src[a:b], dst[a:b], v))
+        append_ms.append(ms)
+    order = torch.sort(dst, stable=True).indices
+    ok_csr = (torch.equal(csr.src[:SA_EDGES], src[order])
+              and torch.equal(csr.dst[:SA_EDGES], dst[order]))
+    counts = csr.row_ptr[1:] - csr.row_ptr[:-1]
+    ok_csr = ok_csr and torch.equal(counts, torch.bincount(dst.long(), minlength=v))
+    del order
+    say(f"sage aggregate: CSR of {SA_EDGES} messages over {v} ids in {len(append_ms)} windows: "
+        f"append ms {[round(x, 3) for x in append_ms]}, equal to a stable sort: {ok_csr}; "
+        f"max in-degree {int(counts.max())}, "
+        f"ids with none {float((counts == 0).double().mean()):.3f}")
+    if not ok_csr:
+        raise AssertionError("the carried CSR differs from a stable sort of the stream")
+    hub = int(counts.argmax())
+    rows = []
+    gen = torch.Generator(device=device).manual_seed(SA_SEED)
+    for f in SA_WIDTHS:
+        h = torch.randn((v, f), generator=gen, device=device).to(torch.bfloat16)
+        mean = lambda: sa.segment_mean(h, csr.src, csr.row_ptr, csr.n)  # noqa: E731
+        launches = sa.LAUNCHES
+        first = mean()
+        again = mean()
+        torch.cuda.synchronize()
+        identical = torch.equal(first, again)
+        times = [_event_ms(torch, mean)[0] for _ in range(SA_TIMED)]
+        plain_ms, plain = _event_ms(
+            torch, lambda: sa.segment_mean_plain(h, csr.src, csr.row_ptr, csr.n))
+        # every element within one bfloat16 rounding at its row's largest
+        # magnitude (the two roundings of nearly equal float32 means differ
+        # by at most that), plus 2^-12 of it for the two float32 sums'
+        # orders; the check must fail with the hub, which many workers'
+        # runs cut, zeroed
+        limit = plain.float().abs().amax(1, keepdim=True) * (2.0 ** -7 + 2.0 ** -12)
+
+        def rows_off(out):
+            return int(((out.float() - plain.float()).abs() > limit).any(1).sum())
+
+        bad_rows = rows_off(first)
+        cut = first.clone()
+        cut[hub] = 0
+        hub_caught = rows_off(cut) == 1
+        del plain, limit, again, cut
+        library_ms, _ = _event_ms(torch, lambda: mean_aggregate(h, src, dst, None, v))
+        nbytes = SA_EDGES * (4 + 2 * f) + 2 * v * f
+        ms = statistics.median(times)
+        row = {"f": f, "ms": ms, "ms_all": times, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+               "bytes": nbytes, "plain_ms": plain_ms, "library_ms": library_ms,
+               "bit_identical": identical, "rows_off_plain": bad_rows,
+               "zeroed_hub_caught": hub_caught, "hub_in_degree": int(counts[hub]),
+               "hub_workers": _workers_spanned(torch, sa, csr, hub, f),
+               "launches": sa.LAUNCHES - launches}
+        row["bound_share"] = row["bound_ms"] / ms
+        say("sage aggregate " + json.dumps(row))
+        if (not identical or bad_rows or not hub_caught or row["hub_workers"] < 2
+                or not bool(torch.isfinite(first).all())):
+            raise AssertionError(f"the mean kernel at F = {f} disagrees with itself or with "
+                                 f"the plain version ({bad_rows} rows off), or the check "
+                                 f"missed a zeroed hub ({hub_caught})")
+        if row["bound_share"] > 1.0:
+            raise AssertionError("the kernel ran faster than its bound: the timing is wrong")
+        rows.append(row)
+        del h, first
+    # a window's three layers: F = 104, then 256 twice
+    result = {"append_ms_last": append_ms[-1], "append_ms_max": max(append_ms), "rows": rows}
+    for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+        result[f"{key}_window"] = sum(r[key] for r in rows) + rows[-1][key]
+    result["per"] = (f"last window of sage_products_w8m: E = {SA_EDGES}, V = {v}, "
+                     f"F = 104, 256, 256, bf16; {smi}")
+    say("sage aggregate " + json.dumps({k: result[k] for k in result if k != "rows"}))
+    del src, dst, csr
+    torch.cuda.empty_cache()
     return result
 
 
@@ -6378,6 +6525,7 @@ def main():
     timed("build", phase_build)
     main_err, rows = timed("kernels", phase_kernels, torch)
     slice_result = timed("slice", phase_slice, torch, rows)
+    sa_result = timed("sage aggregate", phase_sage_aggregate, torch, smi)
     _, cc_oracle = timed("cc", phase_cc, torch)
     timed("northstar", phase_northstar, torch, smi)
     timed("degrees", phase_degrees, torch)
@@ -6538,8 +6686,30 @@ def main():
         "per": f"{fold_row['per']}; {smi}",
         "status": "ported",
     }
+    sage_segment_mean = {
+        "name": "sage_segment_mean",
+        "route": "cuda",
+        "source": "gelly_streaming_tpu_torch/csrc/sage_aggregate.cu",
+        "replaces": "gelly_streaming_tpu/models/graphsage.py:53 mean_aggregate",
+        "replaces_kind": "an XLA gather and scatter-add, not a Pallas kernel",
+        # the config #5 slice's launches: one a layer on the main path
+        "launches": slice_result["mean_launches"],
+        "launches_per_window": slice_result["mean_launches"] / N_WINDOWS,
+        "ms": sa_result["ms_window"],
+        "plain_ms": sa_result["plain_ms_window"],
+        "bound_ms": sa_result["bound_ms_window"],
+        "bound_by": "bytes",
+        # the edge-list composition the kernel replaces on the main path
+        "library_ms": sa_result["library_ms_window"],
+        "csr_append_ms": sa_result["append_ms_last"],
+        "design": "one cooperative launch a layer: a merge-path split of rows and messages "
+                  "over the grid, float32 sums in registers, partial rows fixed up in order",
+        "per": sa_result["per"],
+        "status": "ported",
+    }
+    sage_segment_mean["bound_share"] = sage_segment_mean["bound_ms"] / sage_segment_mean["ms"]
     say(json.dumps({"kernels": [kernel, k_reach, pagerank_fixpoint, pagerank_push,
-                                reservoir_scan, cc_fold_window]}))
+                                reservoir_scan, cc_fold_window, sage_segment_mean]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

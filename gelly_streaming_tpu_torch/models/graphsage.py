@@ -7,6 +7,13 @@ The counterpart of ``gelly_streaming_tpu/models/graphsage.py``:
   over edge slices of :data:`AGG_SLICE_EDGES` messages and divided by the
   exact integer in-degree (:func:`in_degrees`, once a forward). The
   reference sums and counts in ``h.dtype``: a bfloat16 count stops at 256.
+  ``StreamingGraphSAGE`` on one device, which holds the growing graph
+  itself, instead carries it as a CSR by destination
+  (:class:`~gelly_streaming_tpu_torch.ops.sage_aggregate.MessageCSR`) and
+  takes each layer's mean with one call of
+  :func:`~gelly_streaming_tpu_torch.ops.sage_aggregate.segment_mean` (on
+  the card one launch of its kernel, no atomic): the same float32 sums and
+  exact counts, read once a message.
 - The dense half of every layer, ``act(h @ w_self + agg @ w_nbr + b)``,
   is one call of :func:`~gelly_streaming_tpu_torch.ops.sage_kernels.fused_sage_matmul`:
   on the card the hand-written Hopper kernel, relu for the hidden layers
@@ -40,6 +47,8 @@ import torch
 from ..core.device import DEFAULT_DEVICE, resolve_device
 from ..core.edgeblock import EdgeAccumulator
 from ..obs import trace as _trace
+from ..ops import cuda_build
+from ..ops.sage_aggregate import MessageCSR, segment_mean
 from ..ops.sage_kernels import fused_sage_matmul
 from ..parallel import comm
 from ..parallel.mesh import EDGE_AXIS, P, mesh_shape
@@ -98,7 +107,7 @@ def in_degrees(dst, mask, num_vertices: int, *, axis_name=None):
 
 
 def mean_aggregate(h, src, dst, mask, num_vertices: int, axis_name=None, *,
-                   counts=None):
+                   counts=None, csr=None):
     """Masked mean of in-neighbor features: messages flow src -> dst.
 
     ``mask`` selects the lanes that hold messages (None: every lane).
@@ -111,8 +120,16 @@ def mean_aggregate(h, src, dst, mask, num_vertices: int, axis_name=None, *,
     ``shard_map`` over this rank's edges, the partial sums and counts
     all-reduce over that axis before the divide. Under autograd the
     gather's gradient, which holds only this rank's edges, all-reduces over
-    the axis too (:func:`~..parallel.comm.copy_over`)."""
+    the axis too (:func:`~..parallel.comm.copy_over`).
+
+    ``csr``: the messages as a :class:`MessageCSR` by destination instead
+    (``src``, ``dst``, ``mask``, ``counts`` and ``axis_name`` None, its
+    rows ``h``'s): the mean is one :func:`segment_mean` over it, the same
+    float32 sums and exact counts with no atomic, and no autograd."""
     global MESSAGES_AGGREGATED
+    if csr is not None:
+        MESSAGES_AGGREGATED += csr.n
+        return segment_mean(h, csr.src, csr.row_ptr, csr.n)
     n, slice_edges = src.shape[0], AGG_SLICE_EDGES
     if counts is None:
         counts = in_degrees(dst, mask, num_vertices, axis_name=axis_name)
@@ -284,9 +301,13 @@ class StreamingGraphSAGE:
     The model runs on copies of the parameters padded once to widths that
     are multiples of 8 (:func:`pad_params`), and the carried feature table
     has the same zero columns, so every layer can take the tensor-core
-    kernel; windows yield the user's output columns. Spans: the device span
-    ``sage.window`` around each window's forward, then
-    :func:`~..obs.trace.window_done`.
+    kernel; windows yield the user's output columns. Without a mesh the
+    held messages are also carried as a :class:`MessageCSR` by destination,
+    extended once a window under the device span ``sage.csr``, and every
+    layer's mean is one :func:`segment_mean` over it; under a mesh each
+    rank aggregates its slice of the edge columns
+    (:func:`make_sharded_forward`). Spans: the device span ``sage.window``
+    around each window's forward, then :func:`~..obs.trace.window_done`.
     """
 
     def __init__(self, params_stack, feature_dim: int, mesh=None):
@@ -305,6 +326,10 @@ class StreamingGraphSAGE:
         # Sharded columns must divide by the edge axis at every bucket.
         min_cap = 8 if mesh is None else max(8, mesh_shape(mesh).get(EDGE_AXIS, 1))
         self._edges = EdgeAccumulator(device=self.device, min_capacity=min_cap)
+        self._csr = MessageCSR(device=self.device) if mesh is None else None
+        if self._csr is not None and self.device.type == "cuda":
+            # both kernels a window launches, compiled side by side once
+            cuda_build.load_libraries(("fused_sage_matmul", "sage_aggregate"))
         self._h = None
         self._n_seen = 0
 
@@ -321,8 +346,13 @@ class StreamingGraphSAGE:
             # the block's device columns hold the window's edges in their
             # first n slots (prefix mask); n comes from the host columns
             n_new = len(block.to_host()[0])
+            held = self._edges.n_edges
             self._edges.append(block.src[:n_new], block.dst[:n_new])
             vcap = block.n_vertices
+            if self._csr is not None:
+                e = self._edges
+                with _trace.span("sage.csr", device=self.device):
+                    self._csr.append(e.src[held:e.n_edges], e.dst[held:e.n_edges], vcap)
             if device_source:
                 self._extend_features_device(vdict, features, dtype)
                 yield self._window(block)
@@ -338,10 +368,25 @@ class StreamingGraphSAGE:
         return out[:, : self._out_dim]
 
     def _forward(self) -> torch.Tensor:
-        e, n = self._edges, self._edges.n_edges
-        if self._fwd is None:
-            return sage_forward(self._params, self._h, e.src[:n], e.dst[:n], None)
-        return self._fwd(self._params, self._h, e.src, e.dst, None, n_edges=n)
+        if self._csr is None:
+            e = self._edges
+            return self._fwd(self._params, self._h, e.src, e.dst, None, n_edges=e.n_edges)
+        return self._csr_forward()
+
+    def _csr_forward(self) -> torch.Tensor:
+        """Every layer over the carried CSR: its mean is
+        :func:`mean_aggregate` over the CSR (one :func:`segment_mean`, no
+        autograd), its dense half :func:`fused_sage_matmul`, under the spans
+        of :func:`sage_layer`."""
+        csr, h, n = self._csr, self._h, len(self._params)
+        csr.reserve_rows(h.shape[0])
+        for i, p in enumerate(self._params):
+            with _trace.span("sage.aggregate", device=h.device):
+                agg = mean_aggregate(h, None, None, None, h.shape[0], csr=csr)
+            with _trace.span("sage.matmul"):
+                h = fused_sage_matmul(h, agg, p["w_self"], p["w_nbr"], p["b"],
+                                      activation="relu" if i < n - 1 else "none")
+        return h
 
     def state_dict(self) -> dict:
         """Checkpoint surface for the carried graph + features (params are
@@ -357,13 +402,19 @@ class StreamingGraphSAGE:
     def load_state_dict(self, d: dict) -> None:
         """Restore a state from this class or from the JAX package's
         ``StreamingGraphSAGE.state_dict`` (its bf16 ``h`` converts through
-        float32)."""
+        float32). Without a mesh the CSR is rebuilt from the restored
+        edges."""
         self._edges.load_state_dict(d["edges"])
         dtype = self.params[0]["w_self"].dtype
         self._h = None if d["h"] is None else self._padded(torch.tensor(
             np.asarray(d["h"], np.float32), dtype=dtype, device=self.device
         ))
         self._n_seen = int(d["n_seen"])
+        if self._csr is not None:
+            e = self._edges
+            self._csr = MessageCSR(device=self.device)
+            self._csr.append(e.src[: e.n_edges], e.dst[: e.n_edges],
+                             0 if self._h is None else self._h.shape[0])
 
     def _padded(self, rows: torch.Tensor) -> torch.Tensor:
         """``rows`` with zero columns up to the padded feature width."""

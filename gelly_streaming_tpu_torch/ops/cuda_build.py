@@ -103,17 +103,28 @@ def build(name: str) -> str:
     return out
 
 
-def build_all() -> dict:
-    """Build every ``csrc/*.cu`` at once, one ``nvcc`` per source started
-    together; returns name -> library path. Raises the first failure."""
+def build_all(names=None) -> dict:
+    """Build every ``csrc/*.cu`` (or the sources ``names``) at once, one
+    ``nvcc`` per source started together; returns name -> library path.
+    Raises the first failure."""
     from concurrent.futures import ThreadPoolExecutor
 
-    names = sorted(
-        f[:-3] for f in os.listdir(CSRC_DIR) if f.endswith(".cu")
-    )
+    if names is None:
+        names = sorted(f[:-3] for f in os.listdir(CSRC_DIR) if f.endswith(".cu"))
     with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
         futures = {name: pool.submit(build, name) for name in names}
         return {name: fut.result() for name, fut in futures.items()}
+
+
+def load_libraries(names) -> None:
+    """Load the libraries for the sources ``names``, building the ones not
+    loaded yet side by side (:func:`build_all`); a dictionary lookup once
+    they are."""
+    missing = [name for name in names if name not in _LIBS]
+    if missing:
+        build_all(missing)
+        for name in missing:
+            load_library(name)
 
 
 def device_index(device) -> int:

@@ -58,7 +58,13 @@ plain version bit for bit for k in {1, 33, 10000}, batches of 1 and 1677
 edges, an edge count across 2^24 and an id space above 2^24, at k = 10,000
 with almost no coin (m0 = 2^30), at k = 1 over 2^16 edges with a tail of
 closing pairs past the second grid barrier, and a whole scan-route run on
-the card equal to its CPU replay, one launch a batch.
+the card equal to its CPU replay, one launch a batch, and the SAGE mean
+over a CSR by destination (``csrc/sage_aggregate.cu``, one launch a layer):
+within float32 summation rounding of the exact mean at F = 48, 104 and 256
+in bfloat16 and float32, as the plain version is, empty rows zero, two
+launches bit-identical, a hub of 2^18 messages over many workers' runs,
+three launches a window at ogbn-products' widths with every aggregated
+message pulled, and a refused launch raising.
 
 Every test here is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is false. The file imports only torch, numpy
@@ -318,6 +324,132 @@ def test_products_window_fits_in_20_gb_at_2_27_held_messages(card):
     peak = torch.cuda.max_memory_allocated(card)
     assert len(outs) == 1 and bool(torch.isfinite(outs[0].float()).all())
     assert peak < 20e9, peak
+
+
+def _mean_operands(card, seed, v, e, f, dtype, hub_degree=0):
+    """Seeded features ``[v, f]`` and ``e`` uniform messages (``hub_degree``
+    of them into id 3, none into the top quarter of the ids) as a CSR by
+    destination on the card."""
+    from gelly_streaming_tpu_torch.ops import sage_aggregate as sa
+
+    g = torch.Generator(device=card).manual_seed(seed)
+    h = torch.randn((v, f), generator=g, device=card).to(dtype)
+    src = torch.randint(0, v, (e,), generator=g, device=card, dtype=torch.int32)
+    dst = torch.randint(0, v - v // 4, (e,), generator=g, device=card, dtype=torch.int32)
+    if hub_degree:
+        dst[torch.randperm(e, generator=g, device=card)[:hub_degree]] = 3
+    csr = sa.MessageCSR(device=card)
+    csr.append(src, dst, v)
+    return h, csr
+
+
+def _exact_mean_bound(h, csr):
+    """The float64 mean of each row and recursive float32 summation's
+    bound on a float32 mean's distance from it."""
+    v = h.shape[0]
+    counts = (csr.row_ptr[1:] - csr.row_ptr[:-1])
+    rows = torch.repeat_interleave(torch.arange(v, device=h.device), counts,
+                                   output_size=csr.n)
+    terms = h.double().index_select(0, csr.src[: csr.n])
+    exact = torch.zeros((v, h.shape[1]), dtype=torch.float64, device=h.device)
+    exact.index_add_(0, rows, terms)
+    mass = torch.zeros_like(exact).index_add_(0, rows, terms.abs())
+    c = torch.clamp_min(counts, 1).double()[:, None]
+    return exact / c, (counts[:, None] * 2.0 ** -24 * mass + exact.abs() * 2.0 ** -24) / c
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("f", [48, 104, 256])
+def test_segment_mean_kernel_matches_plain_on_card(card, f, dtype):
+    """2^16 ids, 2^20 messages, a hub of 5,000: one launch, every float32
+    mean within summation rounding of the exact one and the plain
+    version's (atomics, another order) within one rounding to the output's
+    dtype of it; empty rows zero."""
+    from gelly_streaming_tpu_torch.ops import sage_aggregate as sa
+
+    dt = getattr(torch, dtype)
+    h, csr = _mean_operands(card, f, 1 << 16, 1 << 20, f, dt, 5000)
+    before = sa.LAUNCHES
+    got = sa.segment_mean(h, csr.src, csr.row_ptr, csr.n)
+    torch.cuda.synchronize()
+    assert sa.LAUNCHES == before + 1 and got.dtype == dt
+    want = sa.segment_mean_plain(h, csr.src, csr.row_ptr, csr.n)
+    exact, bound = _exact_mean_bound(h, csr)
+    # the unit roundoff of the output's cast
+    ulp = 2.0 ** -8 if dt == torch.bfloat16 else 0.0
+    for out in (got, want):
+        gap = (out.double() - exact).abs()
+        assert bool((gap <= bound + ulp * (exact.abs() + bound) + 1e-30).all())
+    empty = csr.row_ptr[1:] == csr.row_ptr[:-1]
+    assert bool(empty.any()) and not bool(got[empty].any())
+
+
+def test_segment_mean_two_launches_are_bit_identical(card):
+    from gelly_streaming_tpu_torch.ops import sage_aggregate as sa
+
+    h, csr = _mean_operands(card, 2, 1 << 18, 1 << 22, 256, torch.bfloat16, 1 << 16)
+    a = sa.segment_mean(h, csr.src, csr.row_ptr, csr.n)
+    b = sa.segment_mean(h, csr.src, csr.row_ptr, csr.n)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_segment_mean_hub_of_2_18_messages_spans_many_workers(card):
+    """A hub receiving 2^18 of 2^20 messages over 2^12 ids, far more than
+    one worker's run: its float32 mean is within summation rounding of the
+    exact one."""
+    from gelly_streaming_tpu_torch.ops import sage_aggregate as sa
+
+    h, csr = _mean_operands(card, 3, 1 << 12, 1 << 20, 104, torch.float32, 1 << 18)
+    got = sa.segment_mean(h, csr.src, csr.row_ptr, csr.n)
+    torch.cuda.synchronize()
+    exact, bound = _exact_mean_bound(h, csr)
+    assert int(csr.row_ptr[4] - csr.row_ptr[3]) >= 1 << 18
+    assert bool(((got.double() - exact).abs() <= bound + 1e-30).all())
+
+
+def test_products_window_launches_the_mean_kernel_once_a_layer(card):
+    """Three windows at ogbn-products' widths over 2^18 ids: the kernel
+    launches 3 times a window, pulls every aggregated message, and the
+    window loop makes no edge-list aggregation."""
+    from gelly_streaming_tpu_torch.models import graphsage
+    from gelly_streaming_tpu_torch.ops import sage_aggregate as sa
+
+    v = 1 << 18
+    params, table, src, dst = _products_inputs(card, 27, v, 3 << 18, 3000)
+    stream = gt.SimpleEdgeStream((src, dst), window=gt.CountWindow(1 << 18),
+                                 vertex_dict=IdentityDict(v), device=card)
+    launches, pulled = sa.LAUNCHES, sa.MESSAGES_PULLED
+    aggregated = graphsage.MESSAGES_AGGREGATED
+    outs = list(StreamingGraphSAGE(params, PRODUCTS_DIMS[0]).run(
+        stream, TableFeatureSource(table, device=card)))
+    torch.cuda.synchronize()
+    assert len(outs) == 3 and sa.LAUNCHES - launches == 3 * 3
+    held = (1 + 2 + 3) << 18
+    assert sa.MESSAGES_PULLED - pulled == graphsage.MESSAGES_AGGREGATED - aggregated == 3 * held
+
+
+def test_segment_mean_refused_launch_raises(card, monkeypatch):
+    """A launch the library refuses (here: scratch for fewer workers than
+    the grid needs) raises and counts no launch."""
+    from gelly_streaming_tpu_torch.ops import sage_aggregate as sa
+
+    h, csr = _mean_operands(card, 4, 1 << 12, 1 << 16, 48, torch.bfloat16)
+    lib = sa._library()
+
+    class Short:
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        def sage_segment_mean_max_workers(self, *args):
+            return 1
+
+    monkeypatch.setattr(sa, "_library", lambda: Short())
+    monkeypatch.setattr(sa, "_SCRATCH", {})
+    before = sa.LAUNCHES
+    with pytest.raises(RuntimeError, match="launch failed"):
+        sa.segment_mean(h, csr.src, csr.row_ptr, csr.n)
+    assert sa.LAUNCHES == before
 
 
 # --------------------------------------------------------------------- #
@@ -1195,13 +1327,57 @@ def test_a_router_process_never_makes_a_cuda_context(card):
         close()
 
 
+def _sage_layer_bound(p, h, src, dst, relu):
+    """One SAGE layer over the computed input ``h`` and the messages ``src
+    -> dst``, in float64, and for every output a bound on the computed
+    layer's distance from it: the mean's float32 sum in any order (``c u /
+    (1 - c u)`` of its terms' magnitude, ``c`` messages), its divide and
+    rounding to ``h``'s dtype, carried through ``|w_nbr|``; the dense
+    half's float32 accumulation in any order (at four times float32's unit
+    roundoff, for the tensor cores); one rounding of the output to ``h``'s
+    dtype."""
+    u32 = 2.0 ** -24
+    ut = 2.0 ** -8 if h.dtype == torch.bfloat16 else 0.0
+    src, dst = (np.asarray(c.cpu(), np.int64) for c in (src, dst))
+    x = h.double().cpu().numpy()
+    ws, wn, b = (p[k].double().cpu().numpy() for k in ("w_self", "w_nbr", "b"))
+    v = x.shape[0]
+    cnt = np.bincount(dst, minlength=v).astype(np.float64)[:, None]
+    gamma = cnt * u32 / (1 - cnt * u32)
+    agg, mass = np.zeros((v, x.shape[1])), np.zeros((v, x.shape[1]))
+    np.add.at(agg, dst, x[src])
+    np.add.at(mass, dst, np.abs(x[src]))
+    c = np.maximum(cnt, 1.0)
+    agg /= c
+    e1 = gamma * mass / c
+    e2 = e1 + u32 * (np.abs(agg) + e1)
+    beta_agg = e2 + ut * (np.abs(agg) + e2)
+    k_terms = 2 * ws.shape[0] + 1
+    acc = k_terms * 4 * u32 / (1 - k_terms * 4 * u32)
+    out = x @ ws + agg @ wn + b
+    beta = beta_agg @ np.abs(wn) + acc * (np.abs(x) @ np.abs(ws)
+                                          + (np.abs(agg) + beta_agg) @ np.abs(wn) + np.abs(b))
+    if relu:
+        out = np.maximum(out, 0.0)
+    return out, beta + ut * (np.abs(out) + beta) + 1e-30
+
+
 def test_sharded_forward_over_an_nccl_world_of_one_equals_the_plain_forward(card):
     """An NCCL world of one on the card: the edge-sharded forward (the
     all-reduce, then ``fused_sage_matmul``) equals the forward without a
-    mesh bit for bit under deterministic algorithms, in bf16 ("tc") and f32
-    ("simt"), and launches the kernel twice a window."""
+    mesh over the same edge list (``sage_forward`` of the held messages)
+    bit for bit under deterministic algorithms, in bf16 ("tc") and f32
+    ("simt"), and launches the kernel twice a window, as
+    ``StreamingGraphSAGE`` without a mesh does. That one takes its means
+    over its CSR by destination, in another summation order. Each path's
+    layers, recomposed from its own functions to its outputs bit for bit,
+    are every one within :func:`_sage_layer_bound`'s rounding of the
+    float64 layer over their own input."""
     import torch.distributed as dist
 
+    from gelly_streaming_tpu_torch.models.graphsage import (
+        mean_aggregate, pad_params, sage_forward)
+    from gelly_streaming_tpu_torch.ops.sage_aggregate import MessageCSR, segment_mean
     from gelly_streaming_tpu_torch.parallel import make_mesh
 
     owned = not dist.is_initialized()
@@ -1227,7 +1403,27 @@ def test_sharded_forward_over_an_nccl_world_of_one_equals_the_plain_forward(card
                 torch.cuda.synchronize()
                 assert sage_kernels.LAUNCHES_BY_VARIANT[variant] - before[variant] == 8
             assert len(outs[1]) == 4
-            assert all(torch.equal(a, b) for a, b in zip(*outs)), dtype
+            h = table.rows(torch.arange(512, device=card)).to(dtype)
+            s, d = (torch.from_numpy(c.astype(np.int32)).to(card) for c in (src, dst))
+            plain = [sage_forward(pad_params(params), h, s[:end], d[:end], None)
+                     for end in range(1024, 4097, 1024)]
+            assert all(torch.equal(a, b) for a, b in zip(plain, outs[1])), dtype
+            csr = MessageCSR(device=card)
+            for w, end in enumerate(range(1024, 4097, 1024)):
+                csr.append(s[end - 1024:end], d[end - 1024:end], 512)
+                means = {"csr": lambda x: segment_mean(x, csr.src, csr.row_ptr, csr.n),
+                         "edges": lambda x: mean_aggregate(x, s[:end], d[:end], None, 512)}
+                for path, out in (("csr", outs[0][w]), ("edges", outs[1][w])):
+                    x = h
+                    for i, p in enumerate(pad_params(params)):
+                        act = "relu" if i < len(params) - 1 else "none"
+                        y = fused_sage_matmul(x, means[path](x), p["w_self"], p["w_nbr"],
+                                              p["b"], act)
+                        exact, bound = _sage_layer_bound(p, x, s[:end], d[:end], act == "relu")
+                        gap = np.abs(y.double().cpu().numpy() - exact)
+                        assert bool((gap <= bound).all()), (dtype, path, w, i)
+                        x = y
+                    assert torch.equal(x, out), (dtype, path, w)
     finally:
         torch.use_deterministic_algorithms(False)
         if owned:

@@ -141,17 +141,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    of its; ``superbatch=4`` within 1e-6 of ``superbatch=1``. Then a scale
    pass on the first 8 windows of phase 6's binary cache (2^20 edges each
    over 2^21 ids, written to a binary file of their own) against the same
-   oracle, one launch a window and no push launch. Then, at two shapes
-   (the kept last window of config #4 and of the scale pass), both designs
-   of ``csrc/pagerank.cu`` (the pull the library launches, and the first,
-   push design through its private entry) against ``fixpoint_plain`` (each
-   rank within 1e-6 and within 1e-4 of itself plus 1e-10, the ranks' sum
-   within 1e-5 of 1, iterations within 2); their cold times in turns
-   (push, pull, pull, push), each with no iteration and with one (set-up
-   ms, ms an iteration), beside the plain version's, one iteration of
-   ``torch.mv`` on a sparse CSR matrix of the carry times the iterations,
-   the byte rule's bound and the bound of re-reading the edges every
-   iteration, and the window's in-degree figures; and last the profile,
+   oracle, one launch a window. Then, at two shapes (the kept last window
+   of config #4 and of the scale pass), the kernel of ``csrc/pagerank.cu``
+   against ``fixpoint_plain`` (each rank within 1e-6 and within 1e-4 of
+   itself plus 1e-10, the ranks' sum within 1e-5 of 1, iterations within
+   2); its cold time in turns with the others', with no iteration and with
+   one (set-up ms, ms an iteration), beside the plain version's, one
+   iteration of ``torch.mv`` on a sparse CSR matrix of the carry times the
+   iterations, the byte rule's bound and the bound of re-reading the edges
+   every iteration, and the window's in-degree figures; and last the profile,
    the kernel's ctypes launches added by name (the pass profiled again
    where the trace holds fewer of them than ``LAUNCHES`` counted).
 10. bipartiteness — ``bench.py:bench_bipartiteness_e2e``: the binary cache
@@ -176,18 +174,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``expected_edges`` with k = 3), its window loop through the search
    kernel of ``csrc/k_reach.cu`` (one launch a search): the counted run
    (the kernel's launches from 0, one a search; each window's first search
-   captured); (a) the kernel against its plain version and the
-   one-launch-a-hop search, exactly, on seeded spanners (V in {1, 333,
-   4099}, W in {1, 3, 32}, no, some and all columns live, k = 1 to 4) and
-   on the captured first batches of windows 1-3 (also against the byte
-   form); host syncs in the loop (0); edges/s; every dropped edge of a
+   captured); (a) the kernel against its plain version, exactly, on
+   seeded spanners (V in {1, 333, 4099}, W in {1, 3, 32}, no, some and all
+   columns live, k = 1 to 4) and on the captured first batches of windows
+   1-3; host syncs in the loop (0); edges/s; every dropped edge of a
    seeded sample of 2^14 within 3 spanner hops (sparse products); the
    profile's step table over windows 0-1 with the bytes' bound and the
    frontier traffic's; and one search of window 3's first batch timed in
    turns with a cold L2 (the search, also with its bitmap read from device
-   memory, the one-launch-a-hop search and one hop, the plain version, the
-   byte form) beside its bounds: the bytes', the dense frontier's and the
-   active traffic's (from a numpy BFS of the batch).
+   memory, and the plain version) beside its bounds: the bytes', the dense
+   frontier's and the active traffic's (from a numpy BFS of the batch).
 13. device-encode — the CC cell with vertex compaction on the card
    (``bench.py:bench_cc_e2e_device`` and ``bench_cc_e2e_device_text``):
    phase 6's binary cache with ``device_encode=True, min_vertex_capacity=
@@ -547,10 +543,9 @@ SPK3_PROFILE_WINDOWS = 2
 KR_VERTICES = (1, 333, 4099)  # ragged: none a multiple of the block
 KR_BATCHES = (32, 96, 1024)  # W = 1, 3 and 32 words a vertex
 KR_EDGES = 3  # spanner columns per vertex
-# the spin before each timed search (about 2 ms of the card's clock): the
-# host takes about 0.5 ms to enqueue the one-launch-a-hop search's some 25
-# launches (and the plain version's more), longer than the flush's write,
-# and the card must not wait on it inside the timing
+# the spin before each timed call (about 2 ms of the card's clock): the host
+# takes longer to enqueue the plain version's many launches than the flush
+# takes to write, and the card must not wait on it inside the timing
 KR_LEAD_CYCLES = 4_000_000
 CC_STEPS = ("cc.window_prep", "cc.window_upload", "cc.chase_and_group", "cc.propagate",
             "cc.commit_roots", "cc.commit", "cc.forest_superbatch", "cc.resolve_flat",
@@ -2348,44 +2343,36 @@ def pr_in_degrees(torch, dst, nv):
 
 
 def pagerank_kernel_row(torch, args, smi, where):
-    """Both fixpoint designs on one window's operands (``args``, as the
-    window step passed them to ``fixpoint``; ``where`` names the window):
-    the pull (the library's kernel) and the push (the first design, through
-    its private entry), each against ``fixpoint_plain`` on the same card
-    tensors; then cold times in turns (push, pull, pull, push), each design
-    with no iteration and with one (its set-up and its first iteration),
-    the plain version's, and one iteration of ``torch.mv`` on a sparse CSR
-    matrix of the carry (times the pull's iterations; no single PyTorch
-    call computes the fixpoint), beside both bounds. The pull's figures are
-    the row's; the push's are under ``"push"``."""
+    """The fixpoint kernel on one window's operands (``args``, as the window
+    step passed them to ``fixpoint``; ``where`` names the window) against
+    ``fixpoint_plain`` on the same card tensors; then cold times in turns
+    (kernel, plain, mv, mv, plain, kernel), the kernel with no iteration and
+    with one (its set-up and its first iteration), the plain version's, and
+    one iteration of ``torch.mv`` on a sparse CSR matrix of the carry (times
+    the kernel's iterations; no single PyTorch call computes the fixpoint),
+    beside both bounds."""
     from gelly_streaming_tpu_torch.ops import pagerank_kernels as pk
 
     src, dst, ranks, n_seen, damping, tol, chunk, max_chunks = args
     e, nv = src.shape[0], ranks.shape[0]
-    designs = {
-        "pull": lambda m=chunk * max_chunks: pk._fixpoint_kernel(src, dst, ranks, n_seen,
-                                                                 damping, tol, m),
-        "push": lambda m=chunk * max_chunks: pk._fixpoint_push(src, dst, ranks, n_seen,
-                                                               damping, tol, m),
-    }
+
+    def run(m=chunk * max_chunks):
+        return pk._fixpoint_kernel(src, dst, ranks, n_seen, damping, tol, m)
+
     pr, pdelta, pit = pk.fixpoint_plain(*args)
     pit = int(pit)
-    rows = {}
-    for name, run in designs.items():
-        r, delta, it = run()
-        err, rel, total, close = pr_ranks_agree(r, pr)
-        it = int(it)
-        say(f"pagerank {name} kernel vs fixpoint_plain, {where} (E = {e}, V = {nv}): max abs "
-            f"rank difference {err:.3e} (tol {PR_KERNEL_TOL:g}), largest difference {rel:.3e} "
-            f"of {PR_KERNEL_RTOL:g} x |rank| + {PR_KERNEL_FLOOR:g} (tol 1), rank sum "
-            f"{total:.9f} (tol 1e-05), iterations {it} and {pit} (tol +-{PR_ITER_SLACK}), l1 "
-            f"{float(delta):.3e} and {float(pdelta):.3e}")
-        if not (close and abs(it - pit) <= PR_ITER_SLACK):
-            raise AssertionError(f"the PageRank {name} kernel disagrees with fixpoint_plain "
-                                 f"at {where}")
-        rows[name] = {"max_abs_err": err, "rel_err_share": rel, "iterations": it}
-        del r
-    it = rows["pull"]["iterations"]
+    r, delta, it = run()
+    err, rel, total, close = pr_ranks_agree(r, pr)
+    it = int(it)
+    say(f"pagerank kernel vs fixpoint_plain, {where} (E = {e}, V = {nv}): max abs rank "
+        f"difference {err:.3e} (tol {PR_KERNEL_TOL:g}), largest difference {rel:.3e} of "
+        f"{PR_KERNEL_RTOL:g} x |rank| + {PR_KERNEL_FLOOR:g} (tol 1), rank sum {total:.9f} "
+        f"(tol 1e-05), iterations {it} and {pit} (tol +-{PR_ITER_SLACK}), l1 "
+        f"{float(delta):.3e} and {float(pdelta):.3e}")
+    if not (close and abs(it - pit) <= PR_ITER_SLACK):
+        raise AssertionError(f"the PageRank kernel disagrees with fixpoint_plain at {where}")
+    row = {"max_abs_err": err, "rel_err_share": rel, "iterations": it}
+    del r
     deg = torch.zeros(nv, device=src.device).index_add_(
         0, src.long(), torch.ones(e, device=src.device))
     csr = torch.sparse_coo_tensor(torch.stack([dst.long(), src.long()]),
@@ -2400,39 +2387,29 @@ def pagerank_kernel_row(torch, args, smi, where):
     def cold(fn):
         return cold_ms(torch, fn, flush, lead_cycles=lead)
 
-    turns = {"push": [cold(designs["push"])], "pull": [cold(designs["pull"])]}
+    turns = {"ms": [cold(run)]}
     turns["plain_ms"] = [cold_ms(torch, plain, flush, iters=5, warmup=1, lead_cycles=lead)]
     turns["mv_ms"] = [cold(mv)]
-    split = {name: {"setup_ms": cold(lambda: run(0)), "one_iteration_ms": cold(lambda: run(1))}
-             for name, run in designs.items()}
+    row["setup_ms"] = cold(lambda: run(0))
+    row["one_iteration_ms"] = cold(lambda: run(1))
     turns["mv_ms"].append(cold(mv))
     turns["plain_ms"].append(cold_ms(torch, plain, flush, iters=5, warmup=1, lead_cycles=lead))
-    turns["pull"].append(cold(designs["pull"]))
-    turns["push"].append(cold(designs["push"]))
+    turns["ms"].append(cold(run))
     del flush, csr
-    for name, row in rows.items():
-        row["ms"] = sum(turns[name]) / 2
-        row["ms_turns"] = turns[name]
-        row.update(split[name])
-        row["first_iteration_ms"] = row["one_iteration_ms"] - row["setup_ms"]
-        row["ms_an_iteration"] = (row["ms"] - row["setup_ms"]) / max(row["iterations"], 1)
-        row["bound_ms"], row["bound_by"] = pr_fixpoint_bound(e, nv, row["iterations"])
-        row["iteration_bound_ms"] = (pr_iteration_bytes(row["iterations"], e, nv)
-                                     / HBM_BYTES_PER_S * 1e3)
-        row["bound_share"] = row["bound_ms"] / row["ms"]
-        row["iteration_bound_share"] = row["iteration_bound_ms"] / row["ms"]
-        # the edges can stay in L2 between iterations, so only the byte
-        # rule's bound is one a kernel cannot beat
-        if row["bound_share"] > 1.0:
-            raise AssertionError(f"the {name} fixpoint ran faster than its bound: the timing "
-                                 f"is wrong")
-    row = dict(rows["pull"])
-    row["push"] = rows["push"]
-    for name in ("plain_ms", "mv_ms"):
-        row[name] = sum(turns[name]) / 2
-        row[name + "_turns"] = turns[name]
+    for name, pair in turns.items():
+        row[name] = sum(pair) / 2
+        row[name + "_turns"] = pair
+    row["first_iteration_ms"] = row["one_iteration_ms"] - row["setup_ms"]
+    row["ms_an_iteration"] = (row["ms"] - row["setup_ms"]) / max(it, 1)
+    row["bound_ms"], row["bound_by"] = pr_fixpoint_bound(e, nv, it)
+    row["iteration_bound_ms"] = pr_iteration_bytes(it, e, nv) / HBM_BYTES_PER_S * 1e3
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    row["iteration_bound_share"] = row["iteration_bound_ms"] / row["ms"]
+    # the edges can stay in L2 between iterations, so only the byte rule's
+    # bound is one a kernel cannot beat
+    if row["bound_share"] > 1.0:
+        raise AssertionError("the fixpoint ran faster than its bound: the timing is wrong")
     row["library_ms"] = row["mv_ms"] * it
-    row["pull_over_push"] = row["ms"] / rows["push"]["ms"]
     row["in_degrees"] = pr_in_degrees(torch, dst, nv)
     row["per"] = (f"one fixpoint of {where}: E = {e}, V = {nv}, {it} iterations, cold L2; "
                   f"{smi}")
@@ -2463,9 +2440,9 @@ def phase_pagerank(torch, smi=None):
     finally:
         pk.fixpoint = real
     # the main path, counted
-    pk.LAUNCHES = pk.PUSH_LAUNCHES = 0
+    pk.LAUNCHES = 0
     runs = [_pr_pass(_pr_stream(src, dst)) for _ in range(STEADY_PASSES)]
-    launches, push_launches = pk.LAUNCHES, pk.PUSH_LAUNCHES
+    launches = pk.LAUNCHES
     times = [r[2] for r in runs]
     mid = sorted(range(len(runs)), key=lambda i: times[i])[len(runs) // 2]
     pr, ems, sec, reads = runs[mid]
@@ -2475,16 +2452,14 @@ def phase_pagerank(torch, smi=None):
             "iterations_per_window": iters, "host_reads_per_window": reads / len(ems),
             "host_reads_all": [r[3] for r in runs],
             "kernel_launches_per_window": launches / (STEADY_PASSES * n_win),
-            "push_launches": push_launches,
             "l1_delta": [float(e.l1_delta) for e in ems]}
     say("pagerank cell " + json.dumps(cell))
     if len(ems) != n_win:
         raise AssertionError(f"pagerank ran {len(ems)} windows")
-    if launches != STEADY_PASSES * n_win or push_launches or any(r[3] for r in runs):
-        raise AssertionError(f"pagerank launched its fixpoint kernel {launches} times (the "
-                             f"push {push_launches}) in {STEADY_PASSES * n_win} windows, host "
-                             f"reads {[r[3] for r in runs]}: expected one launch, no push and "
-                             f"no read a window")
+    if launches != STEADY_PASSES * n_win or any(r[3] for r in runs):
+        raise AssertionError(f"pagerank launched its fixpoint kernel {launches} times in "
+                             f"{STEADY_PASSES * n_win} windows, host reads "
+                             f"{[r[3] for r in runs]}: expected one launch and no read a window")
 
     t0 = time.perf_counter()
     want, want_iters = pagerank_oracle(src, dst, PR_WINDOW, PR_VERTICES)
@@ -2525,12 +2500,12 @@ def phase_pagerank(torch, smi=None):
         return real(*args)
 
     pk.fixpoint = keep_s
-    pk.LAUNCHES = pk.PUSH_LAUNCHES = 0
+    pk.LAUNCHES = 0
     try:
         prs, ems_s, sec_s, reads_s = _pr_pass(stream)
     finally:
         pk.fixpoint = real
-    launches_s, push_s = pk.LAUNCHES, pk.PUSH_LAUNCHES
+    launches_s = pk.LAUNCHES
     os.remove(prefix_path)
     rs, rd = rmat_oracle_edges(spec.surrogate_edges,
                                int(spec.surrogate_vscale).bit_length() - 1)
@@ -2542,17 +2517,16 @@ def phase_pagerank(torch, smi=None):
     scale = {"windows": len(ems_s), "edges_per_s": n_edges / sec_s,
              "ms_per_window": sec_s / len(ems_s) * 1e3, "iterations_per_window": iters_s,
              "oracle_iterations": want_iters_s, "host_reads_per_window": reads_s / len(ems_s),
-             "kernel_launches": launches_s, "push_launches": push_s, "max_abs_rank_err": err_s}
+             "kernel_launches": launches_s, "max_abs_rank_err": err_s}
     say(f"pagerank scale pass ({CC_CORPUS} surrogate, its first {n_edges} edges, oracle "
         f"{time.perf_counter() - t1:.1f} s) " + json.dumps(scale))
     if (len(ems_s) != PR_SCALE_WINDOWS or not err_s <= PR_RANK_TOL or reads_s
-            or launches_s != PR_SCALE_WINDOWS or push_s):
+            or launches_s != PR_SCALE_WINDOWS):
         raise AssertionError("the PageRank scale pass disagrees with the float64 oracle (or "
                              "read the device, or did not launch the kernel once a window)")
     cell["scale"] = scale
     cell["kernel_row"] = pagerank_kernel_row(torch, kept, smi, "config #4's last window")
     cell["kernel_row"]["launches"] = launches
-    cell["kernel_row"]["push"]["launches"] = push_launches
     cell["kernel_row_scale"] = pagerank_kernel_row(
         torch, kept_s, smi, f"the scale pass's last window ({CC_CORPUS} surrogate)")
     del kept_s
@@ -3002,25 +2976,6 @@ def k_reach_active_traffic(csr, u, m, nv, k):
     return {"bytes": nbytes, "hops": hops, "cleared_rows": last_two}
 
 
-def k_reach_byte_form(torch, csr, u, v, m, nv, k):
-    """The port's k >= 3 search before its kernels, on the same entries:
-    one byte a query in a ``[V + 1, B]`` uint8 frontier (row V the
-    sentinel), each hop ``index_reduce(..., "amax")`` of the gathered
-    ``[2S, B]`` rows. Timed here as the number the kernel replaced; the
-    port no longer has it."""
-    b = u.shape[0]
-    cols = torch.arange(b, device=u.device)
-    src, dst = csr.src.long(), csr.dst.long()
-    frontier = torch.zeros(nv + 1, b, dtype=torch.uint8, device=u.device)
-    frontier.index_put_((torch.where(m, u, nv).long(), cols),
-                        torch.ones(b, dtype=torch.uint8, device=u.device))
-    with warnings.catch_warnings():
-        warnings.filterwarnings("ignore", message="index_reduce", category=UserWarning)
-        for _ in range(k):
-            frontier = frontier.index_reduce(0, dst, frontier[src], "amax")
-    return (frontier[v.long(), cols] != 0) & m
-
-
 def _kr_inputs(torch, device, seed, b, nv, s, cnt, k):
     """A seeded spanner of ``s`` columns among vertices ``0 .. V - 2`` (an
     eighth self-loops, an eighth repeated edges), ``cnt`` of them live, and
@@ -3057,33 +3012,27 @@ def _kr_inputs(torch, device, seed, b, nv, s, cnt, k):
     return csr, t[2], t[3], t[4]
 
 
-def _k_reach_equal(torch, rk, label, csr, u, v, m, nv, k, byte_form=False):
+def _k_reach_equal(torch, rk, label, csr, u, v, m, nv, k):
     """One wrapper call on the card, which must launch the search kernel
-    once, against the plain version and the one-launch-a-hop search (and
-    the byte form): the answers must be equal. Returns the count of
-    reached queries."""
+    once, against the plain version: the answers must be equal. Returns the
+    count of reached queries."""
     before = rk.LAUNCHES
     got = rk.k_reach(csr, u, v, m, nv, k)
     torch.cuda.synchronize()
     launched = rk.LAUNCHES - before
     want = rk.k_reach_plain(csr, u, v, m, nv, k)
-    same = (bool(torch.equal(got, want)) and launched == 1
-            and bool(torch.equal(got, rk.k_reach_by_hops(csr, u, v, m, nv, k))))
-    if byte_form:
-        same = same and bool(torch.equal(got, k_reach_byte_form(torch, csr, u, v, m, nv, k)))
-    if not same:
+    if not (bool(torch.equal(got, want)) and launched == 1):
         diff = int((got != want).sum())
-        raise AssertionError(f"k_reach kernel != plain or the hop search at {label}: {diff} "
-                             f"answers differ from plain, {launched} launches for k = {k}")
+        raise AssertionError(f"k_reach kernel != plain at {label}: {diff} answers differ, "
+                             f"{launched} launches for k = {k}")
     return int(got.sum())
 
 
 def phase_k_reach_checks(torch, captured):
-    """(a) The search kernel against the plain version and the
-    one-launch-a-hop search on the card, exactly: seeded spanners over
-    ragged vertex counts, W = 1, 3 and 32 words, no, some and all columns
-    live, k = 1 to 4; then the captured first batch of windows 1-3 of the
-    k = 3 cell, also against the byte form."""
+    """(a) The search kernel against the plain version on the card,
+    exactly: seeded spanners over ragged vertex counts, W = 1, 3 and 32
+    words, no, some and all columns live, k = 1 to 4; then the captured
+    first batch of windows 1-3 of the k = 3 cell."""
     from gelly_streaming_tpu_torch.ops import reach_kernels as rk
 
     device = captured[0]["args"][1].device  # the main path's card
@@ -3097,15 +3046,12 @@ def phase_k_reach_checks(torch, captured):
                     reached += _k_reach_equal(torch, rk, f"V={nv} B={b} cnt={cnt} k={k}",
                                               *args, nv, k)
                     cases += 1
-    say(f"k_reach kernel vs plain and the hop search: {cases} seeded cases equal ({reached} "
-        f"queries reached)")
+    say(f"k_reach kernel vs plain: {cases} seeded cases equal ({reached} queries reached)")
     for w, rec in enumerate(captured, start=1):
         csr, u, v, m, nv, k = rec["args"]
-        n = _k_reach_equal(torch, rk, f"window {w}'s first batch", csr, u, v, m, nv, k,
-                           byte_form=True)
-        say(f"k_reach kernel vs plain, the hop search and the byte form, window {w}'s first "
-            f"batch (B = "
-            f"{u.shape[0]}, S = {rec['s']}, V = {nv}, k = {k}): equal, {n} reached")
+        n = _k_reach_equal(torch, rk, f"window {w}'s first batch", csr, u, v, m, nv, k)
+        say(f"k_reach kernel vs plain, window {w}'s first batch (B = {u.shape[0]}, S = "
+            f"{rec['s']}, V = {nv}, k = {k}): equal, {n} reached")
     return cases
 
 
@@ -3250,38 +3196,29 @@ def phase_spanner_k3(torch, smi):
     cell["profile"] = prof
     stage("profile")
 
-    # the kernel's row: one search on window 3's first batch, cold L2, each
-    # form in turns (the search and the hop search twice)
+    # the kernel's row: one search on window 3's first batch, cold L2, the
+    # search twice, in turns with the other forms
     rec = captured[-1]
     csr, u, v, m, nv, k = rec["args"]
     w = u.shape[0] // 32
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=u.device)
-    front = torch.zeros(nv * w, dtype=torch.int32, device=u.device)
-    back = torch.empty_like(front)
     fronts, bitmaps = rk._scratch(u.device, nv, w)
     out = torch.empty_like(m)
     lead = KR_LEAD_CYCLES
     search = lambda: rk.k_reach(csr, u, v, m, nv, k)  # noqa: E731
-    by_hops = lambda: rk.k_reach_by_hops(csr, u, v, m, nv, k)  # noqa: E731
-    turns = {"ms": [cold_ms(torch, search, flush, lead_cycles=lead)],
-             "hop_search_ms": [cold_ms(torch, by_hops, flush, lead_cycles=lead)]}
+    turns = {"ms": [cold_ms(torch, search, flush, lead_cycles=lead)]}
     row = {
-        "hop_ms": cold_ms(torch, lambda: rk.launch_hop(csr.row_ptr, csr.src, front, back, nv, w),
-                          flush, lead_cycles=lead),
         "device_bitmap_ms": cold_ms(
             torch, lambda: rk._launch(csr.row_ptr, csr.src, u, v, m, fronts, bitmaps, out, nv, w,
                                       k, device_bitmap=True), flush, lead_cycles=lead),
         "plain_ms": cold_ms(torch, lambda: rk.k_reach_plain(csr, u, v, m, nv, k), flush,
                             iters=5, warmup=1, lead_cycles=lead),
-        "byte_form_ms": cold_ms(torch, lambda: k_reach_byte_form(torch, csr, u, v, m, nv, k),
-                                flush, iters=5, warmup=1, lead_cycles=lead),
     }
-    turns["hop_search_ms"].append(cold_ms(torch, by_hops, flush, lead_cycles=lead))
     turns["ms"].append(cold_ms(torch, search, flush, lead_cycles=lead))
     if not (torch.equal(out, search()) and not fronts.any() and not bitmaps.any()):
         raise AssertionError("the search with its bitmap in device memory disagrees, or the "
                              "scratch was left dirty")
-    del flush, front, back
+    del flush
     for name, pair in turns.items():
         row[name] = sum(pair) / 2
         row[name + "_turns"] = pair
@@ -3294,7 +3231,6 @@ def phase_spanner_k3(torch, smi):
     row["bound_share"] = row["bound_ms"] / row["ms"]
     row["frontier_bound_share"] = row["frontier_bound_ms"] / row["ms"]
     row["active_bound_share"] = row["active_bound_ms"] / row["ms"]
-    row["hop_search_frontier_share"] = row["frontier_bound_ms"] / row["hop_search_ms"]
     row["per"] = (f"one search of window 3's first batch: B = {u.shape[0]}, S = {rec['s']}, "
                   f"V = {nv}, k = {k}, cold L2; {smi}")
     say("k_reach time (cold L2, median of each call alone) " + json.dumps(row))
@@ -6584,9 +6520,6 @@ def main():
         "bound_by": row["bound_by"],
         # no single PyTorch call ORs int32 words by segment
         "library_ms": None,
-        "byte_form_ms": row["byte_form_ms"],
-        "hop_search_ms": row["hop_search_ms"],
-        "hop_ms": row["hop_ms"],
         "device_bitmap_ms": row["device_bitmap_ms"],
         "bound_share": row["bound_share"],
         "frontier_bound_ms": row["frontier_bound_ms"],
@@ -6598,39 +6531,31 @@ def main():
     }
     rows = (pagerank_result["kernel_row"], pagerank_result["kernel_row_scale"])
 
-    def pr_entry(name, design, status, launches):
-        """A fixpoint design's entry: config #4's last window's figures,
-        then the scale pass's last window's under "scale"."""
-        four, scale = (r if design == "pull" else r["push"] for r in rows)
-        keys = ("max_abs_err", "ms", "setup_ms", "first_iteration_ms", "ms_an_iteration",
-                "bound_ms", "bound_by", "bound_share", "iteration_bound_ms",
-                "iteration_bound_share", "iterations", "ms_turns")
-        entry = {
-            "name": name,
-            "route": "cuda",
-            "source": "gelly_streaming_tpu_torch/csrc/pagerank.cu",
-            "replaces": "gelly_streaming_tpu/library/pagerank.py:89",
-            "replaces_kind": "an XLA step (the fixpoint of _make_pr_window_body), not a "
-                             "Pallas kernel",
-            "launches": launches,
-            "plain_ms": rows[0]["plain_ms"],
-            # one iteration of torch.mv on a sparse CSR matrix of the carry, times
-            # the pull's iterations: no single PyTorch call computes the fixpoint
-            "library_ms": rows[0]["library_ms"],
-        }
-        entry.update({k: four[k] for k in keys})
-        entry["scale"] = {k: scale[k] for k in keys}
-        entry["scale"].update(plain_ms=rows[1]["plain_ms"], library_ms=rows[1]["library_ms"],
-                              in_degrees=rows[1]["in_degrees"], per=rows[1]["per"])
-        entry.update(in_degrees=rows[0]["in_degrees"], per=rows[0]["per"], status=status)
-        return entry
-
-    pagerank_fixpoint = pr_entry("pagerank_fixpoint", "pull", "ported",
-                                 rows[0]["launches"])
-    # the first design, timed in turns with the pull; the main path never
-    # launches it
-    pagerank_push = pr_entry("pagerank_fixpoint_push", "push", "replaced",
-                             rows[0]["push"]["launches"])
+    # config #4's last window's figures, then the scale pass's last window's
+    # under "scale"
+    keys = ("max_abs_err", "ms", "setup_ms", "first_iteration_ms", "ms_an_iteration",
+            "bound_ms", "bound_by", "bound_share", "iteration_bound_ms",
+            "iteration_bound_share", "iterations", "ms_turns")
+    pagerank_fixpoint = {
+        "name": "pagerank_fixpoint",
+        "route": "cuda",
+        "source": "gelly_streaming_tpu_torch/csrc/pagerank.cu",
+        "replaces": "gelly_streaming_tpu/library/pagerank.py:89",
+        "replaces_kind": "an XLA step (the fixpoint of _make_pr_window_body), not a "
+                         "Pallas kernel",
+        "launches": rows[0]["launches"],
+        "plain_ms": rows[0]["plain_ms"],
+        # one iteration of torch.mv on a sparse CSR matrix of the carry, times
+        # the kernel's iterations: no single PyTorch call computes the fixpoint
+        "library_ms": rows[0]["library_ms"],
+    }
+    pagerank_fixpoint.update({k: rows[0][k] for k in keys})
+    pagerank_fixpoint["scale"] = {k: rows[1][k] for k in keys}
+    pagerank_fixpoint["scale"].update(plain_ms=rows[1]["plain_ms"],
+                                      library_ms=rows[1]["library_ms"],
+                                      in_degrees=rows[1]["in_degrees"], per=rows[1]["per"])
+    pagerank_fixpoint.update(in_degrees=rows[0]["in_degrees"], per=rows[0]["per"],
+                             status="ported")
     scan = sampling_result["scan_full"]["kernel_row"]
     reservoir_scan = {
         "name": "reservoir_scan",
@@ -6708,7 +6633,7 @@ def main():
         "status": "ported",
     }
     sage_segment_mean["bound_share"] = sage_segment_mean["bound_ms"] / sage_segment_mean["ms"]
-    say(json.dumps({"kernels": [kernel, k_reach, pagerank_fixpoint, pagerank_push,
+    say(json.dumps({"kernels": [kernel, k_reach, pagerank_fixpoint,
                                 reservoir_scan, cc_fold_window, sage_segment_mean]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

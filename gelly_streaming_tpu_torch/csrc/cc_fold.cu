@@ -72,6 +72,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -233,37 +235,8 @@ __global__ void __launch_bounds__(kThreads) cc_fold_window(FoldArgs a) {
 }
 
 // ---------------------------------------------------------------- launching
-// The most blocks of the cooperative grid on each card (blocks an SM times
-// SMs), read once a card: 0 until then.
-constexpr int kMaxDevices = 64;
+// The most blocks of the cooperative grid on each card: 0 until read.
 std::atomic<int> g_max_blocks[kMaxDevices];
-
-cudaError_t max_blocks(int device, int* out) {
-  if (device >= kMaxDevices) return cudaErrorInvalidDevice;
-  int blocks = g_max_blocks[device].load(std::memory_order_relaxed);
-  if (blocks == 0) {
-    int per_sm = 0, sms = 0;
-    cudaError_t e =
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, cc_fold_window, kThreads, 0);
-    if (e != cudaSuccess) return e;
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (e != cudaSuccess) return e;
-    if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-    blocks = per_sm * sms;
-    g_max_blocks[device].store(blocks, std::memory_order_relaxed);
-  }
-  *out = blocks;
-  return cudaSuccess;
-}
-
-// The CUDA runtime linked into this library keeps its own current device:
-// the launcher selects the operands' card first, whatever PyTorch's is.
-cudaError_t select_device(int device) {
-  int current = -1;
-  cudaError_t e = cudaGetDevice(&current);
-  if (e != cudaSuccess) return e;
-  return current == device ? cudaSuccess : cudaSetDevice(device);
-}
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
@@ -284,7 +257,8 @@ extern "C" int cc_fold_launch(const void* labels_in, const void* touched_in, con
   cudaError_t e = select_device(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   int most = 0;
-  e = max_blocks(device, &most);
+  e = cooperative_blocks(reinterpret_cast<const void*>(cc_fold_window), kThreads, 0, device,
+                         g_max_blocks, &most);
   if (e != cudaSuccess) return static_cast<int>(e);
   FoldArgs a;
   a.labels_in = static_cast<const int*>(labels_in);
@@ -307,8 +281,4 @@ extern "C" int cc_fold_launch(const void* labels_in, const void* touched_in, con
                                   dim3(kThreads), params, 0, static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" const char* cc_fold_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -65,6 +65,7 @@
 #include <stdint.h>
 
 #include "hopper_ptx.cuh"
+#include "launch.cuh"
 
 namespace {
 
@@ -178,15 +179,6 @@ void launch(const void* h, const void* agg, const void* w_self, const void* w_nb
 }
 
 }  // namespace
-
-// The CUDA runtime linked into this library keeps its own current device:
-// every launcher selects the operands' card first, whatever PyTorch's is.
-static cudaError_t select_device(int device) {
-  int current = -1;
-  cudaError_t e = cudaGetDevice(&current);
-  if (e != cudaSuccess) return e;
-  return current == device ? cudaSuccess : cudaSetDevice(device);
-}
 
 // The CUDA-core kernel ("simt"). dtype: 0 = float32, 1 = bfloat16. device is
 // the index of the card the operands and the stream belong to. Returns
@@ -439,8 +431,6 @@ cudaError_t encode(EncodeTiledFn fn, CUtensorMap* map, const void* ptr, int rows
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-constexpr int kMaxDevices = 64;
-
 // device is the current device (the launcher selected it): a function
 // attribute belongs to one device, so it is set once per device.
 template <int BN>
@@ -468,18 +458,20 @@ cudaError_t launch(const CUtensorMap* maps, const void* b, void* out, int V, int
 }  // namespace tc
 
 // bf16 only; F and O positive multiples of 8 and every pointer 16-byte
-// aligned (the caller checks). num_sms bounds the persistent grid. device is
-// the index of the operands' card, selected before the maps are encoded.
-// Returns a cudaError_t code (0 when the launch was accepted).
+// aligned (the caller checks). The card's SM count bounds the persistent
+// grid. device is the index of the operands' card, selected before the maps
+// are encoded. Returns a cudaError_t code (0 when the launch was accepted).
 extern "C" int fused_sage_matmul_tc_launch(
     const void* h, const void* agg, const void* w_self, const void* w_nbr,
-    const void* b, void* out, int V, int F, int O, int relu, int num_sms,
-    int device, void* stream) {
-  if (V <= 0 || F <= 0 || O <= 0 || F % 8 != 0 || O % 8 != 0 || num_sms <= 0 ||
-      device < 0 || device >= tc::kMaxDevices) {
+    const void* b, void* out, int V, int F, int O, int relu, int device, void* stream) {
+  if (V <= 0 || F <= 0 || O <= 0 || F % 8 != 0 || O % 8 != 0 || device < 0 ||
+      device >= kMaxDevices) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t e = select_device(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int num_sms = 0;
+  e = sm_count(device, &num_sms);
   if (e != cudaSuccess) return static_cast<int>(e);
   tc::EncodeTiledFn fn;
   e = tc::encode_fn(&fn);
@@ -497,8 +489,4 @@ extern "C" int fused_sage_matmul_tc_launch(
   e = O > 128 ? tc::launch<256>(maps, b, out, V, F, O, relu, num_sms, device, s)
               : tc::launch<128>(maps, b, out, V, F, O, relu, num_sms, device, s);
   return static_cast<int>(e);
-}
-
-extern "C" const char* fused_sage_matmul_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -74,10 +74,6 @@
 // The frontier is vertex-major, so one vertex's W words are one contiguous
 // row. The frontier words and the bitmaps are read with plain loads (not
 // __ldg): the launch writes them itself.
-//
-// k_reach_hop below is the earlier design, one launch a hop over the dense
-// frontier; no path of the port calls it, and it stays to time and check the
-// search against.
 
 #include <algorithm>
 #include <climits>
@@ -85,6 +81,7 @@
 #include <cuda_runtime.h>
 
 #include "hopper_ptx.cuh"
+#include "launch.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -337,52 +334,6 @@ __global__ void __launch_bounds__(kSearchThreads) k_reach_search(SearchArgs a) {
   }
 }
 
-// The earlier design, one launch a hop over the dense frontier, in -> out
-// (distinct buffers): out[t, w] = in[t, w] | OR over t's sources s of
-// in[s, w], for every target t < V and word w < W; g lanes a target (g the
-// least power of two >= min(W, 32)), each lane a word, four source rows in
-// flight a lane.
-constexpr int kThreads = 256;
-
-__global__ void __launch_bounds__(kThreads)
-k_reach_hop(const int* __restrict__ row_ptr, const int* __restrict__ src,
-            const int* __restrict__ in, int* __restrict__ out, int V, int W,
-            int g_log2) {
-  const long long gid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long long t = gid >> g_log2;
-  if (t >= V) return;
-  const int g = 1 << g_log2;
-  const int lane = static_cast<int>(gid & (g - 1));
-  const int begin = __ldg(row_ptr + t);
-  const int end = __ldg(row_ptr + t + 1);
-  const size_t words = static_cast<size_t>(W);
-  for (int w = lane; w < W; w += g) {
-    int acc = __ldg(in + t * words + w);
-    int e = begin;
-    for (; e + 4 <= end; e += 4) {
-      const size_t s0 = static_cast<size_t>(__ldg(src + e));
-      const size_t s1 = static_cast<size_t>(__ldg(src + e + 1));
-      const size_t s2 = static_cast<size_t>(__ldg(src + e + 2));
-      const size_t s3 = static_cast<size_t>(__ldg(src + e + 3));
-      acc |= __ldg(in + s0 * words + w) | __ldg(in + s1 * words + w) |
-             __ldg(in + s2 * words + w) | __ldg(in + s3 * words + w);
-    }
-    for (; e < end; ++e) {
-      acc |= __ldg(in + static_cast<size_t>(__ldg(src + e)) * words + w);
-    }
-    out[t * words + w] = acc;
-  }
-}
-
-// The CUDA runtime linked into this library keeps its own current device:
-// the launcher selects the operands' card first, whatever PyTorch's is.
-cudaError_t select_device(int device) {
-  int current = -1;
-  cudaError_t e = cudaGetDevice(&current);
-  if (e != cudaSuccess) return e;
-  return current == device ? cudaSuccess : cudaSetDevice(device);
-}
-
 // log2 of the lanes a target: the least power of two >= min(W, 32)
 int lanes_log2(int W) {
   int g_log2 = 0;
@@ -410,10 +361,12 @@ cudaError_t staged_path(int V, int device, bool* staged) {
 extern "C" int k_reach_bitmap_words(int V) { return bitmap_words(V); }
 
 // 1 if a search over V vertices on `device` stages its changed bitmap in
-// shared memory, 0 if it reads it from device memory, -1 on an error.
+// shared memory, 0 if it reads it from device memory; negative: minus a
+// cudaError code.
 extern "C" int k_reach_search_staged(int V, int device) {
   bool staged = false;
-  return staged_path(V, device, &staged) == cudaSuccess ? static_cast<int>(staged) : -1;
+  const cudaError_t e = staged_path(V, device, &staged);
+  return e == cudaSuccess ? static_cast<int>(staged) : -static_cast<int>(e);
 }
 
 // One search on `stream` of card `device`. row_ptr: [V + 1] int32; src: the
@@ -467,47 +420,18 @@ extern "C" int k_reach_search_launch(const void* row_ptr, const void* src, const
                              static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  int per_sm = 0, sms = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kSearchThreads, smem);
+  // the shared memory varies with V, so the grid's bound is asked each launch
+  int most = 0;
+  e = cooperative_blocks(kernel, kSearchThreads, smem, device, nullptr, &most);
   if (e != cudaSuccess) return static_cast<int>(e);
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
   // no more blocks than a warp a step of targets (or a thread a query) needs
   const long long steps = (V + (32 >> a.g_log2) - 1) / (32 >> a.g_log2);
   const long long need = (std::max(steps * 32, static_cast<long long>(a.B)) +
                           kSearchThreads - 1) / kSearchThreads;
-  const int blocks = static_cast<int>(std::min(static_cast<long long>(per_sm) * sms, need));
+  const int blocks = static_cast<int>(std::min(static_cast<long long>(most), need));
   void* args[] = {&a};
   e = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(kSearchThreads), args, smem,
                                   static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
-}
-
-// One hop, in -> out, on `stream` of card `device`. row_ptr: [V + 1] int32;
-// src: the sources in target order (int32, at least row_ptr[V] of them); in,
-// out: [V, W] int32, distinct. Returns cudaGetLastError() after the launch (0
-// when it was accepted).
-extern "C" int k_reach_hop_launch(const void* row_ptr, const void* src,
-                                  const void* in, void* out, int V, int W,
-                                  int device, void* stream) {
-  if (V <= 0 || W <= 0 || device < 0 || in == out) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const cudaError_t d = select_device(device);
-  if (d != cudaSuccess) return static_cast<int>(d);
-  const int g_log2 = lanes_log2(W);
-  const long long threads = static_cast<long long>(V) << g_log2;
-  const long long blocks = (threads + kThreads - 1) / kThreads;
-  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
-  k_reach_hop<<<static_cast<unsigned>(blocks), kThreads, 0,
-                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(row_ptr), static_cast<const int*>(src),
-      static_cast<const int*>(in), static_cast<int*>(out), V, W, g_log2);
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" const char* k_reach_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -37,28 +37,28 @@
 // once a vertex in the phase that writes r[s] and gathered per edge, which
 // gives the same value as the reference's per-edge division.
 //
-// Two designs live here. pagerank_fixpoint, the one the library launches,
-// PULLS: it builds a CSR of the window's edges by target once, inside the
-// launch, and sums each vertex's in-edges where its new rank is computed.
-// pagerank_fixpoint_push is the first design (a float atomicAdd an edge into
-// an accumulator every iteration); it is kept only so that chip_smoke.py and
-// one card test can time the two in turns in one process.
+// The kernel PULLS: it builds a CSR of the window's edges by target once,
+// inside the launch, and sums each vertex's in-edges where its new rank is
+// computed.
 //
-// What bounds them on this card. Config #4's last window (E = 2^20 over 2^18
+// What bounds it on this card. Config #4's last window (E = 2^20 over 2^18
 // ids, in-degrees at most 31, 4.8 on average over the non-empty rows) stays in
 // the 50 MB L2 from one iteration to the next: an iteration is bound by L2
-// traffic and latency and by its grid barriers, not by device memory. The
-// push moves 8 bytes of edge columns, a gather and a float atomic an edge, and
-// crosses two barriers an iteration (the scatter must finish before a rank is
-// computed); on an H100 at 700 W it took 32 us an iteration there. At the
+// traffic and latency and by its grid barriers, not by device memory. At the
 // scale pass's last window (E = 2^23 over 2^21 ids, an R-MAT graph) the
 // columns (64 MB) no longer fit in L2 and the in-degrees are skewed: the
-// largest is 26,614, rows of 256 or more hold 2.9 M of the 8.4 M edges. There
-// the push's atomics at a hub serialize in its L2 slice, every iteration. The
-// pull spends two integer-atomic passes over the edges and a scan once a
-// window, then reads 4 bytes of sources and gathers one contribution an edge
-// an iteration, with no float atomic, and crosses one barrier an iteration,
-// because a vertex's sum is finished where its new rank is computed.
+// largest is 26,614, rows of 256 or more hold 2.9 M of the 8.4 M edges.
+//
+// Why it pulls. A push (a float atomicAdd an edge into an accumulator every
+// iteration) moves 8 bytes of edge columns, a gather and a float atomic an
+// edge, and crosses two barriers an iteration (the scatter must finish before
+// a rank is computed); at a hub its atomics serialize in the hub's L2 slice,
+// every iteration. The pull spends two integer-atomic passes over the edges
+// and a scan once a window, then reads 4 bytes of sources and gathers one
+// contribution an edge an iteration, with no float atomic, and crosses one
+// barrier an iteration, because a vertex's sum is finished where its new rank
+// is computed. On an H100 at 700 W the push took 0.480 ms at config #4's last
+// window and 6.27 ms at the scale pass's, the pull 0.336 and 4.02.
 //
 // The pull's work split. A row (a target's in-edges) of at most kRowThread
 // entries is summed by one thread, in a grid-stride loop over the vertices.
@@ -121,6 +121,8 @@
 #include <climits>
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include "launch.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -470,226 +472,9 @@ __global__ void __launch_bounds__(kThreads) pagerank_fixpoint(PullArgs a) {
   }
 }
 
-// ---------------------------------------------------------------- the push
-// (the first design, kept to be timed against the pull; the library never
-// launches it). Its phases: 0. zero the degrees, the accumulator and the
-// reduction slots; 1. out-degrees by atomicAdd over src, the warm start's fill
-// and its sum; 2. the renormalization, each vertex's contribution and the
-// first iteration's dangling mass; 3. per iteration i: (a) acc[dst] +=
-// contrib[src] an edge (a float atomicAdd, in an order that changes from run
-// to run); barrier; (b) each vertex's new rank, its contribution, its
-// |new - r| into l1 slot i % 3 and (where it dangles) its mass into dangling
-// slot (i + 1) % 3 for the next iteration, acc zeroed for the next
-// iteration; barrier; every thread reads l1 slot i % 3, so all stop at the
-// same iteration. Each kind of slot has three: phase (a) of iteration i
-// zeroes l1 slot (i + 1) % 3, last read after the barrier that ended
-// iteration i - 2, and dangling slot (i + 2) % 3, last read in phase (b) of
-// iteration i - 1; so no slot is zeroed while a block may still read it. A
-// block sums its threads' parts and adds one atomic a slot.
-
-// reduction slots of each kind: iteration i sums into slot i % kSlots
-constexpr int kSlots = 3;
-// the scratch's floats past its three vertex arrays: kSlots of l1, kSlots of
-// dangling mass, the warm start's sum
-constexpr int kSlotFloats = 2 * kSlots + 2;
-
-struct PushArgs {
-  const int* src;         // [E]
-  const int* dst;         // [E]
-  const float* ranks_in;  // [nv], before the warm start; not written
-  float* ranks;           // [nv], the iterate, returned
-  float* contrib;         // [nv], r / max(deg, 1)
-  float* acc;             // [nv], the scatter's sums, zero between iterations
-  unsigned* deg;          // [nv], out-degrees
-  float* slots;           // [kSlotFloats]
-  float* delta_out;       // the last iteration's l1
-  int* iters_out;         // the iterations run
-  long long E;
-  int nv, n_seen, max_iters;
-  float damping, tol;
-};
-
-// The block's sums of a and b, in thread 0. Every thread of the block calls
-// it, so every shuffle runs with the whole warp.
-__device__ __forceinline__ float2 block_sum2(float a, float b) {
-  __shared__ float2 part[kWarps];
-  a = warp_sum(a);
-  b = warp_sum(b);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) part[warp] = make_float2(a, b);
-  __syncthreads();
-  float2 s = make_float2(0.f, 0.f);
-  if (warp == 0) {
-    s = lane < kWarps ? part[lane] : make_float2(0.f, 0.f);
-    s.x = warp_sum(s.x);
-    s.y = warp_sum(s.y);
-  }
-  __syncthreads();  // part is written again by the next call
-  return s;
-}
-
-__global__ void __launch_bounds__(kThreads) pagerank_fixpoint_push(PushArgs a) {
-  cg::grid_group grid = cg::this_grid();
-  const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long long nthreads = static_cast<long long>(gridDim.x) * blockDim.x;
-  float* l1 = a.slots;
-  float* dm = a.slots + kSlots;
-  float* total = a.slots + 2 * kSlots;
-  const int nv = a.nv, n_seen = a.n_seen;
-  const float n = static_cast<float>(max(n_seen, 1));
-  const float d = a.damping;
-  const float teleport = __fdiv_rn(__fsub_rn(1.0f, d), n);
-
-  // 0. zero
-  for (long long v = tid; v < nv; v += nthreads) {
-    a.deg[v] = 0u;
-    a.acc[v] = 0.f;
-  }
-  if (tid < kSlotFloats) a.slots[tid] = 0.f;
-  grid.sync();
-
-  // 1. out-degrees; the warm start's fill and its sum
-  for (long long e = tid; e < a.E; e += nthreads) atomicAdd(a.deg + __ldg(a.src + e), 1u);
-  float part = 0.f;
-  for (long long v = tid; v < nv; v += nthreads) {
-    float x = __ldg(a.ranks_in + v);
-    if (v < n_seen && x == 0.f) x = __fdiv_rn(1.0f, n);
-    a.ranks[v] = x;
-    part += x;
-  }
-  float2 s = block_sum2(part, 0.f);
-  if (threadIdx.x == 0) atomicAdd(total, s.x);
-  grid.sync();
-
-  // 2. renormalize; contributions; the first iteration's dangling mass
-  const float norm = fmaxf(__ldcg(total), 1e-30f);
-  part = 0.f;
-  for (long long v = tid; v < nv; v += nthreads) {
-    const float x = __fdiv_rn(a.ranks[v], norm);
-    const unsigned k = a.deg[v];
-    a.ranks[v] = x;
-    a.contrib[v] = __fdiv_rn(x, fmaxf(static_cast<float>(k), 1.0f));
-    if (v < n_seen && k == 0u) part += x;
-  }
-  s = block_sum2(part, 0.f);
-  if (threadIdx.x == 0) atomicAdd(dm, s.x);
-  grid.sync();
-
-  // 3. the iterations
-  float delta = __int_as_float(0x7f800000);  // +inf, as before any iteration
-  int it = 0;
-  while (it < a.max_iters) {
-    const int cur = it % kSlots, nxt = (it + 1) % kSlots;
-    // (a) the scatter, four edges in flight a thread
-    if (tid == 0) {
-      l1[nxt] = 0.f;
-      dm[(it + 2) % kSlots] = 0.f;
-    }
-    long long e = tid;
-    for (; e + 3 * nthreads < a.E; e += 4 * nthreads) {
-      int s4[4], t4[4];
-      float c4[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s4[j] = __ldg(a.src + e + j * nthreads);
-        t4[j] = __ldg(a.dst + e + j * nthreads);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) c4[j] = a.contrib[s4[j]];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) atomicAdd(a.acc + t4[j], c4[j]);
-    }
-    for (; e < a.E; e += nthreads) atomicAdd(a.acc + __ldg(a.dst + e), a.contrib[__ldg(a.src + e)]);
-    grid.sync();
-
-    // (b) the new ranks, their L1 change and the next dangling mass
-    const float dterm = __fdiv_rn(__ldcg(dm + cur), n);
-    float lpart = 0.f, dnext = 0.f;
-    for (long long v = tid; v < nv; v += nthreads) {
-      const float r = a.ranks[v];
-      const float sum = a.acc[v];
-      a.acc[v] = 0.f;
-      float x = 0.f;
-      if (v < n_seen) x = __fadd_rn(teleport, __fmul_rn(d, __fadd_rn(sum, dterm)));
-      lpart += fabsf(x - r);
-      const unsigned k = a.deg[v];
-      a.ranks[v] = x;
-      a.contrib[v] = __fdiv_rn(x, fmaxf(static_cast<float>(k), 1.0f));
-      if (v < n_seen && k == 0u) dnext += x;
-    }
-    s = block_sum2(lpart, dnext);
-    if (threadIdx.x == 0) {
-      atomicAdd(l1 + cur, s.x);
-      atomicAdd(dm + nxt, s.y);
-    }
-    grid.sync();
-    delta = __ldcg(l1 + cur);
-    ++it;
-    if (delta <= a.tol) break;
-  }
-  if (tid == 0) {
-    *a.delta_out = delta;
-    *a.iters_out = it;
-  }
-}
-
 // ---------------------------------------------------------------- launching
-// The most blocks of a kernel's cooperative grid on each card (blocks an SM
-// times SMs), read once a card into that kernel's own cache (the two kernels
-// differ in registers, so one's occupancy must not size the other's grid):
-// 0 until then.
-constexpr int kMaxDevices = 64;
-std::atomic<int> g_pull_blocks[kMaxDevices];
-std::atomic<int> g_push_blocks[kMaxDevices];
-
-cudaError_t max_blocks(const void* kernel, std::atomic<int>* cache, int device, int* out) {
-  if (device >= kMaxDevices) return cudaErrorInvalidDevice;
-  int blocks = cache[device].load(std::memory_order_relaxed);
-  if (blocks == 0) {
-    int per_sm = 0, sms = 0;
-    cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
-    if (e != cudaSuccess) return e;
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (e != cudaSuccess) return e;
-    if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-    blocks = per_sm * sms;
-    cache[device].store(blocks, std::memory_order_relaxed);
-  }
-  *out = blocks;
-  return cudaSuccess;
-}
-
-// The CUDA runtime linked into this library keeps its own current device:
-// the launcher selects the operands' card first, whatever PyTorch's is.
-cudaError_t select_device(int device) {
-  int current = -1;
-  cudaError_t e = cudaGetDevice(&current);
-  if (e != cudaSuccess) return e;
-  return current == device ? cudaSuccess : cudaSetDevice(device);
-}
-
-bool bad_sizes(long long n_edges, int nv, int n_seen, int max_iters, int device) {
-  return n_edges < 0 || n_edges > INT_MAX || nv < 0 || nv == INT_MAX || n_seen < 0 ||
-         max_iters < 0 || device < 0;
-}
-
-// A cooperative launch of `kernel` with `args`, at most `cap` blocks and no
-// more than a thread an edge (or a vertex) needs; its error code.
-int launch(const void* kernel, std::atomic<int>* cache, void* args, long long n_edges, int nv,
-           int cap, int device, void* stream) {
-  int most = 0;
-  cudaError_t e = max_blocks(kernel, cache, device, &most);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const long long need =
-      (std::max({n_edges, static_cast<long long>(nv), 1LL}) + kThreads - 1) / kThreads;
-  const int blocks = static_cast<int>(std::min({static_cast<long long>(most), need,
-                                                 static_cast<long long>(cap)}));
-  void* params[] = {args};
-  e = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(kThreads), params, 0,
-                                  static_cast<cudaStream_t>(stream));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
-}
+// The most blocks of the cooperative grid on each card: 0 until read.
+std::atomic<int> g_max_blocks[kMaxDevices];
 
 }  // namespace
 
@@ -708,7 +493,8 @@ extern "C" int pagerank_fixpoint_launch(const void* src, const void* dst, const 
                                         void* ranks_out, void* scratch, void* delta, void* iters,
                                         long long n_edges, int nv, int n_seen, float damping,
                                         float tol, int max_iters, int device, void* stream) {
-  if (bad_sizes(n_edges, nv, n_seen, max_iters, device)) {
+  if (n_edges < 0 || n_edges > INT_MAX || nv < 0 || nv == INT_MAX || n_seen < 0 ||
+      max_iters < 0 || device < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t e = select_device(device);
@@ -744,47 +530,19 @@ extern "C" int pagerank_fixpoint_launch(const void* src, const void* dst, const 
   a.max_iters = max_iters;
   a.damping = damping;
   a.tol = tol;
-  return launch(reinterpret_cast<const void*>(&pagerank_fixpoint), g_pull_blocks, &a, n_edges,
-                nv, kMaxGrid, device, stream);
-}
-
-extern "C" int pagerank_slot_floats() { return kSlotFloats; }
-
-// The push design on the same operands: scratch is 3 * nv +
-// pagerank_slot_floats() float32, any contents.
-extern "C" int pagerank_fixpoint_push_launch(const void* src, const void* dst,
-                                             const void* ranks_in, void* ranks_out, void* scratch,
-                                             void* delta, void* iters, long long n_edges, int nv,
-                                             int n_seen, float damping, float tol, int max_iters,
-                                             int device, void* stream) {
-  if (bad_sizes(n_edges, nv, n_seen, max_iters, device)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaError_t e = select_device(device);
+  const void* kernel = reinterpret_cast<const void*>(&pagerank_fixpoint);
+  int most = 0;
+  e = cooperative_blocks(kernel, kThreads, 0, device, g_max_blocks, &most);
   if (e != cudaSuccess) return static_cast<int>(e);
-  PushArgs a;
-  float* f = static_cast<float*>(scratch);
-  const size_t v = static_cast<size_t>(nv);
-  a.src = static_cast<const int*>(src);
-  a.dst = static_cast<const int*>(dst);
-  a.ranks_in = static_cast<const float*>(ranks_in);
-  a.ranks = static_cast<float*>(ranks_out);
-  a.contrib = f;
-  a.acc = f + v;
-  a.deg = reinterpret_cast<unsigned*>(f + 2 * v);
-  a.slots = f + 3 * v;
-  a.delta_out = static_cast<float*>(delta);
-  a.iters_out = static_cast<int*>(iters);
-  a.E = n_edges;
-  a.nv = nv;
-  a.n_seen = n_seen;
-  a.max_iters = max_iters;
-  a.damping = damping;
-  a.tol = tol;
-  return launch(reinterpret_cast<const void*>(&pagerank_fixpoint_push), g_push_blocks, &a,
-                n_edges, nv, INT_MAX, device, stream);
-}
-
-extern "C" const char* pagerank_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  // at most kMaxGrid blocks (the blocks' slots) and no more than a thread an
+  // edge (or a vertex) needs
+  const long long need =
+      (std::max({n_edges, static_cast<long long>(nv), 1LL}) + kThreads - 1) / kThreads;
+  const int blocks = static_cast<int>(std::min({static_cast<long long>(most), need,
+                                                 static_cast<long long>(kMaxGrid)}));
+  void* params[] = {&a};
+  e = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(kThreads), params, 0,
+                                  static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -81,6 +81,8 @@
 #include <climits>
 #include <cstdint>
 
+#include "launch.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -345,28 +347,8 @@ struct Plan {
   int groups, lanes, tiles, slice_rows, slices;
 };
 
-constexpr int kMaxDevices = 64;
+// The most blocks of the cooperative grid on each card: 0 until read.
 std::atomic<int> g_max_blocks[kMaxDevices];
-
-// The most blocks of the cooperative grid on `device` (blocks an SM times
-// SMs), read once a card.
-cudaError_t max_blocks(int device, int* out) {
-  if (device >= kMaxDevices) return cudaErrorInvalidDevice;
-  int blocks = g_max_blocks[device].load(std::memory_order_relaxed);
-  if (blocks == 0) {
-    int per_sm = 0, sms = 0;
-    cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, reservoir_scan, kThreads, 0);
-    if (e != cudaSuccess) return e;
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (e != cudaSuccess) return e;
-    if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-    blocks = per_sm * sms;
-    g_max_blocks[device].store(blocks, std::memory_order_relaxed);
-  }
-  *out = blocks;
-  return cudaSuccess;
-}
 
 // Slices of whole rounds, about two items a block of the full grid, at most
 // kMaxSlices; the grid no larger than the work.
@@ -397,15 +379,6 @@ bool bad_sizes(long long m0, int n, int k, int vertex_count, int device) {
          device < 0 || m0 > LLONG_MAX - n;
 }
 
-// The CUDA runtime linked into this library keeps its own current device:
-// the launcher selects the operands' card first, whatever PyTorch's is.
-cudaError_t select_device(int device) {
-  int current = -1;
-  cudaError_t e = cudaGetDevice(&current);
-  if (e != cudaSuccess) return e;
-  return current == device ? cudaSuccess : cudaSetDevice(device);
-}
-
 }  // namespace
 
 // The scratch of a batch of n edges through k samples on card `device`, in
@@ -415,7 +388,8 @@ extern "C" long long reservoir_scan_scratch_words(int n, int k, int device) {
   cudaError_t e = select_device(device);
   if (e != cudaSuccess) return -static_cast<long long>(e);
   int most = 0;
-  e = max_blocks(device, &most);
+  e = cooperative_blocks(reinterpret_cast<const void*>(reservoir_scan), kThreads, 0, device,
+                         g_max_blocks, &most);
   if (e != cudaSuccess) return -static_cast<long long>(e);
   return (static_cast<long long>(plan(n, k, most).slices) + 1) * k;
 }
@@ -440,7 +414,8 @@ extern "C" int reservoir_scan_launch(const void* src_in, const void* trg_in,
   cudaError_t e = select_device(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   int most = 0;
-  e = max_blocks(device, &most);
+  e = cooperative_blocks(reinterpret_cast<const void*>(reservoir_scan), kThreads, 0, device,
+                         g_max_blocks, &most);
   if (e != cudaSuccess) return static_cast<int>(e);
   const Plan p = plan(n, k, most);
   // a slice's last row + 1 must fit a word's upper 30 bits
@@ -479,8 +454,4 @@ extern "C" int reservoir_scan_launch(const void* src_in, const void* trg_in,
                                   dim3(kThreads), params, 0, static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" const char* reservoir_scan_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -59,6 +59,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -296,7 +298,6 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) sage_segment_mean(MeanAr
 // ---------------------------------------------------------------- launching
 // dtype codes of the C interface: 0 bfloat16, 1 float32
 constexpr int kDtypes = 2;
-constexpr int kMaxDevices = 64;
 // the most blocks of the cooperative grid on each card, by dtype: 0 until read
 std::atomic<int> g_max_blocks[kDtypes][kMaxDevices];
 
@@ -305,31 +306,6 @@ const void* kernel_of(int dtype) {
     case 0: return reinterpret_cast<const void*>(sage_segment_mean<__nv_bfloat16>);
     default: return reinterpret_cast<const void*>(sage_segment_mean<float>);
   }
-}
-
-cudaError_t max_blocks(int dtype, int device, int* out) {
-  if (device >= kMaxDevices) return cudaErrorInvalidDevice;
-  int blocks = g_max_blocks[dtype][device].load(std::memory_order_relaxed);
-  if (blocks == 0) {
-    int per_sm = 0, sms = 0;
-    cudaError_t e =
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel_of(dtype), kThreads, 0);
-    if (e != cudaSuccess) return e;
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (e != cudaSuccess) return e;
-    if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-    blocks = per_sm * sms;
-    g_max_blocks[dtype][device].store(blocks, std::memory_order_relaxed);
-  }
-  *out = blocks;
-  return cudaSuccess;
-}
-
-cudaError_t select_device(int device) {
-  int current = -1;
-  cudaError_t e = cudaGetDevice(&current);
-  if (e != cudaSuccess) return e;
-  return current == device ? cudaSuccess : cudaSetDevice(device);
 }
 
 int elem_bytes(int dtype) { return dtype == 1 ? 4 : 2; }
@@ -355,7 +331,7 @@ extern "C" long long sage_segment_mean_max_workers(int dtype, int f, int device)
   cudaError_t e = select_device(device);
   if (e != cudaSuccess) return -static_cast<long long>(e);
   int most = 0;
-  e = max_blocks(dtype, device, &most);
+  e = cooperative_blocks(kernel_of(dtype), kThreads, 0, device, g_max_blocks[dtype], &most);
   if (e != cudaSuccess) return -static_cast<long long>(e);
   const int vec_lanes = f * elem_bytes(dtype) / 16;
   return static_cast<long long>(most) * (kThreads >> log2_lanes(vec_lanes));
@@ -378,7 +354,7 @@ extern "C" int sage_segment_mean_launch(const void* h, const void* src, const vo
   cudaError_t e = select_device(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   int most = 0;
-  e = max_blocks(dtype, device, &most);
+  e = cooperative_blocks(kernel_of(dtype), kThreads, 0, device, g_max_blocks[dtype], &most);
   if (e != cudaSuccess) return static_cast<int>(e);
   MeanArgs a;
   a.h = h;
@@ -408,8 +384,4 @@ extern "C" int sage_segment_mean_launch(const void* h, const void* src, const vo
                                   static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" const char* sage_segment_mean_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -31,7 +31,7 @@ import ctypes
 import torch
 
 from ..summaries.labels import cc_fold, init_labels, label_combine
-from .cuda_build import device_index, load_library
+from .cuda_build import launch, load_library
 
 #: launches of the fold kernel since import (or since a caller reset it):
 #: one a window on the card
@@ -63,19 +63,10 @@ def _fold_kernel(labels, touched, src, dst, mask):
     on the current stream of the operands' card, counted in
     :data:`LAUNCHES`; raises when the launch was refused."""
     global LAUNCHES
-    lib = _library()
-    device = labels.device
     out_labels = torch.empty_like(labels)
     out_touched = torch.empty_like(touched)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = lib.cc_fold_launch(
-            labels.data_ptr(), touched.data_ptr(), src.data_ptr(), dst.data_ptr(),
-            mask.data_ptr(), out_labels.data_ptr(), out_touched.data_ptr(), src.shape[0],
-            labels.shape[0], device_index(device), stream)
-    if code != 0:
-        msg = lib.cc_fold_error_string(code).decode()
-        raise RuntimeError(f"cc fold: the launch failed: {msg} (cudaError {code})")
+    launch(_library(), "cc_fold_launch", labels.device, labels, touched, src, dst, mask,
+           out_labels, out_touched, src.shape[0], labels.shape[0])
     LAUNCHES += 1
     return out_labels, out_touched
 
@@ -117,6 +108,4 @@ def _library() -> ctypes.CDLL:
         lib.cc_fold_launch.argtypes = [ptr] * 7 + [ctypes.c_longlong, ctypes.c_int,
                                                    ctypes.c_int, ptr]
         lib.cc_fold_launch.restype = ctypes.c_int
-        lib.cc_fold_error_string.argtypes = [ctypes.c_int]
-        lib.cc_fold_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,11 +1,16 @@
 """Build the package's CUDA sources with ``nvcc`` and load them with ctypes.
 
 Each kernel lives in ``csrc/<name>.cu`` behind a plain ``extern "C"``
-launcher; headers it includes are ``csrc/*.cuh``. :func:`load_library`
-compiles it at first use into a shared library under ``_build/`` beside
-the package (listed in ``.gitignore``), named by a hash of the source,
-every header and the flags, so an edited source or header builds anew and
-an unchanged one is loaded as it is. No PyTorch header is
+launcher; headers it includes are ``csrc/*.cuh``. Every source includes
+``csrc/launch.cuh``, which selects the operands' card, bounds a cooperative
+grid and exports ``launch_error_string``; every wrapper calls its launchers
+through :func:`launch`, which passes the card and its current stream, and
+their planning calls through :func:`query`, which passes the card; both
+raise on an error code.
+:func:`load_library` compiles it at first use into a shared library under
+``_build/`` beside the package (listed in ``.gitignore``), named by a hash
+of the source, every header and the flags, so an edited source or header
+builds anew and an unchanged one is loaded as it is. No PyTorch header is
 included: the build takes seconds, not minutes.
 
 ``nvcc`` is looked up under ``$CUDA_HOME``/``$CUDA_PATH``, then on
@@ -137,9 +142,42 @@ def device_index(device) -> int:
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    """The loaded library for ``csrc/<name>.cu``, built on first use, with
+    ``launch_error_string``'s C signature declared."""
     lib = _LIBS.get(name)
     if lib is None:
         lib = ctypes.CDLL(build(name))
+        lib.launch_error_string.argtypes = [ctypes.c_int]
+        lib.launch_error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib
     return lib
+
+
+def launch(lib, name: str, device, *args) -> None:
+    """Call the launcher ``lib.<name>`` with ``args`` (a tensor as its data
+    pointer), then the CUDA index of ``device`` and that card's current
+    stream, with ``device`` current in PyTorch. Raises RuntimeError naming
+    the launcher when it returns a non-zero code (the launch was refused)."""
+    import torch
+
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = getattr(lib, name)(*ptrs, device_index(device), stream)
+    if code != 0:
+        _refused(lib, name, code)
+
+
+def query(lib, name: str, device, *args) -> int:
+    """``lib.<name>(*args, index of device)``: a launcher's plan (a count)
+    for that card, which the library returns negated where it is a CUDA
+    error code; raises RuntimeError naming the call on such a code."""
+    value = getattr(lib, name)(*args, device_index(device))
+    if value < 0:
+        _refused(lib, name, -value)
+    return value
+
+
+def _refused(lib, name: str, code: int):
+    msg = lib.launch_error_string(code).decode()
+    raise RuntimeError(f"{name} failed: {msg} (cudaError {code})")

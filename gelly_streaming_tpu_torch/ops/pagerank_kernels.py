@@ -21,10 +21,7 @@ runs as one device program with a ``lax.while_loop`` for its early exit.
   filled by integer atomics, so each row's sum runs in an order that
   changes from run to run: under ``torch.use_deterministic_algorithms(True)``
   it raises, as PyTorch's own nondeterministic CUDA operations do (and
-  warns under ``warn_only``). :func:`_fixpoint_push` launches the first
-  design (a float atomic an edge, two barriers an iteration), counted in
-  :data:`PUSH_LAUNCHES`; only ``chip_smoke.py`` and a card test call it, to
-  time the two designs in turns.
+  warns under ``warn_only``).
 - On CPU tensors it runs :func:`fixpoint_plain`, the torch form: the
   reference's chunks of ``chunk`` iterations with a freeze flag, read on the
   host once a chunk (counted in :data:`HOST_READS`). The tests and
@@ -44,15 +41,11 @@ import warnings
 import torch
 
 from ..parallel import comm
-from .cuda_build import device_index, load_library
+from .cuda_build import launch, load_library
 
 #: launches of the fixpoint kernel since import (or since a caller reset
 #: it): one a window on the card
 LAUNCHES = 0
-
-#: launches of the first (push) design through :func:`_fixpoint_push`,
-#: which the library never calls
-PUSH_LAUNCHES = 0
 
 #: device -> host reads of the window fixpoints: one a chunk of
 #: :func:`fixpoint_plain` (CPU tensors, the mesh path), none on the kernel
@@ -141,40 +134,29 @@ def fixpoint(src, dst, ranks, n_seen: int, damping: float, tol: float, chunk: in
 def _fixpoint_kernel(src, dst, ranks, n_seen: int, damping: float, tol: float, max_iters: int):
     """The fixpoint on the card, for checked operands: scratch of the
     library's ``pagerank_scratch_bytes`` (the two contribution buffers, the
-    degrees, the CSR, the piece list and the blocks' slots), one launch,
-    no host read. ``max_iters`` may be 0 (the warm start alone), which
-    :func:`fixpoint` never asks for."""
+    degrees, the CSR, the piece list and the blocks' slots), new ``(ranks,
+    delta, iters)`` tensors, one launch on the current stream of the
+    operands' card, no host read; raises when the launch was refused.
+    ``max_iters`` may be 0 (the warm start alone), which :func:`fixpoint`
+    never asks for."""
     global LAUNCHES
     _refuse_nondeterministic()
     lib = _library()
+    device = ranks.device
     scratch = torch.empty(lib.pagerank_scratch_bytes(src.shape[0], ranks.shape[0]),
-                          dtype=torch.uint8, device=ranks.device)
-    out = _launch(lib.pagerank_fixpoint_launch, lib, scratch, src, dst, ranks, n_seen, damping,
-                  tol, max_iters)
+                          dtype=torch.uint8, device=device)
+    out = torch.empty_like(ranks)
+    delta = torch.empty((), dtype=torch.float32, device=device)
+    iters = torch.empty((), dtype=torch.int32, device=device)
+    launch(lib, "pagerank_fixpoint_launch", device, src, dst, ranks, out, scratch, delta, iters,
+           src.shape[0], ranks.shape[0], n_seen, damping, tol, max_iters)
     LAUNCHES += 1
-    return out
-
-
-def _fixpoint_push(src, dst, ranks, n_seen: int, damping: float, tol: float, max_iters: int):
-    """The first design on the card (a float atomic an edge, two barriers
-    an iteration), for timing against :func:`_fixpoint_kernel` on checked
-    operands: scratch of the contributions, the accumulator and the
-    out-degrees (``[nv]`` each) and its reduction slots, one launch counted
-    in :data:`PUSH_LAUNCHES`."""
-    global PUSH_LAUNCHES
-    _refuse_nondeterministic()
-    lib = _library()
-    scratch = torch.empty(3 * ranks.shape[0] + lib.slot_floats, dtype=torch.float32,
-                          device=ranks.device)
-    out = _launch(lib.pagerank_fixpoint_push_launch, lib, scratch, src, dst, ranks, n_seen,
-                  damping, tol, max_iters)
-    PUSH_LAUNCHES += 1
-    return out
+    return out, delta, iters
 
 
 def _refuse_nondeterministic() -> None:
     """Raise (or warn, under ``warn_only``) when deterministic algorithms
-    are on: the kernels sum in an order that varies from run to run."""
+    are on: the kernel sums in an order that varies from run to run."""
     if not torch.are_deterministic_algorithms_enabled():
         return
     msg = ("pagerank_kernels.fixpoint on CUDA tensors does not have a deterministic "
@@ -217,41 +199,14 @@ def _check(src, dst, ranks, n_seen: int, chunk: int, max_chunks: int) -> None:
                          f"2^31 iterations, got {chunk}, {max_chunks}")
 
 
-def _launch(fn, lib, scratch, src, dst, ranks, n_seen: int, damping: float, tol: float,
-            max_iters: int):
-    """One fixpoint by the launcher ``fn`` on the current stream of the
-    operands' card, into new ``(ranks, delta, iters)`` tensors; raises when
-    the launch was refused."""
-    device = ranks.device
-    out = torch.empty_like(ranks)
-    delta = torch.empty((), dtype=torch.float32, device=device)
-    iters = torch.empty((), dtype=torch.int32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = fn(src.data_ptr(), dst.data_ptr(), ranks.data_ptr(), out.data_ptr(),
-                  scratch.data_ptr(), delta.data_ptr(), iters.data_ptr(), src.shape[0],
-                  ranks.shape[0], n_seen, damping, tol, max_iters, device_index(device), stream)
-    if code != 0:
-        msg = lib.pagerank_error_string(code).decode()
-        raise RuntimeError(f"pagerank fixpoint: the launch failed: {msg} (cudaError {code})")
-    return out, delta, iters
-
-
 def _library() -> ctypes.CDLL:
-    """The kernels' library; at first use its C signatures are declared and
-    the push's slot count (``slot_floats``) read once."""
+    """The kernel's library; its C signatures are declared at first use."""
     lib = load_library("pagerank")
-    if lib.pagerank_fixpoint_launch.argtypes is None:
+    fn = lib.pagerank_fixpoint_launch
+    if fn.argtypes is None:
         ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        for fn in (lib.pagerank_fixpoint_launch, lib.pagerank_fixpoint_push_launch):
-            fn.argtypes = [ptr] * 7 + [i64, i32, i32, f32, f32, i32, i32, ptr]
-            fn.restype = i32
+        fn.argtypes = [ptr] * 7 + [i64, i32, i32, f32, f32, i32, i32, ptr]
+        fn.restype = i32
         lib.pagerank_scratch_bytes.argtypes = [i64, i32]
         lib.pagerank_scratch_bytes.restype = i64
-        lib.pagerank_slot_floats.argtypes = []
-        lib.pagerank_slot_floats.restype = i32
-        lib.slot_floats = lib.pagerank_slot_floats()
-        err = lib.pagerank_error_string
-        err.argtypes = [i32]
-        err.restype = ctypes.c_char_p
     return lib

@@ -45,11 +45,6 @@ replacing the scratch of that device and width (a growing vertex capacity
 gets new scratch). Every launch leaves it all zero again, so no search
 fills it. It belongs to the wrapper: no two streams may search on one
 device at once.
-
-:func:`k_reach_by_hops` is the kernel's earlier design, one launch a hop
-over the dense frontier. No path of the port calls it; it stays so that the
-card's tests and ``chip_smoke.py`` can hold the search against it and time
-it beside it.
 """
 
 from __future__ import annotations
@@ -59,7 +54,7 @@ from typing import NamedTuple
 
 import torch
 
-from .cuda_build import device_index, load_library
+from .cuda_build import launch, load_library, query
 
 #: launches of the search kernel since import (or since a caller reset it):
 #: one a search on the card
@@ -187,28 +182,6 @@ def _k_reach_search(csr: TargetCSR, u, v, m, num_vertices: int, k: int):
     return out
 
 
-def k_reach_by_hops(csr: TargetCSR, u, v, m, num_vertices: int, k: int):
-    """The search as one launch a hop over the dense frontier, on CUDA
-    tensors (the kernel's earlier design, kept to hold the search against
-    and to time beside it; no path of the port calls it, and
-    :data:`LAUNCHES` does not count it): each query's bit added at
-    ``(u[i], i // 32)`` of a zeroed ``[V, W]`` frontier, k hop launches
-    between two buffers, then bit i of ``(v[i], i // 32)``."""
-    _check(csr, u, v, m, num_vertices, k)
-    if u.device.type != "cuda":
-        raise ValueError(f"k_reach_by_hops: needs CUDA tensors, got {u.device}")
-    b = u.shape[0]
-    w = b // 32
-    word, shift, bit = _query_bits(b, u.device)
-    front = torch.zeros(num_vertices * w, dtype=torch.int32, device=u.device)
-    front.index_add_(0, u.long() * w + word, torch.where(m, bit, 0))
-    back = torch.empty_like(front)
-    for _ in range(k):
-        launch_hop(csr.row_ptr, csr.src, front, back, num_vertices, w)
-        front, back = back, front
-    return (((front.view(num_vertices, w)[v.long(), word] >> shift) & 1) != 0) & m
-
-
 def _check(csr: TargetCSR, u, v, m, num_vertices: int, k: int) -> None:
     """Raise ValueError on operands the search does not take; nothing is
     launched before this passes."""
@@ -248,40 +221,16 @@ def _launch(row_ptr, src, u, v, m, fronts, bitmaps, out, num_vertices: int, word
     even where it fits in shared memory (to measure that path; the search
     never sets it)."""
     global LAUNCHES
-    _call("k_reach_search_launch", u.device, row_ptr, src, u, v, m, fronts, bitmaps, out,
-          num_vertices, words, k, int(device_bitmap))
+    launch(_library(), "k_reach_search_launch", u.device, row_ptr, src, u, v, m, fronts, bitmaps,
+           out, num_vertices, words, k, int(device_bitmap))
     LAUNCHES += 1
-
-
-def launch_hop(row_ptr, src, front, back, num_vertices: int, words: int) -> None:
-    """One hop of :func:`k_reach_by_hops`, ``front`` -> ``back``, on the
-    current stream of their card (not counted)."""
-    _call("k_reach_hop_launch", front.device, row_ptr, src, front, back, num_vertices, words)
-
-
-def _call(name: str, device, *args) -> None:
-    """Calls the launcher ``name`` with ``args`` (tensors as their data
-    pointers), then the index of ``device`` and its current stream; raises
-    with ``cudaGetErrorString`` if the launch is refused. The launcher
-    selects that card in the CUDA runtime linked into the library."""
-    lib = _library()
-    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = getattr(lib, name)(*ptrs, device_index(device), stream)
-    if code != 0:
-        msg = lib.k_reach_error_string(code).decode()
-        raise RuntimeError(f"k_reach: {name} failed: {msg} (cudaError {code})")
 
 
 def search_is_staged(num_vertices: int, device) -> bool:
     """Whether a search over ``num_vertices`` on the CUDA ``device`` stages
     its changed bitmap in shared memory (else it reads it from device
     memory): the launcher's own rule, from V and the card."""
-    staged = _library().k_reach_search_staged(num_vertices, device_index(device))
-    if staged < 0:
-        raise RuntimeError(f"k_reach: cannot read the shared memory of card {device_index(device)}")
-    return bool(staged)
+    return bool(query(_library(), "k_reach_search_staged", device, num_vertices))
 
 
 def _library() -> ctypes.CDLL:
@@ -291,14 +240,8 @@ def _library() -> ctypes.CDLL:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
         fn.restype = i32
-        hop = lib.k_reach_hop_launch
-        hop.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
-        hop.restype = i32
         lib.k_reach_search_staged.argtypes = [i32, i32]
         lib.k_reach_search_staged.restype = i32
         lib.k_reach_bitmap_words.argtypes = [i32]
         lib.k_reach_bitmap_words.restype = i32
-        err = lib.k_reach_error_string
-        err.argtypes = [i32]
-        err.restype = ctypes.c_char_p
     return lib

@@ -32,7 +32,7 @@ import ctypes
 import torch
 
 from ..core.edgeblock import bucket_capacity
-from .cuda_build import device_index, load_library
+from .cuda_build import launch, load_library, query
 
 #: launches of the mean kernel since import (or since a caller reset it):
 #: one a layer on the card
@@ -166,29 +166,17 @@ def _mean_kernel(h, src, row_ptr, n_messages: int):
     v, f = h.shape
     out = torch.empty_like(h)
     dtype = _DTYPES[h.dtype]
-    with torch.cuda.device(device):
-        key = (device, dtype, f)
-        if key not in _SCRATCH:
-            workers = lib.sage_segment_mean_max_workers(dtype, f, device_index(device))
-            if workers < 0:
-                _raise(lib, -workers)
-            _SCRATCH[key] = (workers,
-                             torch.empty((2, workers, f), dtype=torch.float32, device=device),
-                             torch.empty((2, workers), dtype=torch.int32, device=device))
-        workers, parts, rows = _SCRATCH[key]
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = lib.sage_segment_mean_launch(
-            h.data_ptr(), src.data_ptr(), row_ptr.data_ptr(), out.data_ptr(), parts.data_ptr(),
-            rows.data_ptr(), workers, n_messages, v, f, dtype, device_index(device), stream)
-    if code != 0:
-        _raise(lib, code)
+    key = (device, dtype, f)
+    if key not in _SCRATCH:
+        workers = query(lib, "sage_segment_mean_max_workers", device, dtype, f)
+        _SCRATCH[key] = (workers,
+                         torch.empty((2, workers, f), dtype=torch.float32, device=device),
+                         torch.empty((2, workers), dtype=torch.int32, device=device))
+    workers, parts, rows = _SCRATCH[key]
+    launch(lib, "sage_segment_mean_launch", device, h, src, row_ptr, out, parts, rows, workers,
+           n_messages, v, f, dtype)
     LAUNCHES += 1
     return out
-
-
-def _raise(lib, code: int):
-    msg = lib.sage_segment_mean_error_string(code).decode()
-    raise RuntimeError(f"sage segment mean: the launch failed: {msg} (cudaError {code})")
 
 
 def _check(h, src, row_ptr, n_messages: int) -> None:
@@ -224,17 +212,11 @@ def _check(h, src, row_ptr, n_messages: int) -> None:
 
 def _library() -> ctypes.CDLL:
     """The kernel's library; its C signatures are declared at first use."""
-    return _declared(load_library("sage_aggregate"))
-
-
-def _declared(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """``lib`` with the kernel's C signatures declared."""
+    lib = load_library("sage_aggregate")
     if lib.sage_segment_mean_launch.argtypes is None:
         ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.sage_segment_mean_max_workers.argtypes = [i32, i32, i32]
         lib.sage_segment_mean_max_workers.restype = i64
         lib.sage_segment_mean_launch.argtypes = [ptr] * 6 + [i64, i64, i32, i32, i32, i32, ptr]
         lib.sage_segment_mean_launch.restype = i32
-        lib.sage_segment_mean_error_string.argtypes = [i32]
-        lib.sage_segment_mean_error_string.restype = ctypes.c_char_p
     return lib

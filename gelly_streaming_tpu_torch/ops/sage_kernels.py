@@ -37,7 +37,7 @@ import ctypes
 
 import torch
 
-from .cuda_build import load_library
+from .cuda_build import launch, load_library
 
 #: launches of either CUDA kernel since import (or since a caller reset it)
 LAUNCHES = 0
@@ -162,52 +162,20 @@ def _variant(h, agg, w_self, w_nbr, b) -> str:
 
 def _launch(variant, h, agg, w_self, w_nbr, b, out, activation) -> None:
     """Launch kernel ``variant`` on the current stream of ``out``'s device
-    and count it; raises with ``cudaGetErrorString`` if it is refused.
-    The operands are already checked by :func:`fused_sage_matmul`. The
-    device index goes to the launcher, which selects that card in the
-    CUDA runtime linked into the library (its current device is its own,
-    not PyTorch's)."""
+    and count it; raises if it is refused. The operands are already
+    checked by :func:`fused_sage_matmul`."""
     global LAUNCHES
     V, F = h.shape
     O = w_self.shape[1]
     relu = int(activation == "relu")
-    ptrs = (h.data_ptr(), agg.data_ptr(), w_self.data_ptr(),
-            w_nbr.data_ptr(), b.data_ptr(), out.data_ptr())
-    lib = _library()
-    device = out.device
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        if variant == "tc":
-            code = lib.fused_sage_matmul_tc_launch(
-                *ptrs, V, F, O, relu, _num_sms(device), index, stream
-            )
-        elif variant == "simt":
-            code = lib.fused_sage_matmul_launch(
-                *ptrs, V, F, O, _DTYPE_CODES[h.dtype], relu, index, stream
-            )
-        else:
-            raise ValueError(f"fused_sage_matmul: unknown kernel {variant!r}")
-    if code != 0:
-        msg = lib.fused_sage_matmul_error_string(code).decode()
-        raise RuntimeError(
-            f"fused_sage_matmul ({variant}) launch failed: {msg} "
-            f"(cudaError {code})"
-        )
+    ops = (h, agg, w_self, w_nbr, b, out)
+    if variant == "tc":
+        launch(_library(), "fused_sage_matmul_tc_launch", out.device, *ops, V, F, O, relu)
+    else:
+        launch(_library(), "fused_sage_matmul_launch", out.device, *ops, V, F, O,
+               _DTYPE_CODES[h.dtype], relu)
     LAUNCHES += 1
     LAUNCHES_BY_VARIANT[variant] += 1
-
-
-_SMS: dict = {}
-
-
-def _num_sms(device) -> int:
-    """Streaming multiprocessors of ``device``: the persistent tensor-core
-    kernel runs at most one block on each."""
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    if index not in _SMS:
-        _SMS[index] = torch.cuda.get_device_properties(index).multi_processor_count
-    return _SMS[index]
 
 
 def _check_activation(activation: str) -> None:
@@ -226,9 +194,6 @@ def _library() -> ctypes.CDLL:
         fn.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
         fn.restype = i32
         tc = lib.fused_sage_matmul_tc_launch
-        tc.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
+        tc.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
         tc.restype = i32
-        err = lib.fused_sage_matmul_error_string
-        err.argtypes = [i32]
-        err.restype = ctypes.c_char_p
     return lib

@@ -30,7 +30,7 @@ import ctypes
 import numpy as np
 import torch
 
-from .cuda_build import device_index, load_library
+from .cuda_build import launch, load_library, query
 
 #: launches of the scan kernel since import (or since a caller reset it):
 #: one a batch of edges on the card
@@ -107,22 +107,11 @@ def _scan_kernel(state: dict, edge_count: int, src, dst, vertex_count: int, u_co
     device = src.device
     out = {name: torch.empty_like(state[name]) for name, _ in FIELDS}
     n, k = u_coin.shape
-    index = device_index(device)
-    words = lib.reservoir_scan_scratch_words(n, k, index)
-    if words < 0:
-        msg = lib.reservoir_scan_error_string(-words).decode()
-        raise RuntimeError(f"reservoir scan: no plan for the launch: {msg} (cudaError {-words})")
+    words = query(lib, "reservoir_scan_scratch_words", device, n, k)
     scratch = torch.empty(words, dtype=torch.int32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = lib.reservoir_scan_launch(
-            *(state[name].data_ptr() for name, _ in FIELDS),
-            *(out[name].data_ptr() for name, _ in FIELDS),
-            src.data_ptr(), dst.data_ptr(), u_coin.data_ptr(), u_third.data_ptr(),
-            scratch.data_ptr(), words, edge_count, n, k, vertex_count, index, stream)
-    if code != 0:
-        msg = lib.reservoir_scan_error_string(code).decode()
-        raise RuntimeError(f"reservoir scan: the launch failed: {msg} (cudaError {code})")
+    launch(lib, "reservoir_scan_launch", device, *(state[name] for name, _ in FIELDS),
+           *(out[name] for name, _ in FIELDS), src, dst, u_coin, u_third, scratch, words,
+           edge_count, n, k, vertex_count)
     LAUNCHES += 1
     return out, edge_count + n
 
@@ -179,7 +168,4 @@ def _library() -> ctypes.CDLL:
         lib.reservoir_scan_launch.restype = i32
         lib.reservoir_scan_scratch_words.argtypes = [i32, i32, i32]
         lib.reservoir_scan_scratch_words.restype = i64
-        err = lib.reservoir_scan_error_string
-        err.argtypes = [i32]
-        err.restype = ctypes.c_char_p
     return lib

@@ -32,7 +32,7 @@ import numpy as np
 import pytest
 import torch
 
-from gelly_streaming_tpu_torch.ops import cc_kernels
+from gelly_streaming_tpu_torch.ops import cuda_build, cc_kernels
 from gelly_streaming_tpu_torch.summaries import labels as L
 
 CASES = ("rmat", "star_first", "star_last", "reverse_path", "self_loops", "half_masked",
@@ -377,7 +377,7 @@ class _StandIn:
         self._array(touched_out, nv, ctypes.c_bool)[:] = tch
         return 0
 
-    def cc_fold_error_string(self, code):
+    def launch_error_string(self, code):
         return b"a refused launch"
 
 
@@ -387,7 +387,7 @@ def stand_in(monkeypatch):
     stream lookups replaced."""
     lib = _StandIn()
     monkeypatch.setattr(cc_kernels, "_library", lambda: lib)
-    monkeypatch.setattr(cc_kernels, "device_index", lambda device: 0)
+    monkeypatch.setattr(cuda_build, "device_index", lambda device: 0)
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: type("Stream", (), {"cuda_stream": 0})())

@@ -39,18 +39,17 @@ kernel (``csrc/k_reach.cu``, one launch a search): equal to its plain
 version over a grid of batch widths, vertex counts, hops and live counts,
 and at B = 2048, at V = 2^21 (its bitmap read from device memory), with a
 hub of in-degree 2^16, and over consecutive searches on one scratch, which
-each leaves all zero; equal to the one-launch-a-hop search with no host
-sync; launched on its operands' card, refusing a malformed CSR before any
-launch, and the k = 3 spanner searching in several batches a window on the
+each leaves all zero; equal to it with no host sync; launched on its
+operands' card, refusing a malformed CSR before any launch, and the k = 3
+spanner searching in several batches a window on the
 card equal to the CPU without a host sync, and PageRank's fixpoint kernel
 (``csrc/pagerank.cu``, one launch a window, pulling over a CSR by
 target): against its plain version at config #4's last window, with a hub
 of in-degree 2^16 (cut into 64 pieces), with every vertex dangling, at the
 cap, with rows of one piece's length and one more, and with in-edges into
-padding rows (ranks within 1e-6, iterations within 2); against the first
-(push) design on the same operands, and both with no iteration equal to
-the warm start; one launch a window, no push launch and no host read
-through the entry point; no host sync in the window step; launched on its
+padding rows (ranks within 1e-6, iterations within 2); with no iteration
+equal to the warm start; one launch a window and no host read through the
+entry point; no host sync in the window step; launched on its
 operands' card; refused under deterministic algorithms; and superbatch 4
 within 1e-6 of superbatch 1, and the sampling estimators' reservoir scan
 kernel (``csrc/reservoir_scan.cu``, one launch a draw batch): equal to its
@@ -1644,14 +1643,13 @@ def _scratch_is_zero(rk, device, nv, b):
 
 
 def _search_equal(rk, card, csr, u, v, m, nv, k):
-    """One search against the plain version and the one-launch-a-hop
-    search; one launch, and the scratch left all zero."""
+    """One search against the plain version; one launch, and the scratch
+    left all zero."""
     before = rk.LAUNCHES
     got = rk.k_reach(csr, u, v, m, nv, k)
     torch.cuda.synchronize(card)
     assert rk.LAUNCHES == before + 1
     assert torch.equal(got, rk.k_reach_plain(csr, u, v, m, nv, k)), (nv, k)
-    assert torch.equal(got, rk.k_reach_by_hops(csr, u, v, m, nv, k)), (nv, k)
     assert _scratch_is_zero(rk, card, nv, u.shape[0])
     return got
 
@@ -1716,10 +1714,9 @@ def test_k_reach_consecutive_searches_share_one_scratch(card):
             _search_equal(rk, card, csr, u, v, m, nv, k)
 
 
-def test_k_reach_search_equals_the_hop_search_without_a_host_sync(card):
-    """On seeded cases the one-launch search and the one-launch-a-hop
-    search, both enqueued under strict sync mode (a host sync raises),
-    give the same answers, also equal to the plain version."""
+def test_k_reach_search_equals_plain_without_a_host_sync(card):
+    """On seeded cases the one-launch search, enqueued under strict sync
+    mode (a host sync raises), gives the plain version's answers."""
     from gelly_streaming_tpu_torch.ops import reach_kernels as rk
 
     cases = [(b, nv, k) for b in (32, 96, 1024) for nv in (333, 4099) for k in (1, 3, 4)]
@@ -1730,11 +1727,11 @@ def test_k_reach_search_equals_the_hop_search_without_a_host_sync(card):
     torch.cuda.set_sync_debug_mode("error")
     try:
         for (csr, u, v, m), nv, k in inputs:
-            got.append((rk.k_reach(csr, u, v, m, nv, k), rk.k_reach_by_hops(csr, u, v, m, nv, k)))
+            got.append(rk.k_reach(csr, u, v, m, nv, k))
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    for ((csr, u, v, m), nv, k), (new, old) in zip(inputs, got):
-        assert torch.equal(new, old) and torch.equal(new, rk.k_reach_plain(csr, u, v, m, nv, k))
+    for ((csr, u, v, m), nv, k), new in zip(inputs, got):
+        assert torch.equal(new, rk.k_reach_plain(csr, u, v, m, nv, k))
 
 
 # --------------------------------------------------------------------- #
@@ -1801,7 +1798,6 @@ def _fixpoint_equal(card, src, dst, ranks, n_seen, tol=1e-6, chunk=10, max_chunk
 def test_pagerank_kernel_matches_plain_at_config_4s_last_window(card):
     from gelly_streaming_tpu_torch.ops import pagerank_kernels as pk
 
-    assert pk._library().slot_floats == pk._library().pagerank_slot_floats() == 8
     src, dst, ranks, n_seen = _last_window_operands(card)
     r, _, it = _fixpoint_equal(card, src, dst, ranks, n_seen)
     assert 1 <= int(it) <= 50 and abs(float(r.double().sum()) - 1) <= 1e-5
@@ -1876,30 +1872,19 @@ def test_pagerank_kernel_with_rows_of_a_piece_and_one_more(card):
     assert float(r[nv:].abs().max()) == 0.0
 
 
-def test_pagerank_pull_matches_the_push_design(card):
-    """The library's kernel (the pull) and the first design (the push,
-    reached only through its private entry) on config #4's last window:
-    ranks within 1e-6 and 1e-4 of each other relative to the push's,
-    iterations within 2; each design counted in its own counter; and with no
-    iteration both return the warm start."""
+def test_pagerank_kernel_with_no_iteration_returns_the_warm_start(card):
+    """max_iters 0 (the set-up alone) on config #4's last window: the warm
+    start's ranks, l1 +inf, 0 iterations."""
     from gelly_streaming_tpu_torch.ops import pagerank_kernels as pk
 
     src, dst, ranks, n_seen = _last_window_operands(card)
-    launches, push = pk.LAUNCHES, pk.PUSH_LAUNCHES
-    r, _, it = pk._fixpoint_kernel(src, dst, ranks, n_seen, 0.85, 1e-6, 50)
-    q, _, qit = pk._fixpoint_push(src, dst, ranks, n_seen, 0.85, 1e-6, 50)
-    torch.cuda.synchronize(card)
-    assert pk.LAUNCHES == launches + 1 and pk.PUSH_LAUNCHES == push + 1
-    assert float((r - q).abs().max()) <= 1e-6 and _ranks_close(r, q)
-    assert abs(int(it) - int(qit)) <= 2
     active = torch.arange(ranks.shape[0], device=card) < n_seen
     warm = torch.where(active & (ranks == 0), 1.0 / torch.tensor(float(n_seen), device=card),
                        ranks)
     warm = warm / warm.sum()
-    for run in (pk._fixpoint_kernel, pk._fixpoint_push):
-        w, delta, it0 = run(src, dst, ranks, n_seen, 0.85, 1e-6, 0)
-        assert int(it0) == 0 and float(delta) == float("inf")
-        assert _ranks_close(w, warm) and float((w - warm).abs().max()) <= 1e-9
+    w, delta, it0 = pk._fixpoint_kernel(src, dst, ranks, n_seen, 0.85, 1e-6, 0)
+    assert int(it0) == 0 and float(delta) == float("inf")
+    assert _ranks_close(w, warm) and float((w - warm).abs().max()) <= 1e-9
 
 
 def test_pagerank_makes_one_launch_a_window_and_no_host_read(card):
@@ -1908,11 +1893,10 @@ def test_pagerank_makes_one_launch_a_window_and_no_host_read(card):
 
     src, dst = _zipf(13, 1 << 12, 1 << 15)
     for superbatch in (1, 4):
-        pk.LAUNCHES = pk.HOST_READS = pk.PUSH_LAUNCHES = 0
+        pk.LAUNCHES = pk.HOST_READS = 0
         ems = list(IncrementalPageRank(superbatch=superbatch).run(
             _pr_stream(src, dst, 1 << 12, 1 << 12, card)))
         assert len(ems) == 8 and pk.LAUNCHES == 8 and pk.HOST_READS == 0
-        assert pk.PUSH_LAUNCHES == 0
 
 
 def test_pagerank_window_step_makes_no_host_sync(card):
@@ -2245,7 +2229,7 @@ def test_pagerank_fixpoint_device_span_is_the_profilers_kernel(card):
     torch.cuda.synchronize(card)
     prof, sink = _traced_profile(card, windows)
     kernels = sorted((s, e) for name, s, e, dev in _records(prof)
-                     if dev and "pagerank_fixpoint" in name and "push" not in name)
+                     if dev and "pagerank_fixpoint" in name)
     devs = sink.named("pagerank.fixpoint.device")
     assert len(kernels) == len(devs) == 3
     for (ks, ke), d in zip(kernels, devs):

@@ -211,3 +211,103 @@ def test_library_path_changes_when_a_header_changes(monkeypatch, tmp_path):
     assert second != first
     (tmp_path / "more.cuh").write_text("// new header\n")
     assert cuda_build.library_path("k") not in (first, second)
+
+
+# --------------------------------------------------------------------- #
+# The shared launch path: ops/cuda_build.launch and csrc/launch.cuh
+# --------------------------------------------------------------------- #
+class _Launchers:
+    """A library's C interface without a card: each call is recorded and
+    answers ``code`` (a launcher) or ``value`` (a plan)."""
+
+    def __init__(self, code=0, value=7):
+        self.code, self.value = code, value
+        self.calls = []
+
+    def some_launch(self, *args):
+        self.calls.append(args)
+        return self.code
+
+    def some_plan(self, *args):
+        self.calls.append(args)
+        return self.value
+
+    @staticmethod
+    def launch_error_string(code):
+        return b"too many blocks in cooperative launch"
+
+
+@pytest.fixture
+def on_card_3(monkeypatch):
+    """Card 3 as the operands' card, with a stream of handle 4660 current
+    on it; the devices each lookup was asked about are kept."""
+    import contextlib
+
+    asked = []
+
+    def stream(device=None):
+        asked.append(device)
+        return type("Stream", (), {"cuda_stream": 4660})()
+
+    monkeypatch.setattr(cuda_build, "device_index", lambda device: 3)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", stream)
+    return asked
+
+
+def test_launch_passes_tensors_as_pointers_then_the_card_and_its_stream(on_card_3):
+    lib = _Launchers()
+    a, b = torch.zeros(4), torch.zeros(2, dtype=torch.int32)
+    cuda_build.launch(lib, "some_launch", "cuda:3", a, 5, b, 0.5)
+    assert lib.calls == [(a.data_ptr(), 5, b.data_ptr(), 0.5, 3, 4660)]
+    assert on_card_3 == ["cuda:3"]
+
+
+def test_launch_raises_on_a_refused_launch_with_its_name_message_and_code(on_card_3):
+    lib = _Launchers(code=720)
+    with pytest.raises(RuntimeError) as err:
+        cuda_build.launch(lib, "some_launch", "cuda:3", torch.zeros(1))
+    text = str(err.value)
+    assert "some_launch" in text and "too many blocks in cooperative launch" in text
+    assert "720" in text and len(lib.calls) == 1
+
+
+@pytest.mark.parametrize("value", [0, 7, -720])
+def test_query_returns_a_plan_and_raises_on_a_negated_error_code(value, on_card_3):
+    """A planning call gets its arguments and the card's index, no stream;
+    a negative answer is minus an error code, raised with the call's name."""
+    lib = _Launchers(value=value)
+    if value < 0:
+        with pytest.raises(RuntimeError, match=r"some_plan failed: too many .* \(cudaError 720\)"):
+            cuda_build.query(lib, "some_plan", "cuda:3", 2, 9)
+    else:
+        assert cuda_build.query(lib, "some_plan", "cuda:3", 2, 9) == value
+    assert lib.calls == [(2, 9, 3)]
+
+
+CUDA_SOURCES = ("cc_fold", "fused_sage_matmul", "k_reach", "pagerank", "reservoir_scan",
+                "sage_aggregate")
+
+
+def test_every_cuda_source_is_listed():
+    import os
+
+    found = sorted(f[:-3] for f in os.listdir(cuda_build.CSRC_DIR) if f.endswith(".cu"))
+    assert tuple(found) == CUDA_SOURCES
+
+
+@pytest.mark.parametrize("name", CUDA_SOURCES)
+def test_cuda_source_uses_the_shared_launch_header(name):
+    """Each source includes ``launch.cuh`` and keeps no copy of what it
+    holds: no ``select_device``, error-string export, occupancy query or
+    device switch of its own."""
+    import os
+    import re
+
+    with open(os.path.join(cuda_build.CSRC_DIR, name + ".cu")) as f:
+        src = f.read()
+    assert re.search(r'^#include "launch\.cuh"$', src, re.M)
+    assert not re.search(r"\bselect_device\s*\([^)]*\)\s*\{", src)
+    assert not re.search(r"\w*_error_string\s*\(", src)
+    assert not re.search(r"cudaSetDevice|cudaOccupancyMaxActiveBlocksPerMultiprocessor|"
+                         r"cudaGetErrorString", src)

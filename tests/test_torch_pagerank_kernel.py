@@ -38,7 +38,7 @@ import pytest
 import torch
 
 from gelly_streaming_tpu.library.pagerank import _make_pr_window_body
-from gelly_streaming_tpu_torch.ops import pagerank_kernels as pk
+from gelly_streaming_tpu_torch.ops import cuda_build, pagerank_kernels as pk
 
 NV = 256  # rank slots
 ECAP = 2048  # the carry's edge capacity
@@ -65,10 +65,14 @@ def _jax_step(chunk, max_chunks):
     return jax.jit(_make_pr_window_body(None, chunk, max_chunks))
 
 
-def kernel_model(src, dst, ranks, n_seen, damping, tol, max_iters):
-    """The push kernel's loop in numpy float32: warm start, out-degrees, then
-    iterations until the L1 change is at most ``tol`` (that iteration
-    included) or ``max_iters``. Returns ``(ranks, l1, iterations)``."""
+def push_model(src, dst, ranks, n_seen, damping, tol, max_iters):
+    """An independent model of the fixpoint in numpy float32, as a push
+    (each iteration scatters every edge's contribution into its target):
+    warm start, out-degrees, then iterations until the L1 change is at most
+    ``tol`` (that iteration included) or ``max_iters``. Returns ``(ranks,
+    l1, iterations)``. It is the arithmetic of the first card design, a
+    push kernel that the pull replaced; it holds the JAX step and
+    ``fixpoint_plain`` to a model written apart from the pull's."""
     f = np.float32
     nv = len(ranks)
     n = f(max(n_seen, 1))
@@ -249,7 +253,7 @@ def _torch_operands(operands):
 def test_kernel_model_matches_the_jax_window_step(case, tol):
     for w, (operands, want) in enumerate(_run_windows(case, 3, tol)):
         src, dst, ranks, n_seen = operands
-        got = kernel_model(src, dst, ranks, n_seen, DAMPING, tol, CHUNK * MAX_CHUNKS)
+        got = push_model(src, dst, ranks, n_seen, DAMPING, tol, CHUNK * MAX_CHUNKS)
         _assert_window(got, want, tol, CHUNK * MAX_CHUNKS, f"{case} window {w}")
 
 
@@ -258,7 +262,7 @@ def test_kernel_model_matches_the_jax_window_step(case, tol):
 def test_fixpoint_plain_matches_the_kernel_model(case, tol):
     for w, (operands, _) in enumerate(_run_windows(case, 4, tol)):
         src, dst, ranks, n_seen = operands
-        want = kernel_model(src, dst, ranks, n_seen, DAMPING, tol, CHUNK * MAX_CHUNKS)
+        want = push_model(src, dst, ranks, n_seen, DAMPING, tol, CHUNK * MAX_CHUNKS)
         ts, td, tr, _ = _torch_operands(operands)
         r, delta, it = pk.fixpoint_plain(ts, td, tr, n_seen, DAMPING, tol, CHUNK, MAX_CHUNKS)
         assert r.dtype == torch.float32 and delta.dtype == torch.float32
@@ -321,7 +325,7 @@ def test_cap_reached_at_tol_zero(case):
     for w, (operands, want) in enumerate(_run_windows(case, 5, 0.0, chunk, max_chunks)):
         assert want[2] == cap
         src, dst, ranks, n_seen = operands
-        got = kernel_model(src, dst, ranks, n_seen, DAMPING, 0.0, cap)
+        got = push_model(src, dst, ranks, n_seen, DAMPING, 0.0, cap)
         _assert_window(got, want, 0.0, cap, f"{case} window {w} model")
         got = pull_model(src, dst, ranks, n_seen, DAMPING, 0.0, cap)
         _assert_window(got, want, 0.0, cap, f"{case} window {w} pull model")
@@ -353,8 +357,8 @@ def _scratch_bytes(n_edges, nv):
 
 class _StandIn:
     """The kernel library's C interface, computed by :func:`pull_model` at
-    the kernel's split (and the push by :func:`kernel_model`) through the
-    operands' pointers, as the kernels read and write them."""
+    the kernel's split through the operands' pointers, as the kernel reads
+    and writes them."""
 
     def __init__(self, code=0):
         self.code = code
@@ -385,20 +389,12 @@ class _StandIn:
         return self._run(model, "pull", src, dst, ranks_in, ranks_out, delta, iters, n_edges,
                          nv, n_seen, damping, tol, max_iters)
 
-    def pagerank_fixpoint_push_launch(self, src, dst, ranks_in, ranks_out, scratch, delta,
-                                      iters, n_edges, nv, n_seen, damping, tol, max_iters,
-                                      device, stream):
-        return self._run(kernel_model, "push", src, dst, ranks_in, ranks_out, delta, iters,
-                         n_edges, nv, n_seen, damping, tol, max_iters)
-
     def pagerank_scratch_bytes(self, n_edges, nv):
         self.calls.append(dict(scratch=(n_edges, nv)))
         return _scratch_bytes(n_edges, nv)
 
-    def pagerank_error_string(self, code):
+    def launch_error_string(self, code):
         return b"a refused launch"
-
-    slot_floats = 8
 
 
 @pytest.fixture
@@ -407,7 +403,7 @@ def stand_in(monkeypatch):
     stream lookups replaced."""
     lib = _StandIn()
     monkeypatch.setattr(pk, "_library", lambda: lib)
-    monkeypatch.setattr(pk, "device_index", lambda device: 0)
+    monkeypatch.setattr(cuda_build, "device_index", lambda device: 0)
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: type("Stream", (), {"cuda_stream": 0})())
@@ -438,40 +434,20 @@ def test_card_path_makes_one_launch_into_new_tensors(stand_in):
 def test_card_path_raises_on_a_refused_launch_uncounted(stand_in):
     stand_in.code = 720  # cudaErrorCooperativeLaunchTooLarge
     (operands, _), = _run_windows("skewed", 8, 1e-4)[:1]
-    before, push = pk.LAUNCHES, pk.PUSH_LAUNCHES
+    before = pk.LAUNCHES
     with pytest.raises(RuntimeError, match="a refused launch"):
         pk._fixpoint_kernel(*_torch_operands(operands), DAMPING, 1e-4, 50)
-    with pytest.raises(RuntimeError, match="a refused launch"):
-        pk._fixpoint_push(*_torch_operands(operands), DAMPING, 1e-4, 50)
-    assert pk.LAUNCHES == before and pk.PUSH_LAUNCHES == push
-    assert [c.get("design") for c in stand_in.calls] == [None, "pull", "push"]
+    assert pk.LAUNCHES == before
+    assert [c.get("design") for c in stand_in.calls] == [None, "pull"]
 
 
-def test_card_path_push_is_counted_apart(stand_in):
-    """The first design's private entry: one launch of the push, counted
-    in PUSH_LAUNCHES and not in LAUNCHES, into new tensors, with the
-    values of the push model."""
-    for w, (operands, want) in enumerate(_run_windows("skewed", 10, 1e-5)):
-        src, dst, ranks, n_seen = _torch_operands(operands)
-        held = ranks.clone()
-        before, push = pk.LAUNCHES, pk.PUSH_LAUNCHES
-        r, delta, it = pk._fixpoint_push(src, dst, ranks, n_seen, DAMPING, 1e-5,
-                                         CHUNK * MAX_CHUNKS)
-        assert pk.LAUNCHES == before and pk.PUSH_LAUNCHES == push + 1
-        assert stand_in.calls[-1]["design"] == "push"
-        assert r.data_ptr() != ranks.data_ptr() and torch.equal(ranks, held)
-        _assert_window((r.numpy(), float(delta), int(it)), want, 1e-5, CHUNK * MAX_CHUNKS,
-                       f"window {w}")
-
-
-@pytest.mark.parametrize("design", ["pull", "push"])
+@pytest.mark.parametrize("design", ["pull"])
 def test_card_path_with_no_iteration_returns_the_warm_start(design, stand_in):
     """max_iters 0 (the set-up alone, which chip_smoke.py times): the warm
     start's ranks, l1 +inf, 0 iterations."""
     (operands, _), = _run_windows("partial_seen", 11, 1e-4)[1:2]
     src, dst, ranks, n_seen = _torch_operands(operands)
-    run = pk._fixpoint_kernel if design == "pull" else pk._fixpoint_push
-    r, delta, it = run(src, dst, ranks, n_seen, DAMPING, 1e-4, 0)
+    r, delta, it = pk._fixpoint_kernel(src, dst, ranks, n_seen, DAMPING, 1e-4, 0)
     active = torch.arange(NV) < n_seen
     want = torch.where(active & (ranks == 0), 1.0 / torch.tensor(float(n_seen)), ranks)
     assert torch.allclose(r, want / want.sum(), rtol=1e-6, atol=0.0)

@@ -32,7 +32,7 @@ import jax.numpy as jnp
 
 from gelly_streaming_tpu.library import sampling as JS
 from gelly_streaming_tpu_torch.library import sampling as TS
-from gelly_streaming_tpu_torch.ops import sampling_kernels as sk
+from gelly_streaming_tpu_torch.ops import cuda_build, sampling_kernels as sk
 
 TILE_COLS = 128  # csrc/reservoir_scan.cu: 4 * kMaxGroups columns a tile
 SLICE_ROWS = 64  # a slice at the least grid's lanes * kRows (8 * 8 at k >= 128)
@@ -496,7 +496,7 @@ class _StandIn:
             self._array(ptr, k, ctype)[:] = out[f]
         return 0
 
-    def reservoir_scan_error_string(self, code):
+    def launch_error_string(self, code):
         return b"a refused launch"
 
 
@@ -506,7 +506,7 @@ def stand_in(monkeypatch):
     stream lookups replaced."""
     lib = _StandIn()
     monkeypatch.setattr(sk, "_library", lambda: lib)
-    monkeypatch.setattr(sk, "device_index", lambda device: 0)
+    monkeypatch.setattr(cuda_build, "device_index", lambda device: 0)
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: type("Stream", (), {"cuda_stream": 0})())
